@@ -1,0 +1,33 @@
+"""gpr_tpu_torch: the PyTorch and CUDA port of gpr_tpu.
+
+Mirrors gpr_tpu/__init__.py for the names ported so far: the kernel algebra
+and its string DSL, exact GP fit -> predict, and save/load of the reference's
+5-file model artifacts.  On a CUDA tensor the fit runs through hand-written
+CUDA kernels (ops/gram.py, ops/fullchol.py; sources in csrc/); on a CPU
+tensor through their plain torch versions.  This package imports torch and
+numpy only, never JAX.
+"""
+
+from .kernels.kernels import (  # noqa: F401
+    Constant,
+    Gaussian,
+    GaussianARD,
+    GaussianExp,
+    Kernel,
+    Linear,
+    Matern12,
+    Matern32,
+    Matern52,
+    Periodic,
+    Product,
+    RationalQuadratic,
+    Sum,
+    White,
+    gram,
+    kvec,
+)
+from .kernels.dsl import kernel_to_string, parse_kernel  # noqa: F401
+from .gp.exact import GP, fit, load  # noqa: F401
+from .utils import config  # noqa: F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,54 @@
+"""Carry a kernel or a trained GP from the JAX package into the port.
+
+The input is plain numpy (or a kernel string), so this module imports no JAX:
+the caller extracts the state from a ``gpr_tpu`` object.
+
+  kernel tree   the kernel's ``kernel_to_string()`` (its ``.17g`` numbers
+                round-trip exactly), or a nested ``(class_name, args)``
+                pair: ``args`` is the list of the class's constructor
+                arguments as numpy arrays, or for ``Sum``/``Product`` the two
+                sub-trees.
+  GP state      a dict ``{"kernel": tree, "X", "Y", "sigma", "alpha", "L",
+                "core"}`` of numpy arrays (``L`` and ``core`` may be None).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .gp.exact import GP
+from .kernels import kernels as kermod
+from .kernels.dsl import parse_kernel
+
+_CLASSES = {
+    c.__name__: c
+    for c in (kermod.Gaussian, kermod.GaussianExp, kermod.White, kermod.RationalQuadratic,
+              kermod.Periodic, kermod.Sum, kermod.Product, kermod.Matern12, kermod.Matern32,
+              kermod.Matern52, kermod.GaussianARD, kermod.Linear, kermod.Constant)
+}
+
+
+def kernel_from_numpy(tree) -> kermod.Kernel:
+    """The port's kernel from a kernel string or a ``(class_name, args)`` tree."""
+    if isinstance(tree, str):
+        return parse_kernel(tree)
+    name, args = tree
+    if name not in _CLASSES:
+        raise ValueError(f"kernel_from_numpy: unknown kernel class {name!r}")
+    cls = _CLASSES[name]
+    if cls in (kermod.Sum, kermod.Product):
+        return cls(kernel_from_numpy(args[0]), kernel_from_numpy(args[1]))
+    return cls(*[torch.as_tensor(np.asarray(a, np.float64)) for a in args])
+
+
+def gp_from_numpy(state: dict, device=None) -> GP:
+    """The port's GP from the numpy state of a ``gpr_tpu.GP``."""
+    def tensor(key):
+        v = state.get(key)
+        return None if v is None else torch.as_tensor(np.array(v), device=device)
+
+    X = tensor("X")
+    return GP(kernel_from_numpy(state["kernel"]), X, tensor("Y"),
+              float(np.asarray(state["sigma"])), tensor("alpha"), tensor("L"), tensor("core"),
+              route="converted")

@@ -1,0 +1,2 @@
+"""Numerics of the port: the hand-written CUDA kernels and the linear algebra
+around them (mirrors gpr_tpu/ops)."""

@@ -1,0 +1,132 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+At first use, ``nvcc`` compiles every ``gpr_tpu_torch/csrc/*.cu`` into one
+shared library with a plain C interface, ``gpr_tpu_torch/_build/
+libgpr_kernels-<hash>.so``, keyed by a hash of the sources and flags, and
+``ctypes`` loads it.  Nothing is built when a module is imported, and there is
+no fallback: a missing ``nvcc`` or a failed build raises.
+
+Every C entry point launches on the stream it is given (PyTorch's current
+stream), allocates nothing and returns ``cudaGetLastError()``; :class:`Kernel`
+raises if that is not 0 and counts the launches that went through, so that a
+run can show that its path reached the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libgpr_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless the library for these sources exists.
+    The compiler's resource report (``-Xptxas -v``) is kept beside it as
+    ``.ptxas.txt``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sources = [str(s) for s in sorted(CSRC.glob("*.cu"))]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    out.with_suffix(".ptxas.txt").write_text(proc.stderr)
+    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    return out
+
+
+_lib = None
+
+
+def library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        lib.gpr_error_string.argtypes = [_I]
+        lib.gpr_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+class Kernel:
+    """One C entry point of the library and the count of its launches."""
+
+    def __init__(self, name: str, symbol: str, argtypes):
+        self.name = name
+        self.symbol = symbol
+        self.argtypes = list(argtypes) + [_P]  # the stream comes last
+        self.launches = 0
+
+    def launch(self, device: torch.device, *args) -> None:
+        lib = library()
+        fn = getattr(lib, self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = _I
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            msg = lib.gpr_error_string(rc).decode()
+            raise RuntimeError(f"{self.name}: launch failed with CUDA error {rc} ({msg})")
+        self.launches += 1
+
+
+# (X, Y, K, n, m, d, form, sigma, scale, third, diag, tril)
+GRAM = Kernel("gram_tile", "gpr_gram", [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I])
+# (src, L, n_pad, n_true, d, j, form, sigma, scale, third, diag)
+PANEL_UPDATE = Kernel(
+    "panel_update", "gpr_panel_update", [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F]
+)
+# (L, W, n_pad, j)
+DIAG_FACTOR_INV = Kernel("diag_factor_inv", "gpr_diag_factor_inv", [_P, _P, _I, _I])
+# (L, W, n_pad, j)
+PANEL_SOLVE = Kernel("panel_solve", "gpr_panel_solve", [_P, _P, _I, _I])
+
+KERNELS = (GRAM, PANEL_UPDATE, DIAG_FACTOR_INV, PANEL_SOLVE)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.name: k.launches for k in KERNELS}

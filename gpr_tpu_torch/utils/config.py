@@ -1,0 +1,68 @@
+"""Dtype and matmul-precision policy of the port.
+
+Mirrors gpr_tpu/utils/config.py:25-99.  Two dtype tiers, as in the JAX
+package:
+
+  * ``fast``   float32, the production tier on the GPU;
+  * ``parity`` float64, for the golden tests against the reference's double.
+
+The policy sets defaults only; every function takes the dtype of its inputs.
+
+Matmul tier: IEEE float32.  The JAX package runs its f32 contractions at an
+f32-grade tier (bf16x3 "high" on the TPU, config.py:75-99) and never at a
+single bf16 pass.  On the GPU the matching rule is: no TF32.  Importing this
+module turns TF32 off for PyTorch's matrix products and cuDNN, so every
+float32 product in the port runs in full float32; the hand-written kernels
+compute in plain FP32 FMA.  3xTF32 or wgmma tiers come with later kernels.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+MATMUL_TIER = "ieee"
+
+
+@dataclasses.dataclass(frozen=True)
+class Policy:
+    name: str
+    default_dtype: torch.dtype
+
+
+_FAST = Policy(name="fast", default_dtype=torch.float32)
+_PARITY = Policy(name="parity", default_dtype=torch.float64)
+_POLICIES = {"fast": _FAST, "parity": _PARITY}
+
+_active = _FAST
+
+
+def set_policy(name: str) -> Policy:
+    global _active
+    if name not in _POLICIES:
+        raise ValueError(f"unknown policy {name!r}; expected 'fast' or 'parity'")
+    _active = _POLICIES[name]
+    return _active
+
+
+def policy() -> Policy:
+    return _active
+
+
+def default_dtype() -> torch.dtype:
+    return _active.default_dtype
+
+
+@contextlib.contextmanager
+def policy_scope(name: str):
+    global _active
+    prev = _active
+    try:
+        yield set_policy(name)
+    finally:
+        _active = prev

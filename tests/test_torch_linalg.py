@@ -1,0 +1,90 @@
+"""The port's linear algebra (gpr_tpu_torch.ops.linalg) against
+gpr_tpu.ops.linalg, in float64 on the CPU.
+
+Factors and solves: 1e-10 relative (same algorithm, other summation order).
+The jitter chosen by escalation must be the same value in both packages:
+both start from the same eps-scaled head-diagonal mean and grow it 10x.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gpr_tpu.ops import linalg as jl
+from gpr_tpu_torch.ops import linalg as tl
+
+
+def _spd(n, seed=0):
+    B = np.random.default_rng(seed).standard_normal((n, n))
+    return B @ B.T + n * np.eye(n)
+
+
+def _singular(n, seed=0):
+    # rank n-5, shifted to a smallest eigenvalue of -3e-13: no factorization
+    # without jitter, none at the first two jitters (~1.2e-14, ~1.2e-13) and a
+    # clear one at the third (~1.2e-12), whatever the rounding of either LAPACK
+    B = np.random.default_rng(seed).standard_normal((n, n - 5))
+    return B @ B.T - 3e-13 * np.eye(n)
+
+
+@pytest.mark.parametrize("n", [40, 300])
+def test_safe_cholesky_clean(n):
+    A = _spd(n)
+    L, j = tl.safe_cholesky(torch.tensor(A))
+    Lj, jj = jl.safe_cholesky(A)
+    np.testing.assert_allclose(L.numpy(), np.asarray(Lj), rtol=1e-10, atol=1e-10 * n)
+    assert float(j) == float(jj) == 0.0
+
+
+@pytest.mark.parametrize("initial", [0.0, 1e-9])
+def test_safe_cholesky_escalates_like_jax(initial):
+    A = _singular(60)
+    L, j = tl.safe_cholesky(torch.tensor(A), initial_jitter=initial)
+    Lj, jj = jl.safe_cholesky(A, initial_jitter=initial)
+    assert float(j) > 0.0
+    assert float(j) == pytest.approx(float(jj), rel=1e-12)
+    # the last pivots are ~1e-6, so the factors themselves differ in their
+    # last columns; each reconstructs A + jitter I to rounding
+    Ln = L.numpy()
+    np.testing.assert_allclose(Ln @ Ln.T, A + float(j) * np.eye(len(A)), rtol=0, atol=1e-12 * 60)
+
+
+def test_safe_cholesky_batched_escalates_per_element():
+    A = np.stack([_spd(30, 1), _singular(30, 2)])
+    L, j = tl.safe_cholesky(torch.tensor(A))
+    Lj, jj = jl.safe_cholesky(A)
+    assert float(j[0]) == 0.0 and float(j[1]) > 0.0
+    np.testing.assert_allclose(j.numpy(), np.asarray(jj), rtol=1e-12)
+    np.testing.assert_allclose(L[0].numpy(), np.linalg.cholesky(A[0]), rtol=1e-10, atol=1e-10)
+
+
+def test_never_factoring_comes_back_nan():
+    A = -np.eye(8)
+    L, _ = tl.safe_cholesky(torch.tensor(A), max_tries=2)
+    assert not torch.isfinite(L[-1, -1])
+
+
+def test_solves_logdet_and_diagonal():
+    A = _spd(50, 3)
+    b = np.random.default_rng(4).standard_normal((50, 3))
+    L = torch.linalg.cholesky(torch.tensor(A))
+    np.testing.assert_allclose(tl.cho_solve(L, torch.tensor(b)).numpy(),
+                               np.asarray(jl.cho_solve(L.numpy(), b)), rtol=1e-10)
+    np.testing.assert_allclose(tl.cho_solve(L, torch.tensor(b[:, 0])).numpy(),
+                               np.linalg.solve(A, b[:, 0]), rtol=1e-10)
+    np.testing.assert_allclose(tl.solve_psd(torch.tensor(A), torch.tensor(b)).numpy(),
+                               np.asarray(jl.solve_psd(A, b)), rtol=1e-10)
+    assert float(tl.logdet_from_chol(L)) == pytest.approx(float(jl.logdet_from_chol(L.numpy())),
+                                                          rel=1e-12)
+    # the clamp is the reference's long-double range, not float32's
+    huge = torch.diag(torch.full((10,), 1e300, dtype=torch.float64))
+    assert float(tl.logdet_from_chol(huge)) == pytest.approx(11356.523406294143)
+    Ab = torch.tensor(np.stack([A, 2 * A]))
+    np.testing.assert_array_equal(tl.add_diagonal(Ab, torch.tensor([1.0, 2.0])).numpy(),
+                                  np.asarray(jl.add_diagonal(Ab.numpy(), np.array([1.0, 2.0]))))
+
+
+def test_routes():
+    assert tl.cholesky_route(torch.eye(512)) == "torch-cholesky"
+    assert tl.cholesky_route(torch.eye(1024)) == "cusolver-unported"  # a CPU tensor
+    assert tl.cholesky_route(torch.eye(1024, dtype=torch.float64)) == "cusolver-unported"

@@ -1,0 +1,109 @@
+"""Package rules of the port: no JAX, dispatch that follows the tensor, and
+wrappers that refuse what their kernels do not take."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import gpr_tpu_torch as tg
+from gpr_tpu_torch.ops import _cuda, fullchol
+from gpr_tpu_torch.ops import gram as gop
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def test_import_loads_no_jax():
+    code = "import sys, gpr_tpu_torch, gpr_tpu_torch.convert; print('jax' in sys.modules)"
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "False"
+
+
+def test_sources_import_neither_jax_nor_gpr_tpu():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|gpr_tpu)\b", re.M)
+    files = [f for f in sorted((ROOT / "gpr_tpu_torch").rglob("*.py"))
+             if "_build" not in f.parts] + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        assert not pat.search(f.read_text()), f
+
+
+def test_tf32_is_off():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert tg.config.MATMUL_TIER == "ieee"
+    with tg.config.policy_scope("parity"):
+        assert tg.config.default_dtype() == torch.float64
+    assert tg.config.default_dtype() == torch.float32
+
+
+def test_cpu_tensors_launch_no_kernel(rng):
+    _cuda.reset_launch_counts()
+    X = torch.tensor(rng.standard_normal((600, 4)), dtype=torch.float32)
+    Y = torch.tensor(rng.standard_normal((600, 2)), dtype=torch.float32)
+    gop.gram(X, X, form="matern32", tril=True)
+    gp = tg.fit(tg.Gaussian(2.0), X, Y, sigma=0.1, use_pallas_gram=True)
+    gp.predict(X[:5])
+    fullchol.gram_cholesky_fused(X, 2.0, 1.0, 1.0, 0.1)
+    fullchol.cholesky_fused(torch.eye(256) * 2.0)
+    assert _cuda.launch_counts() == {k.name: 0 for k in _cuda.KERNELS}
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    X = torch.zeros((10, 3))
+    with pytest.raises(ValueError):
+        gop.gram(X.double(), X.double())  # dtype
+    with pytest.raises(ValueError):
+        gop.gram(X, torch.zeros((10, 4)))  # feature widths differ
+    with pytest.raises(ValueError):
+        gop.gram(X.T, X.T)  # not contiguous
+    with pytest.raises(ValueError):
+        gop.gram(X, X[:5], tril=True)  # tril needs the square case
+    with pytest.raises(ValueError):
+        gop.gram(X, X, form="linear")
+    with pytest.raises(ValueError):
+        fullchol.cholesky_fused(torch.eye(200))  # not a multiple of the panel
+    with pytest.raises(ValueError):
+        fullchol.cholesky_fused(torch.eye(256, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        fullchol.gram_cholesky_fused(X, 1.0, 1.0, 1.0, 0.0, form="periodic")
+    L = torch.empty((256, 256))
+    with pytest.raises(ValueError):
+        fullchol.diag_factor_inv(L, torch.empty((3, 128, 128)), 0)  # W of the wrong shape
+    with pytest.raises(ValueError):
+        fullchol.panel_update(L, 0, torch.zeros((100, 3)), form="gaussian")  # X does not pad to 256
+    with pytest.raises(ValueError):
+        gop.gram(X.to("meta"), X.to("meta"))  # neither CPU nor CUDA
+
+
+def test_library_path_follows_the_sources():
+    path = _cuda.library_path()
+    assert path.parent == ROOT / "gpr_tpu_torch" / "_build"
+    assert path == _cuda.library_path()
+    assert re.fullmatch(r"libgpr_kernels-[0-9a-f]{16}\.so", path.name)
+    assert {p.name for p in _cuda.CSRC.glob("*.cu*")} >= {"gram_tile.cuh", "gram.cu",
+                                                          "fullchol.cu"}
+
+
+def test_panel_width_matches_the_kernel_source():
+    src = (_cuda.CSRC / "fullchol.cu").read_text()
+    assert f"constexpr int kPanel = {fullchol.PANEL};" in src
+    tile = (_cuda.CSRC / "gram_tile.cuh").read_text()
+    for code, form in enumerate(gop.FORMS):
+        name = "k" + {"rq": "RQ"}.get(form, form.capitalize())
+        assert f"{name} = {code}," in tile, form
+
+
+def test_gp_is_a_module_with_buffers(rng):
+    X = torch.tensor(rng.standard_normal((20, 2)))
+    gp = tg.fit(tg.Gaussian(1.0), X, X[:, :1], sigma=0.1)
+    names = dict(gp.named_buffers())
+    assert {"X", "Y", "sigma", "alpha", "L", "kernel.sigma", "kernel.scale"} <= set(names)
+    assert isinstance(gp, torch.nn.Module) and isinstance(gp.kernel, torch.nn.Module)
+    np.testing.assert_allclose(gp.to(torch.device("cpu")).predict(X).numpy(),
+                               gp.predict(X).numpy())
