@@ -3,12 +3,15 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-It builds the hand-written kernels from gpr_tpu_torch/csrc with nvcc, then:
+It builds the hand-written kernels from gpr_tpu_torch/csrc with nvcc (one
+process per source, in parallel), then:
 
   1. holds each kernel (K1 gram_tile, K2 panel_update, K3 diag_factor_inv,
-     K4 panel_solve) against its plain torch version on the card: small
-     ragged shapes, the contracts of the fused factorization, and each kernel
-     at the shapes the n=16384 fit gives it;
+     K4 panel_solve, K5 syrk_update) against its plain torch version on the
+     card: small ragged shapes, the contracts of the fused factorization,
+     each kernel at the shapes the n=16384 fit gives it, and K5 (lower
+     triangle) at a ragged shape and at the top-level trailing updates of
+     n=3773 and n=16383;
   2. fits the bench model, Gaussian(8, 1) with sigma 0.1 at n=16384, d=128,
      q=8 (route "fused-gram"), and predicts mean and credible interval at
      1024 points;
@@ -17,17 +20,30 @@ It builds the hand-written kernels from gpr_tpu_torch/csrc with nvcc, then:
   4. fits at unaligned n: 3773 (Gram mode with pad masking) and 384 (route
      "gram-kernel");
   5. runs the reference's sinus gate;
-  6. times the n=16384 fit against the plain torch fit, and each kernel's
-     total per fit against its plain version's.
+  6. trains at the breathing shape (n=3773, d=5, q=3, float32): 5 fit_mle
+     and 3 fit_map steps (LogGaussian prior) from Gaussian(2, 1), sigma 0.1,
+     on route "blocked-syrk" (K5 in every factorization), then fit +
+     predict with the learned kernel;
+  7. runs one marginal-likelihood value + gradient at full width, n=16384,
+     d=128, q=8 (route "fused-matrix": K2-K4 under the Murray backward),
+     and one at n=16383 (route "blocked-syrk": K5 at full width);
+  8. times the n=16384 fit against the plain torch fit, each fused kernel's
+     total per fit against its plain version's, value + gradient at the
+     three training shapes against the plain float32 route, K5's total per
+     n=16383 factorization against its plain version and torch.addmm, and
+     the blocked-syrk factorization against torch.linalg.cholesky.
 
-Phases 2-4 hold the port's mean and credible interval against a float64
-torch reference and pass when the port's error is at most 3x that of the
-plain float32 torch route (torch Gram, torch.linalg.cholesky,
-cholesky_solve).  The launch counters are reset before phase 2 and read
-after phase 5: each kernel must have been launched there.  Any failure
-raises.  The last two lines are the card's name and power limit, then one
-JSON object with the device; the line before them lists the kernels.
-Exits non-zero, printing no result, where there is no CUDA device.
+Phases 2-4 and 6 hold the port's mean and credible interval against a
+float64 torch reference and pass when the port's error is at most 3x that
+of the plain float32 torch route (torch Gram, torch.linalg.cholesky,
+cholesky_solve).  Phases 6 and 7 hold each value and gradient of the
+marginal likelihood (at each training step's parameters) against a float64
+plain torch MLL (torch.linalg.cholesky + autograd) with the same 3x gate
+against the plain float32 MLL.  The launch counters are reset before each
+path (phases 2-5, 6, 7) and read after it: each kernel of the path must have
+been launched there.  Any failure raises.  The last lines are the kernels'
+JSON, the card's name and power limit, then one JSON object with the
+device.  Exits non-zero, printing no result, where there is no CUDA device.
 """
 
 from __future__ import annotations
@@ -41,13 +57,17 @@ import time
 import numpy as np
 
 
+LDBL_LOG_MAX = 11356.523406294143  # log of the largest 80-bit long double
+
+
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: FAILED: {msg}")
 
 
 def relerr(a, b):
-    return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+    a, b = a.double().to(b.device), b.double()
+    return float((a - b).abs().max() / b.abs().max())
 
 
 def main() -> int:
@@ -58,7 +78,9 @@ def main() -> int:
         return 1
 
     import gpr_tpu_torch as tg
-    from gpr_tpu_torch.ops import _cuda, fullchol
+    from gpr_tpu_torch.gp import likelihood as lk
+    from gpr_tpu_torch.inference import priors
+    from gpr_tpu_torch.ops import _cuda, blocked, fullchol, syrk
     from gpr_tpu_torch.ops import gram as gop
 
     dev = torch.device("cuda")
@@ -181,10 +203,60 @@ def main() -> int:
     print("phase 1c each kernel at the n=16384 fit's shapes (panel j=%d): %s" % (
         j0, ", ".join(f"{k} {v['max_abs_err']:.3g}" for k, v in kstats.items())))
 
+    # K5 on the lower triangle: a ragged shape and the top-level trailing
+    # updates of n=3773 (1853 x 1920) and n=16383 (8191 x 8192).  float32
+    # sums of k terms in another order than cuBLAS's: the error relative to
+    # the largest |S| grows like sqrt(k) eps, so the gate is 1e-5 sqrt(k).
+    g5 = torch.Generator(device=dev).manual_seed(5)
+    for m, k in ((200, 130), (1853, 1920), (8191, 8192)):
+        A22 = torch.randn((m, m), generator=g5, device=dev)
+        L21 = torch.randn((m, k), generator=g5, device=dev) / math.sqrt(k)
+        S = syrk.syrk_update(A22, L21)
+        R = syrk.syrk_update_reference(A22, L21)
+        low = torch.ones((m, m), dtype=torch.bool, device=dev).tril_()
+        err = float((S - R)[low].abs().max())
+        scale = float(R[low].abs().max())
+        check(err <= 1e-5 * math.sqrt(k) * scale, f"K5 at m={m} k={k}: {err} of {scale}")
+        print(f"phase 1d K5 syrk_update m={m} k={k}: max abs err {err:.3g} (largest |S| {scale:.3g})")
+        del A22, L21, S, R, low
+    kstats["syrk_update"] = {"max_abs_err": err}  # at the n=16383 top level
+    torch.cuda.empty_cache()
+
     # -------------------------------------------------------- references ---
     def gaussian64(A, B, sigma, scale):
         d2 = (A * A).sum(1)[:, None] + (B * B).sum(1)[None, :] - 2.0 * (A @ B.T)
         return scale * scale * torch.exp(-0.5 * d2.clamp(min=0.0) / (sigma * sigma))
+
+    def plain_mll(X, Y, sigma, params):
+        """(value per output, gradient) of the straightforward marginal
+        likelihood of Gaussian(*params) in the dtype of X: torch Gram,
+        torch.linalg.cholesky, cholesky_solve, autograd.  log|K| is clamped
+        to the reference's long-double range (include/Likelihood.h:180-188),
+        as the port clamps it: at sigma 0.1 and these n it lies below it."""
+        n = X.shape[0]
+        p = torch.tensor(params, dtype=torch.float64, device=X.device, requires_grad=True)
+        with torch.enable_grad():
+            K = gaussian64(X, X, p[0], p[1])
+            K = K + torch.diag(torch.full((n,), sigma * sigma, dtype=K.dtype, device=X.device))
+            L = torch.linalg.cholesky(K)
+            alpha = torch.cholesky_solve(Y, L)
+            df = -0.5 * (Y * alpha).sum(0)
+            cp = -0.5 * torch.clamp(2.0 * torch.log(torch.diagonal(L)).sum(),
+                                    -LDBL_LOG_MAX, LDBL_LOG_MAX)
+            ct = -n / 2.0 * math.log(2 * math.pi)
+            (g,) = torch.autograd.grad(df.sum() + cp + ct, p)
+        return (df + cp + ct).detach(), g
+
+    def hold_mll(name, params, X, Y, v, g, sigma):
+        """The port's value and gradient against the float64 plain MLL, within
+        3x the plain float32 MLL's error."""
+        v64, g64 = plain_mll(X.double(), Y.double(), sigma, params)
+        v32, g32 = plain_mll(X, Y, sigma, params)
+        e_v, e_g = relerr(v, v64), relerr(g, g64)
+        p_v, p_g = relerr(v32, v64), relerr(g32, g64)
+        print(f"  {name}: rel err vs f64: value {e_v:.3g} (plain f32 {p_v:.3g}), "
+              f"gradient {e_g:.3g} (plain f32 {p_g:.3g})")
+        check(e_v <= 3 * p_v and e_g <= 3 * p_g, f"{name}: error above 3x the plain f32 MLL's")
 
     def plain_gp(X, Y, Xs, kfun, kss, sigma):
         """Mean and credible interval of the straightforward exact GP in the
@@ -274,11 +346,67 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"phase 5 sinus gate on CUDA (float64): sum |err| = {err:.3g} < 0.0008 ok")
 
-    counts = _cuda.launch_counts()
-    print(f"launches on the main path (phases 2-5): {counts}")
-    check(all(v > 0 for v in counts.values()), "a kernel of the path was never launched")
+    counts_fit = _cuda.launch_counts()
+    print(f"launches on the fit path (phases 2-5): {counts_fit}")
+    fused = ("gram_tile", "panel_update", "diag_factor_inv", "panel_solve")
+    check(all(counts_fit[k] > 0 for k in fused), "a kernel of the fit path was never launched")
 
     # ---------------------------------------------------------------- 6 ----
+    # training at the breathing shape, on the phase 4 data
+    print("phase 6 training at n=3773 d=5 q=3 (float32), Gaussian(2, 1) start, sigma 0.1")
+    _cuda.reset_launch_counts()
+    k0 = tg.Gaussian(2.0, 1.0)
+    prior = [priors.LogGaussianDensity.from_mode_and_variance(2.0, 1.0), None]
+    k_mle, r_mle = tg.fit_mle(k0, X4, Y4, 0.1, iterations=5)
+    k_map, r_map = tg.fit_map(k0, X4, Y4, 0.1, prior, iterations=3)
+    check(r_mle.route == "blocked-syrk" and r_map.route == "blocked-syrk",
+          f"training took routes {r_mle.route}, {r_map.route}")
+    sg, sc = (float(v) for v in k_mle.params)
+    gp = tg.fit(k_mle, X4, Y4, sigma=0.1)
+    check(gp.route == "blocked-syrk", f"fit with the learned kernel took route {gp.route}")
+    torch.cuda.synchronize()
+    counts_train = _cuda.launch_counts()
+    print(f"  fit_mle trace {[round(float(v), 3) for v in r_mle.trace]} -> Gaussian({sg:.5g}, "
+          f"{sc:.5g}); fit_map trace {[round(float(v), 3) for v in r_map.trace]}")
+    judge("learned Gaussian, n=3773", gp, X4, Y4, Xs4, lambda A, B: gaussian64(A, B, sg, sc),
+          sc * sc, sig)
+    del gp
+    print(f"launches on the training path (phase 6): {counts_train}")
+    check(counts_train["syrk_update"] > 0, "K5 was never launched on the training path")
+    # each step's value and gradient, at the parameters the step started from
+    # (a run of i steps ends there; the kernels are deterministic)
+    for name, steps, run in (
+            ("fit_mle", 5, lambda i: tg.fit_mle(k0, X4, Y4, 0.1, iterations=i)),
+            ("fit_map", 3, lambda i: tg.fit_map(k0, X4, Y4, 0.1, prior, iterations=i))):
+        for i in range(steps):
+            ki, _ = run(i)
+            v, g = lk.mll_value_and_grad(ki, X4, Y4, 0.1)
+            if name == "fit_mle":
+                s_i = float(lk.mll_scalar(ki, X4, Y4, 0.1))
+                check(abs(s_i - float(r_mle.trace[i])) <= 1e-5 * abs(s_i), f"trace of step {i}")
+            hold_mll(f"{name} step {i}", [float(p) for p in ki.params], X4, Y4, v, g, sig)
+
+    # ---------------------------------------------------------------- 7 ----
+    print("phase 7 value + gradient at full width: Gaussian(8, 1), d=128, q=8, sigma 0.1")
+    _cuda.reset_launch_counts()
+    X163, Y163 = Xb[:16383], Yb[:16383]
+    check(lk.factor_route(Xb) == "fused-matrix" and lk.factor_route(X163) == "blocked-syrk",
+          "full-width routes")
+    v16k, g16k = lk.mll_value_and_grad(bench_k, Xb, Yb, 0.1)
+    v163, g163 = lk.mll_value_and_grad(bench_k, X163, Y163, 0.1)
+    torch.cuda.synchronize()
+    counts_full = _cuda.launch_counts()
+    print(f"launches on the full-width path (phase 7): {counts_full}")
+    check(all(counts_full[k] > 0 for k in fused[1:] + ("syrk_update",)),
+          "a factorization kernel of the full-width path was never launched")
+    hold_mll("n=16384 fused-matrix", [8.0, 1.0], Xb, Yb, v16k, g16k, sig)
+    torch.cuda.empty_cache()
+    hold_mll("n=16383 blocked-syrk", [8.0, 1.0], X163, Y163, v163, g163, sig)
+    torch.cuda.empty_cache()
+    counts = {k.name: counts_fit[k.name] + counts_train[k.name] + counts_full[k.name]
+              for k in _cuda.KERNELS}
+
+    # ---------------------------------------------------------------- 8 ----
     def ev():
         return torch.cuda.Event(enable_timing=True)
 
@@ -290,6 +418,15 @@ def main() -> int:
         b.synchronize()
         return a.elapsed_time(b)
 
+    def alternate(port, plain, pairs):
+        """Medians (port, plain) and the runs, in turns plain/port, port/plain."""
+        port(), plain()  # warm-up
+        t_port, t_plain = [], []
+        for i in range(pairs):
+            for fn in ((plain, port) if i % 2 == 0 else (port, plain)):
+                (t_port if fn is port else t_plain).append(timed(fn))
+        return float(np.median(t_port)), float(np.median(t_plain)), t_port, t_plain
+
     def port_fit():
         tg.fit(bench_k, Xb, Yb, sigma=0.1, use_pallas_gram=True)
 
@@ -298,13 +435,7 @@ def main() -> int:
         K.diagonal().add_(sig * sig)
         torch.cholesky_solve(Yb, torch.linalg.cholesky(K))
 
-    port_fit(), plain_fit()  # warm-up
-    t_port, t_plain = [], []
-    for i in range(6):
-        order = (plain_fit, port_fit) if i % 2 == 0 else (port_fit, plain_fit)
-        for fn in order:
-            (t_port if fn is port_fit else t_plain).append(timed(fn))
-    med_port, med_plain = float(np.median(t_port)), float(np.median(t_plain))
+    med_port, med_plain, t_port, t_plain = alternate(port_fit, plain_fit, 6)
 
     def per_kernel(steps):
         update, factor_inv, solve = steps
@@ -332,22 +463,123 @@ def main() -> int:
     kstats["gram_tile"].update(
         ms=median_ms(lambda: gop.gram(Xg, Xg, 8.0, 1.0, 1.0, gram_args[4])),
         plain_ms=median_ms(lambda: gop.gram_reference(Xg, Xg, 8.0, 1.0, 1.0, gram_args[4])),
+        library_ms=None,  # no single torch call builds a kernel's Gram matrix
     )
     big_ms = median_ms(lambda: gop.gram(Xb, Xb, 8.0, 1.0, 1.0, gram_args[4], tril=True), 5)
     big_plain = median_ms(lambda: gop.gram_reference(Xb, Xb, 8.0, 1.0, 1.0, gram_args[4]), 5)
-    print(f"phase 6 timings ({smi}), CUDA events, medians:")
+    Kb = gaussian64(Xb, Xb, 8.0, 1.0)
+    Kb.diagonal().add_(sig * sig)
+    chol_ms = median_ms(lambda: torch.linalg.cholesky(Kb), 5)  # K2-K4's library call
+    del Kb
+    for name in ("panel_update", "diag_factor_inv", "panel_solve"):
+        kstats[name]["library_ms"] = chol_ms
+
+    # value + gradient against the plain float32 route
+    vg_times = {}
+    for label, kern, X_, Y_, params, pairs in (
+            ("n=3773 d=5 q=3 (blocked-syrk)", k_mle, X4, Y4, [sg, sc], 5),
+            ("n=16384 d=128 q=8 (fused-matrix)", bench_k, Xb, Yb, [8.0, 1.0], 3),
+            ("n=16383 d=128 q=8 (blocked-syrk)", bench_k, X163, Y163, [8.0, 1.0], 3)):
+        vg_times[label] = alternate(lambda: lk.mll_value_and_grad(kern, X_, Y_, 0.1),
+                                    lambda: plain_mll(X_, Y_, sig, params), pairs)
+        torch.cuda.empty_cache()
+
+    # K5 per factorization at n=16383: each trailing update of the recursion
+    # timed alone, with the kernel, its plain version and torch.addmm in turn
+    K163 = gaussian64(X163, X163, 8.0, 1.0)
+    K163.diagonal().add_(sig * sig)
+    shapes = []
+
+    def updates_ms(update):
+        tot = [0.0]
+        orig = blocked.syrk_update
+
+        def timed_update(A22, L21, out):
+            shapes.append(tuple(L21.shape))
+            box = []
+            tot[0] += timed(lambda: box.append(update(A22, L21)))
+            if box[0] is not out:
+                out.copy_(box[0])
+            return out
+
+        blocked.syrk_update = timed_update
+        try:
+            L = blocked.cholesky_blocked(K163)
+        finally:
+            blocked.syrk_update = orig
+        check(bool(torch.isfinite(L[-1, -1])), "timed blocked factorization failed")
+        return tot[0]
+
+    upd = {"kernel": lambda A22, L21: syrk.syrk_update(A22, L21, out=A22),
+           "plain": syrk.syrk_update_reference,
+           "library": lambda A22, L21: torch.addmm(A22, L21, L21.mT, alpha=-1)}
+    runs = {k: [] for k in upd}
+    for order in (("kernel", "plain", "library"), ("library", "plain", "kernel")):
+        for k in order:
+            runs[k].append(updates_ms(upd[k]))
+    k5_shapes = shapes[:len(shapes) // 6]
+    kstats["syrk_update"].update(ms=float(np.median(runs["kernel"])),
+                                 plain_ms=float(np.median(runs["plain"])),
+                                 library_ms=float(np.median(runs["library"])))
+    fact_ms, tchol_ms, t_fact, t_tchol = alternate(lambda: blocked.cholesky_blocked(K163),
+                                                   lambda: torch.linalg.cholesky(K163), 3)
+    del K163
+    torch.cuda.empty_cache()
+
+    # bounds: the larger of operations over the 67 TFLOP/s FP32 peak and bytes
+    # (each input read once, each output written once) over 3.35 TB/s
+    def bound(flop, nbytes):
+        t_op, t_mem = flop / 67e12 * 1e3, nbytes / 3.35e12 * 1e3
+        return {"bound_ms": max(t_op, t_mem), "bound_by": "operations" if t_op >= t_mem else "bytes"}
+
+    def sum_bounds(parts):
+        t_op = sum(f for f, _ in parts) / 67e12 * 1e3
+        t_mem = sum(b for _, b in parts) / 3.35e12 * 1e3
+        by = "operations" if t_op >= t_mem else "bytes"
+        return {"bound_ms": sum(max(f / 67e12, b / 3.35e12) * 1e3 for f, b in parts),
+                "bound_by": by}
+
+    ng, dg, P = Xg.shape[0], Xg.shape[1], fullchol.PANEL
+    kstats["gram_tile"].update(bound(2.0 * ng * ng * dg, 4.0 * (2 * ng * dg + ng * ng)))
+    d = Xb.shape[1]
+    # K2 panel j: the strip's Gram cross term and update, 2 rows P (jp + d)
+    # FLOP; it reads X's rows and L[rows, :jp] and writes the strip and the
+    # zeros above it
+    kstats["panel_update"].update(sum_bounds([
+        (2.0 * (n - j * P) * P * (j * P + d),
+         4.0 * ((n - j * P) * (d + j * P + P) + j * P * P))
+        for j in range(nc)]))
+    kstats["diag_factor_inv"].update(sum_bounds([(2.0 * P ** 3 / 3.0, 4.0 * 3 * P * P)] * nc))
+    kstats["panel_solve"].update(sum_bounds([
+        (2.0 * (n - (j + 1) * P) * P * P, 4.0 * (2 * (n - (j + 1) * P) * P + P * P))
+        for j in range(nc - 1)]))
+    kstats["syrk_update"].update(sum_bounds([
+        (1.0 * m * (m + 1) * k, 4.0 * (m * (m + 1) + m * k)) for m, k in k5_shapes]))
+
+    print(f"phase 8 timings ({smi}), CUDA events, medians:")
     print(f"  fit n=16384 d=128 q=8: hand-written route {med_port:.2f} ms "
           f"(runs {', '.join(f'{t:.1f}' for t in t_port)}); plain torch route {med_plain:.2f} ms "
           f"(runs {', '.join(f'{t:.1f}' for t in t_plain)})")
     print(f"  per fit at n=16384: K2 panel_update {ker[0]:.2f} ms (plain {ref[0]:.2f}), "
           f"K3 diag_factor_inv {ker[1]:.2f} ms (plain {ref[1]:.2f}), "
-          f"K4 panel_solve {ker[2]:.2f} ms (plain {ref[2]:.2f}); sum of per-launch events")
+          f"K4 panel_solve {ker[2]:.2f} ms (plain {ref[2]:.2f}); sum of per-launch events; "
+          f"torch.linalg.cholesky of K {chol_ms:.2f} ms")
     print(f"  K1 gram_tile n=384 d=128: {kstats['gram_tile']['ms']:.4f} ms "
           f"(plain {kstats['gram_tile']['plain_ms']:.4f}); n=16384 d=128 tril: {big_ms:.2f} ms "
           f"(plain full {big_plain:.2f})")
+    for label, (tp, tq, rp, rq) in vg_times.items():
+        print(f"  MLL value + gradient {label}: port {tp:.2f} ms (runs "
+              f"{', '.join(f'{t:.1f}' for t in rp)}); plain f32 {tq:.2f} ms (runs "
+              f"{', '.join(f'{t:.1f}' for t in rq)})")
+    print(f"  K5 per n=16383 factorization ({len(k5_shapes)} launches, (m, k) = {k5_shapes}): "
+          f"kernel {runs['kernel']} ms, plain {runs['plain']} ms, torch.addmm {runs['library']} ms")
+    print(f"  blocked-syrk factorization n=16383: {fact_ms:.2f} ms (runs "
+          f"{', '.join(f'{t:.1f}' for t in t_fact)}); torch.linalg.cholesky {tchol_ms:.2f} ms "
+          f"(runs {', '.join(f'{t:.1f}' for t in t_tchol)})")
 
-    sources = {"gram_tile": "gpr_tpu_torch/csrc/gram.cu"}
-    replaces = {"gram_tile": "gpr_tpu/ops/pallas_gram.py:38"}
+    sources = {"gram_tile": "gpr_tpu_torch/csrc/gram.cu", "syrk_update": "gpr_tpu_torch/csrc/syrk.cu"}
+    replaces = {"gram_tile": "gpr_tpu/ops/pallas_gram.py:38",
+                "syrk_update": "gpr_tpu/ops/pallas_syrk.py:73"}
     kernels = []
     for k in _cuda.KERNELS:
         kernels.append({

@@ -1,11 +1,14 @@
 """gpr_tpu_torch: the PyTorch and CUDA port of gpr_tpu.
 
 Mirrors gpr_tpu/__init__.py for the names ported so far: the kernel algebra
-and its string DSL, exact GP fit -> predict, and save/load of the reference's
-5-file model artifacts.  On a CUDA tensor the fit runs through hand-written
-CUDA kernels (ops/gram.py, ops/fullchol.py; sources in csrc/); on a CPU
-tensor through their plain torch versions.  This package imports torch and
-numpy only, never JAX.
+and its string DSL with hyperparameter gradients, exact GP fit -> predict,
+save/load of the reference's 5-file model artifacts, the marginal
+likelihood with its gradient, the prior densities and MLE / MAP training.
+On a CUDA tensor the fit and the likelihood run through hand-written CUDA
+kernels (ops/gram.py, ops/fullchol.py, ops/syrk.py; sources in csrc/); on a
+CPU tensor through their plain torch versions.  The entry points run on the
+card unless given ``device="cpu"`` or CPU tensors.  This package imports
+torch and numpy only, never JAX.
 """
 
 from .kernels.kernels import (  # noqa: F401
@@ -24,10 +27,14 @@ from .kernels.kernels import (  # noqa: F401
     Sum,
     White,
     gram,
+    gram_derivative,
     kvec,
+    params_vector,
 )
 from .kernels.dsl import kernel_to_string, parse_kernel  # noqa: F401
 from .gp.exact import GP, fit, load  # noqa: F401
+from .gp import likelihood  # noqa: F401
+from .inference.optimize import fit_map, fit_mle  # noqa: F401
 from .utils import config  # noqa: F401
 
 __version__ = "0.1.0"

@@ -10,6 +10,9 @@ the caller extracts the state from a ``gpr_tpu`` object.
                 sub-trees.
   GP state      a dict ``{"kernel": tree, "X", "Y", "sigma", "alpha", "L",
                 "core"}`` of numpy arrays (``L`` and ``core`` may be None).
+  density       ``(class_name, args)``: a prior density's class name and its
+                constructor arguments, e.g. ``("LogGaussianDensity", [mu,
+                sigma])``, so that both packages build the same MAP objective.
 """
 
 from __future__ import annotations
@@ -18,8 +21,10 @@ import numpy as np
 import torch
 
 from .gp.exact import GP
+from .inference import priors
 from .kernels import kernels as kermod
 from .kernels.dsl import parse_kernel
+from .utils import config
 
 _CLASSES = {
     c.__name__: c
@@ -42,8 +47,26 @@ def kernel_from_numpy(tree) -> kermod.Kernel:
     return cls(*[torch.as_tensor(np.asarray(a, np.float64)) for a in args])
 
 
+_DENSITIES = {
+    c.__name__: c
+    for c in (priors.GaussianDensity, priors.LogGaussianDensity, priors.InverseGaussianDensity,
+              priors.GammaDensity)
+}
+
+
+def density_from_numpy(tree) -> priors.Density:
+    """The port's prior density from a ``(class_name, args)`` pair."""
+    name, args = tree
+    if name not in _DENSITIES:
+        raise ValueError(f"density_from_numpy: unknown density class {name!r}")
+    return _DENSITIES[name](*[float(np.asarray(a)) for a in args])
+
+
 def gp_from_numpy(state: dict, device=None) -> GP:
-    """The port's GP from the numpy state of a ``gpr_tpu.GP``."""
+    """The port's GP from the numpy state of a ``gpr_tpu.GP``, on ``device``
+    (by default the card, utils/config.py)."""
+    device = config.resolve_device(device)
+
     def tensor(key):
         v = state.get(key)
         return None if v is None else torch.as_tensor(np.array(v), device=device)

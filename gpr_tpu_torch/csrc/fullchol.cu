@@ -93,7 +93,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // 2. left-looking update with every factored panel: acc -= L[r, :jp] . L[c, :jp]
-  for (int k0 = 0; k0 < jp; k0 += kChunk) {
+  float part[kPer][kPer] = {};
+  for (int k0 = 0, c = 1; k0 < jp; k0 += kChunk, ++c) {
     {
       const int r = threadIdx.x / 4;  // 64 rows x 4 float4 = 256 loads per operand
       const int q = threadIdx.x % 4;
@@ -109,19 +110,11 @@ __global__ void __launch_bounds__(kThreads)
       sm.b[4 * q + 3][r] = b.w;
     }
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kChunk; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&sm.a[kk][ty * kPer]);
-      const float4 bv = *reinterpret_cast<const float4*>(&sm.b[kk][tx * kPer]);
-      const float a[kPer] = {av.x, av.y, av.z, av.w};
-      const float b[kPer] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < kPer; ++i)
-#pragma unroll
-        for (int c4 = 0; c4 < kPer; ++c4) acc[i][c4] = fmaf(-a[i], b[c4], acc[i][c4]);
-    }
+    rank_update_chunk(sm, part);
     __syncthreads();
+    if (c % kFold == 0) fold_update(acc, part);
   }
+  fold_update(acc, part);
 
   // 3. P into column block j of L
 #pragma unroll

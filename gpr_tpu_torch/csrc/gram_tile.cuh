@@ -70,16 +70,52 @@ __device__ __forceinline__ float gram_value(float d2, const GramParams& p) {
   }
 }
 
-// Stage rows [r0, r0+64) x features [k0, k0+16) of a row-major (nrows, d)
-// matrix into dst[k][r]; out-of-range entries read as zero.
+// Stage rows [r0, r0+64) x columns [k0, k0+16) of a row-major (nrows, ncols)
+// matrix with row stride ld into dst[k][r]; out-of-range entries read as zero.
 __device__ __forceinline__ void stage_rows(float (*dst)[kLd], const float* __restrict__ src,
-                                           int nrows, int d, int r0, int k0) {
+                                           size_t ld, int nrows, int ncols, int r0, int k0) {
   for (int e = threadIdx.x; e < kTile * kChunk; e += kThreads) {
     const int r = e / kChunk;
     const int kk = e % kChunk;
     const int gr = r0 + r;
     const int k = k0 + kk;
-    dst[kk][r] = (gr < nrows && k < d) ? src[(size_t)gr * d + k] : 0.0f;
+    dst[kk][r] = (gr < nrows && k < ncols) ? src[gr * ld + k] : 0.0f;
+  }
+}
+
+// The lower-triangle rank-k update shared by K2 (fullchol.cu) and K5
+// (syrk.cu), acc -= A B^T over k, summed in two levels: each staged chunk
+// goes into a partial tile `part` (rank_update_chunk), which is folded into
+// acc every kFold chunks (fold_update).  A k-term update then rounds like
+// k / (kFold kChunk) + kFold kChunk additions instead of a chain of k FMAs
+// into one running value, which is what keeps the Schur complements of a
+// large factorization (k up to n) as accurate as a blocked LAPACK potrf's.
+constexpr int kFold = 8;  // 128 terms per partial sum
+
+__device__ __forceinline__ void fold_update(float acc[kPer][kPer], float part[kPer][kPer]) {
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      acc[i][j] += part[i][j];
+      part[i][j] = 0.0f;
+    }
+}
+
+// part[i][j] -= sum_k a[ty*4 + i][k] b[tx*4 + j][k] over one staged chunk.
+__device__ __forceinline__ void rank_update_chunk(const TileSmem& sm, float part[kPer][kPer]) {
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+#pragma unroll
+  for (int kk = 0; kk < kChunk; ++kk) {
+    const float4 av = *reinterpret_cast<const float4*>(&sm.a[kk][ty * kPer]);
+    const float4 bv = *reinterpret_cast<const float4*>(&sm.b[kk][tx * kPer]);
+    const float a[kPer] = {av.x, av.y, av.z, av.w};
+    const float b[kPer] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) part[i][j] = fmaf(-a[i], b[j], part[i][j]);
   }
 }
 
@@ -103,8 +139,8 @@ __device__ __forceinline__ void gram_tile(const float* __restrict__ X, int nx, i
     for (int j = 0; j < kPer; ++j) acc[i][j] = 0.0f;
   }
   for (int k0 = 0; k0 < d; k0 += kChunk) {
-    stage_rows(sm.a, X, nx, d, row0, k0);
-    stage_rows(sm.b, Y, ny, d, col0, k0);
+    stage_rows(sm.a, X, d, nx, d, row0, k0);
+    stage_rows(sm.b, Y, d, ny, d, col0, k0);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < kChunk; ++kk) {

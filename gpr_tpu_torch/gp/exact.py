@@ -19,7 +19,10 @@ records the route it took in ``GP.route``:
                      n >= 1024), then ``safe_cholesky``.
   otherwise          the torch Gram, then ``safe_cholesky``, whose route
                      (``linalg.cholesky_route``) is recorded: ``"fused-matrix"``,
-                     ``"cusolver-unported"`` or ``"torch-cholesky"``.
+                     ``"blocked-syrk"``, ``"blocked"`` or ``"torch-cholesky"``.
+
+``fit`` and ``load`` run on the card unless given ``device="cpu"`` or CPU
+tensors (utils/config.py).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from ..kernels import kernels as kermod
 from ..kernels.dsl import kernel_to_string, parse_kernel
 from ..ops import fullchol, linalg
 from ..ops import gram as gram_op
-from ..utils import matrixio
+from ..utils import config, matrixio
 
 
 class GP(nn.Module):
@@ -207,15 +210,16 @@ def _gram_form(kernel):
 
 
 def fit(kernel: kermod.Kernel, X, Y, sigma: float = 0.0, efficient_storage: bool = False,
-        jitter: float = 0.0, use_pallas_gram: bool = False) -> GP:
+        jitter: float = 0.0, use_pallas_gram: bool = False, device=None) -> GP:
     """Train an exact GP: factor K + sigma^2 I and solve for the regression
     vectors (reference Initialize -> ComputeRegressionVectors,
     lib/GaussianProcess.cpp:117-130, 641-672, through a Cholesky solve).
     ``use_pallas_gram`` (the JAX package's name) routes the stationary
     kernels through the hand-written Gram and fused-factorization kernels;
-    see the module docstring for the routes."""
-    X = torch.as_tensor(X)
-    Y = torch.as_tensor(Y, device=X.device)
+    see the module docstring for the routes.  X and Y run on ``device``
+    (see utils/config.py: the card unless told otherwise)."""
+    X = config.as_input(X, device)
+    Y = config.as_input(Y, X.device)
     if X.ndim == 1:
         X = X[:, None]
     if Y.ndim == 1:
@@ -259,7 +263,9 @@ def fit(kernel: kermod.Kernel, X, Y, sigma: float = 0.0, efficient_storage: bool
 def load(prefix: str, dtype=None, device=None) -> GP:
     """Load a model saved by :meth:`GP.save`, by the JAX package or by the
     reference's ``GaussianProcess::Save`` (lib/GaussianProcess.cpp:183-268).
-    The stored CoreMatrix is used directly; nothing is refactored."""
+    The stored CoreMatrix is used directly; nothing is refactored.  The model
+    goes to ``device``, by default the card (utils/config.py)."""
+    device = config.resolve_device(device)
     for suffix in ("-RegressionVectors.txt", "-CoreMatrix.txt", "-SampleVectors.txt",
                    "-LabelVectors.txt", "-ParameterFile.txt"):
         path = prefix + suffix

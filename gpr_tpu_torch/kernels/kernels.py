@@ -1,12 +1,19 @@
-"""Composable GP kernels as ``torch.nn.Module``s (forward only).
+"""Composable GP kernels as ``torch.nn.Module``s.
 
-Mirrors gpr_tpu/kernels/kernels.py:43-62 and 76-812.  A kernel's
+Mirrors gpr_tpu/kernels/kernels.py:43-62, 76-812 and 532-576.  A kernel's
 hyperparameters are float64 0-dim buffers, in the reference's order
 (``params``); Gram matrices are computed in the dtype of the inputs, through
 the same GEMM forms as the JAX package: the squared-distance identity
 |x-y|^2 = |x|^2 + |y|^2 - 2 x.y for the isotropic kernels, and two
 cos/sin GEMMs for Periodic.  ``to_string`` gives the reference's kernel
 string byte for byte, so model files load in both packages.
+
+Hyperparameters carry gradients: ``with_params`` keeps a tensor that is
+part of an autograd graph (or a ``torch.func`` transform) attached, so the
+marginal likelihood is differentiated with respect to ``params_vector``.
+A 0-dim float64 hyperparameter does not promote a float32 Gram: the
+products below keep the dtype of X.  ``analytic_derivative`` holds the
+reference's hand-derived forms (golden checks for the tests).
 """
 
 from __future__ import annotations
@@ -25,6 +32,11 @@ def _as_2d(X) -> torch.Tensor:
 
 
 def _hyper(v) -> torch.Tensor:
+    """A float64 hyperparameter.  A tensor that carries a graph keeps it;
+    anything else is copied, so that the kernel owns its values."""
+    if isinstance(v, torch.Tensor) and (
+            v.requires_grad or torch._C._functorch.is_functorch_wrapped_tensor(v)):
+        return v.to(torch.float64)
     return torch.as_tensor(v, dtype=torch.float64).detach().clone()
 
 
@@ -66,6 +78,11 @@ class Kernel(nn.Module):
         raise NotImplementedError
 
     def _gram(self, X, Y, symmetric):  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def analytic_derivative(self, x, y) -> torch.Tensor:  # pragma: no cover - abstract
+        """d k(x, y) / d params by the reference's hand-derived formulas:
+        (p,) for one pair, (p, m) for row-wise pairs of two (m, d) batches."""
         raise NotImplementedError
 
     @property
@@ -113,6 +130,7 @@ class Gaussian(Kernel):
 
     def __init__(self, sigma, scale=1.0):
         for name, v in (("sigma", sigma), ("scale", scale)):
+            v = v.detach() if isinstance(v, torch.Tensor) else v
             if not float(v) > 0:  # rejects 0, negatives and NaN
                 raise ValueError(f"GaussianKernel: {name} has to be positive")
         super().__init__(sigma, scale)
@@ -122,6 +140,12 @@ class Gaussian(Kernel):
 
     def _gram(self, X, Y, symmetric):
         return self.scale**2 * torch.exp(-0.5 * sqdist(X, Y) / self.sigma**2)
+
+    def analytic_derivative(self, x, y):
+        """Reference Kernel.h:471-479: d/d[sigma, scale]."""
+        r2 = _r2(x, y)
+        f = torch.exp(-0.5 * r2 / self.sigma**2)
+        return torch.stack([self.scale**2 * r2 / self.sigma**3 * f, 2 * self.scale * f])
 
     def to_string(self):
         return f"GaussianKernel({_fmt(self.sigma)},{_fmt(self.scale)},)"
@@ -142,6 +166,15 @@ class GaussianExp(Kernel):
     def _gram(self, X, Y, symmetric):
         es, ec = torch.exp(self.sigma), torch.exp(self.scale)
         return ec**2 * torch.exp(-0.5 * sqdist(X, Y) / es**2)
+
+    def analytic_derivative(self, x, y):
+        """Reference Kernel.h:588-598."""
+        r2 = _r2(x, y)
+        f1 = torch.exp(-2 * self.sigma)
+        f2 = torch.exp(2 * self.sigma)
+        d_sigma = r2 * torch.exp(-0.5 * f1 * ((4 * self.sigma - 4 * self.scale) * f2 + r2))
+        d_scale = 2 * torch.exp(0.5 * f1 * (4 * f2 * self.scale - r2))
+        return torch.stack([d_sigma, d_scale])
 
     def to_string(self):
         return f"GaussianExpKernel({_fmt(self.sigma)},{_fmt(self.scale)},)"
@@ -202,6 +235,11 @@ class White(Kernel):
         s2 = (self.scale**2).to(dtype=X.dtype, device=X.device)
         return torch.where(eq, s2, torch.zeros((), dtype=X.dtype, device=X.device))
 
+    def analytic_derivative(self, x, y):
+        """Reference Kernel.h:704-713."""
+        eq = torch.all(x == y, dim=-1)
+        return torch.stack([torch.where(eq, 2 * self.scale, torch.zeros_like(self.scale))])
+
     def to_string(self):
         return f"WhiteKernel({_fmt(self.scale)},)"
 
@@ -217,6 +255,16 @@ class RationalQuadratic(Kernel):
     def _gram(self, X, Y, symmetric):
         d2 = sqdist(X, Y)
         return self.scale**2 * (1 + 0.5 * d2 / (self.sigma**2 * self.alpha)) ** (-self.alpha)
+
+    def analytic_derivative(self, x, y):
+        """Reference Kernel.h:799-808: d/d[scale, sigma, alpha]."""
+        r2 = _r2(x, y)
+        f = 0.5 * r2 / (self.sigma**2 * self.alpha) + 1
+        d_scale = 2 * self.scale * f ** (-self.alpha)
+        d_sigma = self.scale**2 * r2 * f ** (-self.alpha - 1) / self.sigma**3
+        d_alpha = (self.scale**2 * (r2 / (2 * self.sigma**2 * f * self.alpha) - torch.log(f))
+                   * f ** (-self.alpha))
+        return torch.stack([d_scale, d_sigma, d_alpha])
 
     def to_string(self):
         return (f"RationalQuadraticKernel({_fmt(self.scale)},{_fmt(self.sigma)},"
@@ -240,6 +288,16 @@ class Periodic(Kernel):
         cy, sy = torch.cos(2 * self.b * Y), torch.sin(2 * self.b * Y)
         sin2 = torch.clamp(0.5 * (d - (cx @ cy.T + sx @ sy.T)), min=0.0)
         return self.scale**2 * torch.exp(-0.5 * sin2 / self.sigma**2)
+
+    def analytic_derivative(self, x, y):
+        """Reference Kernel.h:922-948: d/d[scale, b, sigma]."""
+        r = x - y
+        s = torch.sin(self.b * r)
+        f1 = (s * s).sum(-1)
+        f2 = (2 * r * torch.cos(self.b * r) * s).sum(-1)
+        e = torch.exp(-0.5 * f1 / self.sigma**2)
+        return torch.stack([2 * self.scale * e, -0.5 * self.scale**2 * e * f2 / self.sigma**2,
+                            self.scale**2 * e * f1 / self.sigma**3])
 
     def to_string(self):
         return f"PeriodicKernel({_fmt(self.scale)},{_fmt(self.b)},{_fmt(self.sigma)},)"
@@ -272,6 +330,9 @@ class Sum(_Combination):
     def _gram(self, X, Y, symmetric):
         return self.k1._gram(X, Y, symmetric) + self.k2._gram(X, Y, symmetric)
 
+    def analytic_derivative(self, x, y):
+        return torch.cat([self.k1.analytic_derivative(x, y), self.k2.analytic_derivative(x, y)])
+
     def to_string(self):
         return f"SumKernel({self.k1.to_string()},{self.k2.to_string()})"
 
@@ -284,6 +345,12 @@ class Product(_Combination):
 
     def _gram(self, X, Y, symmetric):
         return self.k1._gram(X, Y, symmetric) * self.k2._gram(X, Y, symmetric)
+
+    def analytic_derivative(self, x, y):
+        """Product rule, matching reference Kernel.h:318-327."""
+        d1 = self.k1.analytic_derivative(x, y) * self.k2._eval(x, y)
+        d2 = self.k2.analytic_derivative(x, y) * self.k1._eval(x, y)
+        return torch.cat([d1, d2])
 
     def to_string(self):
         return f"ProductKernel({self.k1.to_string()},{self.k2.to_string()})"
@@ -314,6 +381,12 @@ class Matern32(_Matern):
         a = math.sqrt(3.0) * r / self.sigma
         return self.scale**2 * (1.0 + a) * torch.exp(-a)
 
+    def analytic_derivative(self, x, y):
+        a = math.sqrt(3.0) * _r(x, y) / self.sigma
+        e = torch.exp(-a)
+        return torch.stack([self.scale**2 * e * a * a / self.sigma,
+                            2 * self.scale * (1.0 + a) * e])
+
     def to_string(self):
         return f"Matern32Kernel({_fmt(self.sigma)},{_fmt(self.scale)},)"
 
@@ -325,6 +398,12 @@ class Matern52(_Matern):
         a = math.sqrt(5.0) * r / self.sigma
         return self.scale**2 * (1.0 + a + a * a / 3.0) * torch.exp(-a)
 
+    def analytic_derivative(self, x, y):
+        a = math.sqrt(5.0) * _r(x, y) / self.sigma
+        e = torch.exp(-a)
+        return torch.stack([self.scale**2 * e * (a * a * (1.0 + a)) / (3.0 * self.sigma),
+                            2 * self.scale * (1.0 + a + a * a / 3.0) * e])
+
     def to_string(self):
         return f"Matern52Kernel({_fmt(self.sigma)},{_fmt(self.scale)},)"
 
@@ -334,6 +413,11 @@ class Matern12(_Matern):
 
     def _value(self, r):
         return self.scale**2 * torch.exp(-r / self.sigma)
+
+    def analytic_derivative(self, x, y):
+        r = _r(x, y)
+        e = torch.exp(-r / self.sigma)
+        return torch.stack([self.scale**2 * e * r / self.sigma**2, 2 * self.scale * e])
 
     def to_string(self):
         return f"Matern12Kernel({_fmt(self.sigma)},{_fmt(self.scale)},)"
@@ -355,6 +439,13 @@ class GaussianARD(Kernel):
     def _gram(self, X, Y, symmetric):
         s = self.sigmas.to(dtype=X.dtype, device=X.device)
         return self.scale**2 * torch.exp(-0.5 * sqdist(X / s, Y / s))
+
+    def analytic_derivative(self, x, y):
+        s = self.sigmas
+        diff2 = (x - y) ** 2
+        e = torch.exp(-0.5 * (diff2 / s**2).sum(-1))
+        d_sig = self.scale**2 * e[..., None] * diff2 / s**3  # (..., d)
+        return torch.cat([torch.movedim(d_sig, -1, 0), (2 * self.scale * e)[None]])
 
     @property
     def params(self):
@@ -383,6 +474,10 @@ class Linear(Kernel):
     def _gram(self, X, Y, symmetric):
         return self.scale**2 * (X @ Y.T + self.offset)
 
+    def analytic_derivative(self, x, y):
+        base = (x * y).sum(-1) + self.offset
+        return torch.stack([2 * self.scale * base, self.scale**2 + 0.0 * base])
+
     def to_string(self):
         return f"LinearKernel({_fmt(self.scale)},{_fmt(self.offset)},)"
 
@@ -399,8 +494,12 @@ class Constant(Kernel):
         return self.value + 0.0 * (x * y).sum(-1)
 
     def _gram(self, X, Y, symmetric):
-        return torch.full((X.shape[0], Y.shape[0]), float(self.value), dtype=X.dtype,
-                          device=X.device)
+        # a sum, not torch.full(float(value)): the value keeps its gradient
+        return torch.zeros((X.shape[0], Y.shape[0]), dtype=X.dtype, device=X.device) + self.value
+
+    def analytic_derivative(self, x, y):
+        return torch.ones((1,) + torch.broadcast_shapes(x.shape, y.shape)[:-1],
+                          dtype=torch.float64)
 
     def to_string(self):
         return f"ConstantKernel({_fmt(self.value)},)"
@@ -426,3 +525,29 @@ def kvec(kernel: Kernel, X, x) -> torch.Tensor:
     """Kx[i] = k(x, X[i]) (reference lib/GaussianProcess.cpp:683-693)."""
     x = torch.atleast_1d(torch.as_tensor(x))
     return gram(kernel, x[None, :], X)[0]
+
+
+def params_vector(kernel: Kernel) -> torch.Tensor:
+    """The hyperparameters in reference order as one float64 vector (p,)."""
+    return torch.stack([torch.as_tensor(p, dtype=torch.float64) for p in kernel.params])
+
+
+def gram_derivative(kernel: Kernel, X) -> torch.Tensor:
+    """Stack of dK/dtheta_p, shape (p, n, n), by forward-mode autodiff of
+    :func:`gram` (kernels.py:557-568; the reference stacks the same blocks
+    into an (n p, n) matrix, lib/GaussianProcess.cpp:471-495)."""
+    X = _as_2d(X)
+    vec = params_vector(kernel).detach()
+    J = torch.func.jacfwd(lambda v: gram(kernel.with_params(list(v)), X))(vec)  # (n, n, p)
+    return torch.movedim(J, -1, 0)
+
+
+def analytic_gram_derivative(kernel: Kernel, X, Y=None) -> torch.Tensor:
+    """The same stack, (p, n, m), from the reference's hand-derived formulas
+    (kernels.py:571-576): every pair (X[i], Y[j]) in one row-wise batch."""
+    X = _as_2d(X)
+    Y2 = X if Y is None else _as_2d(Y)
+    n, m = X.shape[0], Y2.shape[0]
+    xs = X[:, None, :].expand(n, m, X.shape[1]).reshape(n * m, -1)
+    ys = Y2[None, :, :].expand(n, m, Y2.shape[1]).reshape(n * m, -1)
+    return kernel.analytic_derivative(xs, ys).reshape(-1, n, m)

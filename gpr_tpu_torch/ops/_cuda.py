@@ -3,8 +3,9 @@
 At first use, ``nvcc`` compiles every ``gpr_tpu_torch/csrc/*.cu`` into one
 shared library with a plain C interface, ``gpr_tpu_torch/_build/
 libgpr_kernels-<hash>.so``, keyed by a hash of the sources and flags, and
-``ctypes`` loads it.  Nothing is built when a module is imported, and there is
-no fallback: a missing ``nvcc`` or a failed build raises.
+``ctypes`` loads it.  The sources compile in parallel, one ``nvcc`` process
+each, and are then linked.  Nothing is built when a module is imported, and
+there is no fallback: a missing ``nvcc`` or a failed build raises.
 
 Every C entry point launches on the stream it is given (PyTorch's current
 stream), allocates nothing and returns ``cudaGetLastError()``; :class:`Kernel`
@@ -27,10 +28,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -59,18 +58,27 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    out.with_suffix(".ptxas.txt").write_text(proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            ))
+        # wait for every compiler before raising, so that none outlives the call
+        report = "".join([p.communicate()[1] for p in procs])
+        if any(p.returncode != 0 for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{report}")
+        tmp = os.path.join(tmpdir, "lib.so")
+        proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        out.with_suffix(".ptxas.txt").write_text(report)
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     return out
 
 
@@ -119,8 +127,10 @@ PANEL_UPDATE = Kernel(
 DIAG_FACTOR_INV = Kernel("diag_factor_inv", "gpr_diag_factor_inv", [_P, _P, _I, _I])
 # (L, W, n_pad, j)
 PANEL_SOLVE = Kernel("panel_solve", "gpr_panel_solve", [_P, _P, _I, _I])
+# (A22, lda, L21, ldl, out, ldo, m, k)
+SYRK_UPDATE = Kernel("syrk_update", "gpr_syrk_update", [_P, _I, _P, _I, _P, _I, _I, _I])
 
-KERNELS = (GRAM, PANEL_UPDATE, DIAG_FACTOR_INV, PANEL_SOLVE)
+KERNELS = (GRAM, PANEL_UPDATE, DIAG_FACTOR_INV, PANEL_SOLVE, SYRK_UPDATE)
 
 
 def reset_launch_counts() -> None:

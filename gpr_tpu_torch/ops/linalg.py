@@ -1,31 +1,42 @@
 """PSD-safe linear algebra: jitter-guarded Cholesky and the solves around it.
 
-Mirrors gpr_tpu/ops/linalg.py:50-63 and 157-358 (forward only; the Murray
-pullback of ``safe_cholesky`` comes with the likelihood).  Every result is
-expressed through a Cholesky factor; no explicit inverse is formed.
+Mirrors gpr_tpu/ops/linalg.py:50-63 and 101-386.  Every result is expressed
+through a Cholesky factor; no explicit inverse is formed on the hot path.
 
 The factorization route follows the tensor:
 
-  ``"fused-matrix"``       CUDA float32, n >= 1024, n % 128 == 0: the
-                           hand-written panel Cholesky (ops/fullchol.py, K2-K4),
-                           as JAX takes its fused kernel for f32 n >= 1024.
-  ``"cusolver-unported"``  any other n >= 1024: ``torch.linalg.cholesky``
-                           standing in for JAX's blocked + SYRK route
-                           (blocked.py:208-262), which is not ported yet (on a
-                           CPU tensor the same call runs LAPACK).
-  ``"torch-cholesky"``     n < 1024: ``torch.linalg.cholesky``, as JAX uses
-                           ``jnp.linalg.cholesky`` there.
+  ``"fused-matrix"``    CUDA float32, n >= 1024, n % 128 == 0: the
+                        hand-written panel Cholesky (ops/fullchol.py, K2-K4),
+                        as JAX takes its fused kernel for f32 n >= 1024.
+  ``"blocked-syrk"``    CUDA float32, any other n >= 1024: the recursive
+                        blocked Cholesky (ops/blocked.py) whose trailing
+                        updates run the hand-written SYRK kernel K5, as JAX
+                        takes blocked.py:208-281 with pallas_syrk.  K5 masks
+                        its ragged edge, so the TPU's 512-alignment gate on
+                        the SYRK (blocked.py:100-109) is dropped: every
+                        float32 trailing update on the card runs K5.
+  ``"blocked"``         float64, or a CPU tensor, n >= 1024: the same
+                        recursion with a ``torch.matmul`` update in float64
+                        and K5's plain version in float32.
+  ``"torch-cholesky"``  n < 1024 (and batches): ``torch.linalg.cholesky``, as
+                        JAX uses ``jnp.linalg.cholesky`` there.
 
 Every route reads only the lower triangle, and a failed factorization comes
 back NaN at its last diagonal entry, so success is one O(1) check.
+
+``safe_cholesky`` is a ``torch.autograd.Function``: its forward is the host
+jitter loop over the route, its backward the Murray pullback from the
+returned (jittered) factor, exactly 0 where that factor is NaN
+(linalg.py:137-154, 166-290).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from .blocked import cholesky_blocked
 from .fullchol import PANEL, cholesky_fused
 
 # log-space bounds of the reference's long-double determinant clamp
@@ -46,14 +57,18 @@ def add_diagonal(A: torch.Tensor, value) -> torch.Tensor:
     return A + torch.where(eye, value, torch.zeros((), dtype=A.dtype, device=A.device))
 
 
+def route_for(n: int, dtype: torch.dtype, device: torch.device, batched: bool = False) -> str:
+    """The factorization route of an (n, n) matrix of this dtype and device."""
+    if not batched and n >= BLOCKED_MIN_N:
+        if torch.device(device).type == "cuda" and dtype == torch.float32:
+            return "fused-matrix" if n % PANEL == 0 else "blocked-syrk"
+        return "blocked"
+    return "torch-cholesky"
+
+
 def cholesky_route(A: torch.Tensor) -> str:
     """The factorization route :func:`safe_cholesky` takes for ``A``."""
-    n = A.shape[-1]
-    if A.ndim == 2 and n >= BLOCKED_MIN_N:
-        if A.device.type == "cuda" and A.dtype == torch.float32 and n % PANEL == 0:
-            return "fused-matrix"
-        return "cusolver-unported"
-    return "torch-cholesky"
+    return route_for(A.shape[-1], A.dtype, A.device, batched=A.ndim != 2)
 
 
 def _torch_cholesky(A: torch.Tensor) -> torch.Tensor:
@@ -62,22 +77,22 @@ def _torch_cholesky(A: torch.Tensor) -> torch.Tensor:
     return torch.where((info != 0)[..., None, None], torch.nan, L)
 
 
+_FACTOR = {
+    "fused-matrix": cholesky_fused,
+    "blocked-syrk": cholesky_blocked,
+    "blocked": cholesky_blocked,
+    "torch-cholesky": _torch_cholesky,
+}
+
+
 def _diag_ok(L: torch.Tensor) -> torch.Tensor:
     # a failed pivot propagates NaN to every later diagonal entry, so the
     # last one alone detects failure (linalg.py:157-163); per batch element
     return torch.isfinite(L[..., -1, -1])
 
 
-def safe_cholesky(A: torch.Tensor, initial_jitter: float = 0.0,
-                  max_tries: int = 6) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(L, jitter): Cholesky of ``A + jitter I`` with jitter escalation.
-
-    The first attempt is ``A`` itself; this is the whole success path (one
-    factorization, one scalar read).  On failure the jitter starts at
-    ``initial_jitter`` or eps * max(mean |diag(A)[:1024]|, 1), grows 10x per
-    retry for at most ``max_tries`` retries, and only failed batch elements
-    are retried.  A matrix that never factors comes back NaN."""
-    factor = cholesky_fused if cholesky_route(A) == "fused-matrix" else _torch_cholesky
+def _safe_cholesky_forward(A, initial_jitter, max_tries):
+    factor = _FACTOR[cholesky_route(A)]
     L = factor(A)
     ok = _diag_ok(L)
     jitter = torch.zeros(A.shape[:-2], dtype=A.dtype, device=A.device)
@@ -101,6 +116,55 @@ def safe_cholesky(A: torch.Tensor, initial_jitter: float = 0.0,
     return L, jitter
 
 
+def _chol_pullback(L: torch.Tensor, Lbar: torch.Tensor) -> torch.Tensor:
+    """Reverse-mode pullback of A -> L from the factor (Murray 2016):
+    Abar = L^-T phi(L^T Lbar) L^-1, phi = tril with the diagonal halved,
+    symmetrized as XLA's rule returns it (linalg.py:137-154).  One GEMM and
+    two triangular solves."""
+    M = torch.tril(L.mT @ torch.tril(Lbar))
+    M.diagonal(dim1=-2, dim2=-1).mul_(0.5)
+    P = torch.linalg.solve_triangular(L.mT, M, upper=True)           # L^-T M
+    Abar = torch.linalg.solve_triangular(L, P, upper=False, left=False)  # P L^-1
+    return 0.5 * (Abar + Abar.mT)
+
+
+class _SafeCholesky(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, A, initial_jitter, max_tries):
+        L, jitter = _safe_cholesky_forward(A, initial_jitter, max_tries)
+        ctx.save_for_backward(L)
+        ctx.mark_non_differentiable(jitter)
+        return L, jitter
+
+    @staticmethod
+    def backward(ctx, Lbar, _jitter_bar):
+        # L = chol(A + j(A) I) with j piecewise constant in A: the pullback
+        # at the jittered point is the gradient, and the jitter gets none.
+        # Exactly 0 where even the largest jitter failed (linalg.py:272-287).
+        (L,) = ctx.saved_tensors
+        if Lbar is None:
+            return None, None, None
+        okb = torch.isfinite(torch.diagonal(L, dim1=-2, dim2=-1)).all(-1)[..., None, None]
+        eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+        zero = torch.zeros((), dtype=L.dtype, device=L.device)
+        Abar = _chol_pullback(torch.where(okb, L, eye), torch.where(okb, Lbar, zero))
+        return torch.where(okb, Abar, zero), None, None
+
+
+def safe_cholesky(A: torch.Tensor, initial_jitter: float = 0.0,
+                  max_tries: int = 6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(L, jitter): Cholesky of ``A + jitter I`` with jitter escalation,
+    differentiable in ``A``.
+
+    The first attempt is ``A`` itself; this is the whole success path (one
+    factorization, one scalar read).  On failure the jitter starts at
+    ``initial_jitter`` or eps * max(mean |diag(A)[:1024]|, 1), grows 10x per
+    retry for at most ``max_tries`` retries, and only failed batch elements
+    are retried.  A matrix that never factors comes back NaN, and its
+    gradient is 0."""
+    return _SafeCholesky.apply(A, float(initial_jitter), int(max_tries))
+
+
 def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve A x = b with A = L L^T."""
     squeeze = b.ndim == L.ndim - 1
@@ -120,3 +184,28 @@ def logdet_from_chol(L: torch.Tensor) -> torch.Tensor:
     determinant (include/Likelihood.h:180-188), in log space."""
     ld = 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
     return torch.clamp(ld, -_LDBL_LOG_MAX, _LDBL_LOG_MAX)
+
+
+def inv_psd(A: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
+    """Explicit PSD inverse through the factor: only for parity tests and the
+    reference's CoreMatrix artifact (lib/GaussianProcess.cpp:152-153), never
+    on the hot path."""
+    L, _ = safe_cholesky(A, initial_jitter=jitter)
+    return cho_solve(L, torch.eye(A.shape[-1], dtype=A.dtype, device=A.device))
+
+
+def pinv(A: torch.Tensor, epsilon: Optional[float] = None) -> torch.Tensor:
+    """SVD pseudo-inverse as the reference's ``gpr::pinv`` (include/Prior.h:
+    38-56): singular values <= epsilon (default: the dtype's eps) are zeroed,
+    not inverted."""
+    if epsilon is None:
+        epsilon = float(torch.finfo(A.dtype).eps)
+    U, s, Vh = torch.linalg.svd(A, full_matrices=True)
+    small = s <= epsilon
+    s_inv = torch.where(small, 0.0, 1.0 / torch.where(small, 1.0, s))
+    k = s.shape[0]
+    return (Vh.mT[:, :k] * s_inv[None, :]) @ U.mT[:k, :]
+
+
+def symmetrize(A: torch.Tensor) -> torch.Tensor:
+    return 0.5 * (A + A.mT)

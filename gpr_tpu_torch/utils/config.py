@@ -14,6 +14,12 @@ single bf16 pass.  On the GPU the matching rule is: no TF32.  Importing this
 module turns TF32 off for PyTorch's matrix products and cuDNN, so every
 float32 product in the port runs in full float32; the hand-written kernels
 compute in plain FP32 FMA.  3xTF32 or wgmma tiers come with later kernels.
+
+Device: the entry points (``fit``, ``load``, ``convert.gp_from_numpy``, the
+likelihood functions, ``fit_mle``, ``fit_map``) run on the card unless told
+otherwise.  A torch tensor stays on the device it is on; numpy or list input
+goes to ``device``, by default ``cuda``.  Without a CUDA device and with none
+asked for they raise: the port never falls back to the CPU on its own.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 
+import numpy as np
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -66,3 +73,20 @@ def policy_scope(name: str):
         yield set_policy(name)
     finally:
         _active = prev
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` if given, else the card; raises where there is none."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' or CPU tensors to run on the CPU")
+    return torch.device("cuda")
+
+
+def as_input(x, device=None) -> torch.Tensor:
+    """An entry point's array argument as a tensor: a tensor keeps its device
+    unless ``device`` is given; anything else goes to :func:`resolve_device`."""
+    if isinstance(x, torch.Tensor):
+        return x if device is None else x.to(device)
+    return torch.as_tensor(np.asarray(x), device=resolve_device(device))

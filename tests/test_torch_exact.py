@@ -103,7 +103,7 @@ def test_save_jax_load_port(tmp_path):
     gj = jexact.fit(_jax_kernel(np.float64), X, Y, sigma=0.1)
     prefix = str(tmp_path / "jax")
     gj.save(prefix)
-    gt = tg.load(prefix)
+    gt = tg.load(prefix, device="cpu")
     assert gt.L is None and gt.core is not None and gt.route == "loaded"
     assert gt.kernel.to_string() == gj.kernel.to_string()
     _close(gt.predict(torch.tensor(Xs)).numpy(), np.asarray(gj.predict(Xs)), 1e-10)
@@ -114,7 +114,7 @@ def test_save_jax_load_port(tmp_path):
     gt.save(again)
     with open(again + "-ParameterFile.txt") as f:
         assert f.read().split()[3] == "0"
-    _close(tg.load(again).core.numpy(), gt.core.numpy(), 0.0)
+    _close(tg.load(again, device="cpu").core.numpy(), gt.core.numpy(), 0.0)
 
 
 def test_efficient_storage(tmp_path):
@@ -137,7 +137,7 @@ def test_gp_from_numpy_reproduces_predictions():
     gj = jexact.fit(_jax_kernel(np.float64), X, Y, sigma=0.1)
     state = {"kernel": gj.kernel.to_string(), "X": gj.X, "Y": gj.Y, "sigma": gj.sigma,
              "alpha": gj.alpha, "L": gj.L, "core": None}
-    gt = convert.gp_from_numpy(state)
+    gt = convert.gp_from_numpy(state, device="cpu")
     _close(gt.predict(torch.tensor(Xs)).numpy(), np.asarray(gj.predict(Xs)), 1e-12)
     _close(gt.credible_interval(torch.tensor(Xs)).numpy(),
            np.asarray(gj.credible_interval(Xs)), 1e-12)
@@ -164,11 +164,11 @@ def test_routes_on_cpu(rng):
     X = torch.tensor(rng.standard_normal((1024, 3)), dtype=torch.float32)
     Y = torch.tensor(rng.standard_normal((1024, 1)), dtype=torch.float32)
     k = tg.Gaussian(1.5, 1.0)
-    # no fused route without a CUDA tensor
-    assert tg.fit(k, X, Y, 0.1).route == "cusolver-unported"
+    # no fused or SYRK-kernel route without a CUDA tensor
+    assert tg.fit(k, X, Y, 0.1).route == "blocked"
     assert tg.fit(k, X, Y, 0.1, use_pallas_gram=True).route == "gram-kernel"
     assert tg.fit(tg.parse_kernel(ENTRY_KERNEL), X, Y, 0.1, use_pallas_gram=True).route == \
-        "cusolver-unported"  # Sum is not a Gram-kernel form
+        "blocked"  # Sum is not a Gram-kernel form
 
 
 @pytest.mark.parametrize("kstr", ["GaussianKernel(1.5,1.2,)", "PeriodicKernel(1.1,0.7,1.3,)"])

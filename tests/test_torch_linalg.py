@@ -86,5 +86,59 @@ def test_solves_logdet_and_diagonal():
 
 def test_routes():
     assert tl.cholesky_route(torch.eye(512)) == "torch-cholesky"
-    assert tl.cholesky_route(torch.eye(1024)) == "cusolver-unported"  # a CPU tensor
-    assert tl.cholesky_route(torch.eye(1024, dtype=torch.float64)) == "cusolver-unported"
+    assert tl.cholesky_route(torch.eye(1024)) == "blocked"  # a CPU tensor
+    assert tl.cholesky_route(torch.eye(1024, dtype=torch.float64)) == "blocked"
+    assert tl.cholesky_route(torch.eye(1024)[None]) == "torch-cholesky"  # a batch
+
+
+@pytest.mark.parametrize("n", [40, 1100])  # the direct and the blocked route
+def test_safe_cholesky_pullback_matches_jax(n):
+    import jax
+
+    A = _spd(n, 5) / n
+    Lbar = np.tril(np.random.default_rng(6).standard_normal((n, n)))
+    At = torch.tensor(A, requires_grad=True)
+    L, _ = tl.safe_cholesky(At)
+    (gt,) = torch.autograd.grad(L, At, torch.tensor(Lbar))
+    _, vjp = jax.vjp(lambda M: jl.safe_cholesky(M)[0], A)
+    (gj,) = vjp(Lbar)
+    gj = np.asarray(gj)
+    np.testing.assert_allclose(gt.numpy(), gj, rtol=0, atol=1e-9 * np.abs(gj).max())
+    np.testing.assert_array_equal(gt.numpy(), gt.numpy().T)  # symmetrized, as XLA's rule
+
+
+def test_pullback_of_a_never_factoring_matrix_is_zero():
+    A = torch.tensor(-np.eye(8), requires_grad=True)
+    L, _ = tl.safe_cholesky(A, max_tries=2)
+    (g,) = torch.autograd.grad(L.sum(), A, allow_unused=True)
+    assert torch.equal(g, torch.zeros_like(g))
+
+
+def test_logdet_clamp_has_jax_s_gradient():
+    import jax
+
+    for d in (1e-300, 0.5, 1e300):  # log|A| = 40 log d: below, inside and above the clamp
+        L = np.diag(np.full(20, d))
+        Lt = torch.tensor(L, requires_grad=True)
+        (gt,) = torch.autograd.grad(tl.logdet_from_chol(Lt), Lt)
+        gj = np.asarray(jax.grad(lambda M: jl.logdet_from_chol(M))(L))
+        np.testing.assert_allclose(gt.numpy(), gj, rtol=1e-12, atol=0)
+        assert (d == 0.5) == bool(torch.any(gt != 0))
+
+
+def test_inverse_pinv_symmetrize_match_jax():
+    A = _spd(30, 7)
+    np.testing.assert_allclose(tl.inv_psd(torch.tensor(A)).numpy(), np.asarray(jl.inv_psd(A)),
+                               rtol=1e-10, atol=1e-14)
+    # full rank with the default threshold; rank 3 of 5 with a threshold far
+    # above the rounding noise of the two zero singular values (at the default
+    # eps that noise would straddle the threshold in either package)
+    rng = np.random.default_rng(8)
+    B = rng.standard_normal((5, 5))
+    np.testing.assert_allclose(tl.pinv(torch.tensor(B)).numpy(), np.asarray(jl.pinv(B)),
+                               rtol=1e-9, atol=1e-12)
+    B = rng.standard_normal((5, 3)) @ rng.standard_normal((3, 5))
+    np.testing.assert_allclose(tl.pinv(torch.tensor(B), 1e-8).numpy(),
+                               np.asarray(jl.pinv(B, 1e-8)), rtol=1e-9, atol=1e-12)
+    np.testing.assert_array_equal(tl.symmetrize(torch.tensor(B)).numpy(),
+                                  np.asarray(jl.symmetrize(B)))

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 import gpr_tpu_torch as tg
-from gpr_tpu_torch.ops import _cuda, fullchol
+from gpr_tpu_torch.gp import likelihood as lk
+from gpr_tpu_torch.ops import _cuda, blocked, fullchol, syrk
 from gpr_tpu_torch.ops import gram as gop
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -29,6 +30,11 @@ def test_sources_import_neither_jax_nor_gpr_tpu():
     files = [f for f in sorted((ROOT / "gpr_tpu_torch").rglob("*.py"))
              if "_build" not in f.parts] + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {"gpr_tpu_torch/ops/syrk.py", "gpr_tpu_torch/ops/blocked.py",
+            "gpr_tpu_torch/gp/likelihood.py", "gpr_tpu_torch/inference/priors.py",
+            "gpr_tpu_torch/inference/prior_utils.py",
+            "gpr_tpu_torch/inference/optimize.py"} <= names
     for f in files:
         assert not pat.search(f.read_text()), f
 
@@ -51,6 +57,9 @@ def test_cpu_tensors_launch_no_kernel(rng):
     gp.predict(X[:5])
     fullchol.gram_cholesky_fused(X, 2.0, 1.0, 1.0, 0.1)
     fullchol.cholesky_fused(torch.eye(256) * 2.0)
+    blocked.cholesky_blocked(torch.eye(1100) * 2.0)
+    syrk.syrk_update(torch.eye(70), torch.ones((70, 3)))
+    lk.mll_value_and_grad(tg.Gaussian(2.0), X[:100], Y[:100], 0.1)
     assert _cuda.launch_counts() == {k.name: 0 for k in _cuda.KERNELS}
 
 
@@ -87,7 +96,7 @@ def test_library_path_follows_the_sources():
     assert path == _cuda.library_path()
     assert re.fullmatch(r"libgpr_kernels-[0-9a-f]{16}\.so", path.name)
     assert {p.name for p in _cuda.CSRC.glob("*.cu*")} >= {"gram_tile.cuh", "gram.cu",
-                                                          "fullchol.cu"}
+                                                          "fullchol.cu", "syrk.cu"}
 
 
 def test_panel_width_matches_the_kernel_source():
