@@ -7,11 +7,14 @@ It builds the hand-written kernels from gpr_tpu_torch/csrc with nvcc (one
 process per source, in parallel), then:
 
   1. holds each kernel (K1 gram_tile, K2 panel_update, K3 diag_factor_inv,
-     K4 panel_solve, K5 syrk_update) against its plain torch version on the
-     card: small ragged shapes, the contracts of the fused factorization,
-     each kernel at the shapes the n=16384 fit gives it, and K5 (lower
-     triangle) at a ragged shape and at the top-level trailing updates of
-     n=3773 and n=16383;
+     K4 panel_solve, K5 syrk_update, K6 gram_batched, K7 crout_chol) against
+     its plain torch version on the card: small ragged shapes, the contracts
+     of the fused factorization, each kernel at the shapes the n=16384 fit
+     gives it, K5 (lower triangle) at a ragged shape and at the top-level
+     trailing updates of n=3773 and n=16383, K6 on all 7 forms with
+     per-member parameters at B=3, n=200, d=37 and at the fleet's full width,
+     K7 at b = 32, 64, 33 and 128 with NaN above the diagonal and one member
+     that is not positive definite, and on the fleet's first diagonal block;
   2. fits the bench model, Gaussian(8, 1) with sigma 0.1 at n=16384, d=128,
      q=8 (route "fused-gram"), and predicts mean and credible interval at
      1024 points;
@@ -27,23 +30,37 @@ process per source, in parallel), then:
   7. runs one marginal-likelihood value + gradient at full width, n=16384,
      d=128, q=8 (route "fused-matrix": K2-K4 under the Murray backward),
      and one at n=16383 (route "blocked-syrk": K5 at full width);
-  8. times the n=16384 fit against the plain torch fit, each fused kernel's
+  8. fits fleets (route "fleet-crout": K6, then K7 once per panel step):
+     Gaussian(2, 1), sigma 0.1, B=128, n=512, d=8, q=4 (the data of
+     benchmarks/bench_batched.py) with predict and variance at 64 points per
+     member; B=256, n=1024; per-member sigma; an 8-member lengthscale grid
+     (batched kernel) with its marginal likelihoods; and n=500, which takes
+     "torch-cholesky" and launches no K7;
+  9. runs the fleet's value + gradient (mll_batched with per-member
+     hyperparameters) at B=128, n=512 and 5 steps of fit_mle_batched;
+ 10. times the n=16384 fit against the plain torch fit, each fused kernel's
      total per fit against its plain version's, value + gradient at the
      three training shapes against the plain float32 route, K5's total per
      n=16383 factorization against its plain version and torch.addmm, and
-     the blocked-syrk factorization against torch.linalg.cholesky.
+     the blocked-syrk factorization against torch.linalg.cholesky;
+ 11. times the fleet fit at both sizes and the fleet value + gradient
+     against the plain float32 route, K6 and K7 per fit against their plain
+     versions (K7 also against torch.linalg.cholesky_ex on the same tiles),
+     the fleet fit at panels 32, 64 and 128 (B=128, n=512) and 64 and 128
+     (B=256, n=1024), and traces 5 fleet fits with torch.profiler (device
+     time by kernel and idle share).
 
-Phases 2-4 and 6 hold the port's mean and credible interval against a
+Phases 2-4, 6 and 8 hold the port's mean and credible interval against a
 float64 torch reference and pass when the port's error is at most 3x that
 of the plain float32 torch route (torch Gram, torch.linalg.cholesky,
-cholesky_solve).  Phases 6 and 7 hold each value and gradient of the
-marginal likelihood (at each training step's parameters) against a float64
-plain torch MLL (torch.linalg.cholesky + autograd) with the same 3x gate
-against the plain float32 MLL.  The launch counters are reset before each
-path (phases 2-5, 6, 7) and read after it: each kernel of the path must have
-been launched there.  Any failure raises.  The last lines are the kernels'
-JSON, the card's name and power limit, then one JSON object with the
-device.  Exits non-zero, printing no result, where there is no CUDA device.
+cholesky_solve; for fleets also variance and alpha).  Phases 6, 7 and 9
+hold each value and gradient of the marginal likelihood (at each training
+step's parameters) against a float64 plain torch MLL (torch.linalg.cholesky
++ autograd) with the same 3x gate against the plain float32 MLL.  The launch
+counters are reset before each path (phases 2-5, 6, 7, 8-9) and read after
+it: each kernel of the path must have been launched there.  Any failure
+raises.  The last lines are the kernels' JSON, the card's name and power
+limit, then one JSON object with the device.  Exits non-zero, printing no result, where there is no CUDA device.
 """
 
 from __future__ import annotations
@@ -80,7 +97,10 @@ def main() -> int:
     import gpr_tpu_torch as tg
     from gpr_tpu_torch.gp import likelihood as lk
     from gpr_tpu_torch.inference import priors
+    from gpr_tpu_torch.gp import batched as fleet
     from gpr_tpu_torch.ops import _cuda, blocked, fullchol, syrk
+    from gpr_tpu_torch.ops import batched as fbatched
+    from gpr_tpu_torch.ops import crout as fcrout
     from gpr_tpu_torch.ops import gram as gop
 
     dev = torch.device("cuda")
@@ -221,6 +241,60 @@ def main() -> int:
         del A22, L21, S, R, low
     kstats["syrk_update"] = {"max_abs_err": err}  # at the n=16383 top level
     torch.cuda.empty_cache()
+
+    # K6 on every form at a ragged shape with distinct per-member parameters,
+    # then at the full-width fleet shape (the tolerances of K1 above)
+    g6 = np.random.default_rng(6)
+    for form in gop.FORMS:
+        X6 = t32(g6.standard_normal((3, 200, 37)))
+        P6 = t32([[1.7, 1.2, 0.7 if form == "periodic" else 2.0, 0.37],
+                  [1.3, 0.9, 0.5 if form == "periodic" else 1.5, 0.1],
+                  [2.2, 1.4, 0.9 if form == "periodic" else 3.0, 0.01]])
+        K = gop.gram_batched(X6, P6, form=form)
+        R = gop.gram_batched_reference(X6, P6, form=form)
+        err = float((K - R).abs().max()) / (float(R.abs().max()) if form == "sqdist" else 1.96)
+        check(err <= (1e-2 if form == "matern12" else 3e-5), f"K6 {form}: {err}")
+    Bf, nf, df_, qf = 128, 512, 8, 4
+    rf = np.random.default_rng(0)  # benchmarks/bench_batched.py:31-34
+    Xf = t32(rf.standard_normal((Bf, nf, df_)))
+    Yf = t32(rf.standard_normal((Bf, nf, qf)))
+    Xsf = t32(np.random.default_rng(1).standard_normal((Bf, 64, df_)))
+    sigf = float(np.float32(0.1))
+    Pf = t32(np.tile([2.0, 1.0, 1.0, sigf * sigf], (Bf, 1)))
+    Kf = gop.gram_batched(Xf, Pf)
+    kstats["gram_batched"] = {"max_abs_err": float((Kf - gop.gram_batched_reference(Xf, Pf))
+                                                   .abs().max())}
+    check(kstats["gram_batched"]["max_abs_err"] <= 3e-5, "K6 at the full-width fleet shape")
+    torch.cuda.synchronize()
+    print(f"phase 1e K6 gram_batched: 7 forms at B=3 n=200 d=37 ok; B={Bf} n={nf} d={df_}: max abs "
+          f"err {kstats['gram_batched']['max_abs_err']:.3g}")
+
+    # K7: odd and even tiles with NaN above the diagonal (lower-only read) and
+    # one member that is not positive definite; then the first diagonal
+    # block of the full-width fleet factorization
+    for b in (32, 64, 33, 128):
+        G7 = torch.tensor(g6.standard_normal((6, b, b)), device=dev)
+        A7 = (G7 @ G7.mT + b * torch.eye(b, device=dev, dtype=G7.dtype)).float()
+        A7[4, b // 3, b // 3] = -1.0
+        junk = A7.clone()
+        junk[:, torch.triu(torch.ones((b, b), dtype=torch.bool, device=dev), 1)] = float("nan")
+        L7 = fcrout.crout_chol(junk)
+        R7 = fcrout.crout_chol_reference(A7)
+        ok = [0, 1, 2, 3, 5]
+        err = float((L7[ok] - R7[ok]).abs().max() / R7[ok].abs().max())
+        check(err <= 1e-5, f"K7 b={b}: {err}")
+        check(bool(torch.all(torch.triu(L7, 1) == 0)), f"K7 b={b}: strict upper not 0")
+        check(bool(torch.isnan(L7[4, -1, -1])) and not bool(torch.isfinite(R7[4, -1, -1])),
+              f"K7 b={b}: the failed member's L[-1, -1] is {float(L7[4, -1, -1])}")
+        check(bool(torch.isfinite(L7[ok]).all()), f"K7 b={b}: a failure leaked into another tile")
+    D7 = Kf[:, :fbatched.PANEL, :fbatched.PANEL].contiguous()
+    L7 = fcrout.crout_chol(D7)
+    kstats["crout_chol"] = {"max_abs_err": float((L7 - fcrout.crout_chol_reference(D7)).abs().max())}
+    check(kstats["crout_chol"]["max_abs_err"] <= 1e-5, "K7 at the fleet's first diagonal block")
+    del Kf, D7, L7
+    torch.cuda.synchronize()
+    print(f"phase 1f K7 crout_chol: b=32, 64, 33, 128 with NaN upper and one non-SPD member ok; "
+          f"B={Bf} b={fbatched.PANEL}: max abs err {kstats['crout_chol']['max_abs_err']:.3g}")
 
     # -------------------------------------------------------- references ---
     def gaussian64(A, B, sigma, scale):
@@ -403,10 +477,142 @@ def main() -> int:
     torch.cuda.empty_cache()
     hold_mll("n=16383 blocked-syrk", [8.0, 1.0], X163, Y163, v163, g163, sig)
     torch.cuda.empty_cache()
-    counts = {k.name: counts_fit[k.name] + counts_train[k.name] + counts_full[k.name]
-              for k in _cuda.KERNELS}
 
     # ---------------------------------------------------------------- 8 ----
+    def fleet_gauss(A, Bm, sg, sc):
+        """Gaussian Grams of a fleet in the dtype of A; sg, sc per member."""
+        sg = torch.as_tensor(sg, dtype=A.dtype, device=A.device).reshape(-1, 1, 1)
+        sc = torch.as_tensor(sc, dtype=A.dtype, device=A.device).reshape(-1, 1, 1)
+        d2 = (A * A).sum(-1)[:, :, None] + (Bm * Bm).sum(-1)[:, None, :] - 2.0 * (A @ Bm.mT)
+        return sc * sc * torch.exp(-0.5 * d2.clamp(min=0.0) / (sg * sg))
+
+    def plain_fleet(X, Y, Xs, sg, sc, sigma):
+        """Mean, variance and alpha of the straightforward fleet in the dtype of
+        X: batched torch Gram, torch.linalg.cholesky, cholesky_solve."""
+        K = fleet_gauss(X, X, sg, sc)
+        noise = torch.as_tensor(sigma, dtype=X.dtype, device=X.device) ** 2
+        K.diagonal(dim1=1, dim2=2).add_(noise.reshape(-1, 1))
+        L = torch.linalg.cholesky(K)
+        alpha = torch.cholesky_solve(Y, L)
+        Ks = fleet_gauss(Xs, X, sg, sc)
+        kss = torch.as_tensor(sc, dtype=X.dtype, device=X.device).reshape(-1, 1) ** 2
+        var = kss - (Ks * torch.cholesky_solve(Ks.mT, L).mT).sum(-1)
+        return Ks @ alpha, var, alpha
+
+    def judge_fleet(name, gp, Xs, sg, sc, sigma):
+        mean = tg.predict_batched(gp, Xs)
+        var = fleet.variance_batched(gp, Xs)
+        B_, m_ = Xs.shape[:2]
+        check(mean.shape == (B_, m_, gp.Y.shape[2]) and var.shape == (B_, m_), f"{name}: shapes")
+        check(bool(torch.isfinite(mean).all() and torch.isfinite(var).all()), f"{name}: non-finite")
+        X, Y = gp.X, gp.Y
+        m64, v64, a64 = plain_fleet(X.double(), Y.double(), Xs.double(), sg, sc, sigma)
+        m32, v32, a32 = plain_fleet(X, Y, Xs, sg, sc, sigma)
+        e = [relerr(mean, m64), relerr(var, v64), relerr(gp.alpha, a64)]
+        p = [relerr(m32, m64), relerr(v32, v64), relerr(a32, a64)]
+        print(f"  {name}: route {gp.route}; rel err vs f64: mean {e[0]:.3g} (plain f32 {p[0]:.3g}), "
+              f"variance {e[1]:.3g} (plain f32 {p[1]:.3g}), alpha {e[2]:.3g} (plain f32 {p[2]:.3g})")
+        check(all(a <= 3 * b for a, b in zip(e, p)), f"{name}: error above 3x the plain f32 route's")
+
+    print(f"phase 8 fleet fit: Gaussian(2, 1), sigma 0.1, B={Bf} n={nf} d={df_} q={qf}, "
+          "64 test points per member")
+    _cuda.reset_launch_counts()
+    k_f = tg.Gaussian(2.0, 1.0)
+    gpf = tg.fit_batched(k_f, Xf, Yf, 0.1)
+    torch.cuda.synchronize()
+    c1 = _cuda.launch_counts()
+    check(gpf.route == "fleet-crout", f"fleet fit took route {gpf.route}")
+    check(c1["gram_batched"] == 1 and c1["crout_chol"] == nf // fbatched.PANEL,
+          f"fleet fit launches {c1}")
+    judge_fleet(f"B={Bf} n={nf}", gpf, Xsf, 2.0, 1.0, sigf)
+    del gpf
+    r9 = np.random.default_rng(9)
+    X2k = t32(r9.standard_normal((256, 1024, df_)))  # BENCHMARKS.md:433's second size
+    Y2k = t32(r9.standard_normal((256, 1024, qf)))
+    gp2k = tg.fit_batched(k_f, X2k, Y2k, 0.1)
+    check(gp2k.route == "fleet-crout", f"B=256 n=1024 took route {gp2k.route}")
+    judge_fleet("B=256 n=1024", gp2k, t32(r9.standard_normal((256, 64, df_))), 2.0, 1.0, sigf)
+    del gp2k, X2k, Y2k
+    torch.cuda.empty_cache()
+    sig_b = t32(np.geomspace(0.05, 0.5, Bf))  # per-member noise
+    gps = tg.fit_batched(k_f, Xf, Yf, sig_b)
+    judge_fleet("per-member sigma 0.05..0.5", gps, Xsf, 2.0, 1.0, sig_b)
+    del gps
+    # an 8-member lengthscale grid on one series (tests/test_batched.py:166-184 at n=512)
+    xg = np.linspace(0, 6, nf)
+    yg = np.sin(xg) + 0.1 * np.random.default_rng(1).standard_normal(nf)
+    sgrid = np.geomspace(0.2, 5.0, 8)
+    Xg8 = t32(np.broadcast_to(xg[None, :, None], (8, nf, 1)))
+    Yg8 = t32(np.broadcast_to(yg[None, :, None], (8, nf, 1)))
+    kgrid = tg.Gaussian(torch.tensor(sgrid), torch.ones(8, dtype=torch.float64))
+    gpg = tg.fit_batched(kgrid, Xg8, Yg8, 0.1, batched_kernel=True)
+    check(gpg.route == "fleet-crout", f"grid fit took route {gpg.route}")
+    judge_fleet("lengthscale grid fit", gpg, Xg8[:, ::8].contiguous(), t32(sgrid), 1.0, sigf)
+    mg = tg.mll_batched(kgrid, Xg8, Yg8, 0.1, batched_kernel=True)
+    check(0 < int(torch.argmax(mg)) < 7, f"grid MLL best at an end: {mg.tolist()}")
+    del gpg
+    # n=500 misses every panel: torch's batched Cholesky, no K7
+    c_before = _cuda.launch_counts()["crout_chol"]
+    gp500 = tg.fit_batched(k_f, Xf[:, :500].contiguous(), Yf[:, :500].contiguous(), 0.1)
+    check(gp500.route == "torch-cholesky" and _cuda.launch_counts()["crout_chol"] == c_before,
+          f"n=500 took route {gp500.route}")
+    judge_fleet("n=500", gp500, Xsf, 2.0, 1.0, sigf)
+    del gp500
+
+    # ---------------------------------------------------------------- 9 ----
+    def plain_fleet_mll(X, Y, sigma, P0):
+        """(values (B,), gradient (B, 2)) of the straightforward per-member MLL of
+        Gaussian(P0[b, 0], P0[b, 1]) in the dtype of X (batch Gram, cholesky,
+        cholesky_solve, autograd), as gp/batched.py's mll_batched counts it."""
+        n = X.shape[1]
+        p = P0.detach().clone().requires_grad_()
+        with torch.enable_grad():
+            K = fleet_gauss(X, X, p[:, 0].to(X.dtype), p[:, 1].to(X.dtype))
+            K = K + (sigma * sigma) * torch.eye(n, dtype=X.dtype, device=X.device)
+            L = torch.linalg.cholesky(K)
+            alpha = torch.cholesky_solve(Y, L)
+            v = (-0.5 * (Y * alpha).sum((1, 2)) - torch.log(torch.diagonal(L, dim1=1, dim2=2)).sum(1)
+                 - n / 2.0 * math.log(2 * math.pi))
+            (g,) = torch.autograd.grad(v.sum(), p)
+        return v.detach(), g
+
+    def port_fleet_mll(X, Y, sigma, P0):
+        p = P0.detach().clone().requires_grad_()
+        with torch.enable_grad():
+            v = tg.mll_batched(tg.Gaussian(p[:, 0], p[:, 1]), X, Y, sigma, batched_kernel=True)
+            (g,) = torch.autograd.grad(v.sum(), p)
+        return v.detach(), g
+
+    print(f"phase 9 fleet training at B={Bf} n={nf}: per-member hyperparameters")
+    P0 = torch.tensor(np.stack([np.linspace(1.5, 3.0, Bf), np.linspace(0.8, 1.2, Bf)], 1),
+                      device=dev)
+    v_f, g_f = port_fleet_mll(Xf, Yf, 0.1, P0)
+    c2 = _cuda.launch_counts()
+    v64, g64 = plain_fleet_mll(Xf.double(), Yf.double(), sigf, P0)
+    v32, g32 = plain_fleet_mll(Xf, Yf, sigf, P0)
+    e_v, e_g, p_v, p_g = relerr(v_f, v64), relerr(g_f, g64), relerr(v32, v64), relerr(g32, g64)
+    print(f"  mll_batched value + gradient: rel err vs f64: value {e_v:.3g} (plain f32 {p_v:.3g}), "
+          f"gradient {e_g:.3g} (plain f32 {p_g:.3g})")
+    check(e_v <= 3 * p_v and e_g <= 3 * p_g, "fleet MLL: error above 3x the plain f32 route's")
+    init = torch.stack([P0[:, 0], P0[:, 1]], 1).cpu()
+    _, r_mle_f = fleet.fit_mle_batched(k_f, Xf, Yf, 0.1, iterations=5, init=init)
+    torch.cuda.synchronize()
+    counts_fleet = _cuda.launch_counts()
+    check(r_mle_f.route == "fleet-crout" and r_mle_f.params.shape == (Bf, 2), "fit_mle_batched")
+    check(bool(torch.isfinite(r_mle_f.trace).all()) and r_mle_f.value > float(r_mle_f.trace[0]),
+          f"fit_mle_batched did not climb: {r_mle_f.trace.tolist()} -> {r_mle_f.value}")
+    print(f"  fit_mle_batched 5 steps: summed MLL {[round(float(v), 1) for v in r_mle_f.trace]} -> "
+          f"{r_mle_f.value:.1f}")
+    # one factorization per step and one for the final value; none in a backward
+    check(counts_fleet["crout_chol"] - c2["crout_chol"] == 6 * (nf // fbatched.PANEL),
+          f"K7 launches per factorization in fit_mle_batched: {counts_fleet}")
+    print(f"launches on the fleet paths (phases 8-9): {counts_fleet}")
+    check(counts_fleet["gram_batched"] > 0 and counts_fleet["crout_chol"] > 0,
+          "a fleet kernel was never launched on the fleet path")
+    counts = {k.name: counts_fit[k.name] + counts_train[k.name] + counts_full[k.name]
+              + counts_fleet[k.name] for k in _cuda.KERNELS}
+
+    # --------------------------------------------------------------- 10 ----
     def ev():
         return torch.cuda.Event(enable_timing=True)
 
@@ -556,7 +762,7 @@ def main() -> int:
     kstats["syrk_update"].update(sum_bounds([
         (1.0 * m * (m + 1) * k, 4.0 * (m * (m + 1) + m * k)) for m, k in k5_shapes]))
 
-    print(f"phase 8 timings ({smi}), CUDA events, medians:")
+    print(f"phase 10 timings ({smi}), CUDA events, medians:")
     print(f"  fit n=16384 d=128 q=8: hand-written route {med_port:.2f} ms "
           f"(runs {', '.join(f'{t:.1f}' for t in t_port)}); plain torch route {med_plain:.2f} ms "
           f"(runs {', '.join(f'{t:.1f}' for t in t_plain)})")
@@ -577,9 +783,130 @@ def main() -> int:
           f"{', '.join(f'{t:.1f}' for t in t_fact)}); torch.linalg.cholesky {tchol_ms:.2f} ms "
           f"(runs {', '.join(f'{t:.1f}' for t in t_tchol)})")
 
-    sources = {"gram_tile": "gpr_tpu_torch/csrc/gram.cu", "syrk_update": "gpr_tpu_torch/csrc/syrk.cu"}
+    # --------------------------------------------------------------- 11 ----
+    def plain_fleet_fit(X, Y):
+        K = fleet_gauss(X, X, 2.0, 1.0)
+        K.diagonal(dim1=1, dim2=2).add_(sigf * sigf)
+        torch.cholesky_solve(Y, torch.linalg.cholesky(K))
+
+    def fit_at(X, Y, P_, panel):  # fit_batched's steps with the panel given
+        with torch.no_grad():
+            fbatched.factor_solve_batched_diff(gop.gram_batched(X, P_), Y, panel)
+
+    fleet_times, panel_runs = {}, {}
+    r11 = np.random.default_rng(11)
+    for B_, n_ in ((Bf, nf), (256, 1024)):
+        X_ = Xf if n_ == nf else t32(r11.standard_normal((B_, n_, df_)))
+        Y_ = Yf if n_ == nf else t32(r11.standard_normal((B_, n_, qf)))
+        fleet_times[(B_, n_)] = alternate(lambda: tg.fit_batched(k_f, X_, Y_, 0.1),
+                                          lambda: plain_fleet_fit(X_, Y_), 10)
+        P_ = Pf if B_ == Bf else t32(np.tile([2.0, 1.0, 1.0, sigf * sigf], (B_, 1)))
+        panels = (32, 64, 128) if n_ == nf else (64, 128)
+        runs_ = panel_runs[(B_, n_)] = {p_: [] for p_ in panels}
+        for p_ in panels:
+            fit_at(X_, Y_, P_, p_)  # warm-up
+        for order in (panels, panels[::-1]) * 4:
+            for p_ in order:
+                runs_[p_].append(timed(lambda: fit_at(X_, Y_, P_, p_)))
+        del X_, Y_, P_
+    torch.cuda.empty_cache()
+
+    # where the fleet fit's time goes: a torch.profiler trace of 5 fits
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t_w = time.perf_counter()
+        for _ in range(5):
+            tg.fit_batched(k_f, Xf, Yf, 0.1)
+        torch.cuda.synchronize()
+        wall_fit = (time.perf_counter() - t_w) * 1e3 / 5
+    by_kernel = []
+    for e in prof.key_averages():
+        if "CUDA" in str(e.device_type):
+            us = getattr(e, "self_device_time_total", None)
+            us = e.self_cuda_time_total if us is None else us
+            by_kernel.append((us / 1e3 / 5, e.count / 5, e.key))
+    busy_fit = sum(t for t, _, _ in by_kernel)
+
+    kstats["gram_batched"].update(
+        ms=median_ms(lambda: gop.gram_batched(Xf, Pf)),
+        plain_ms=median_ms(lambda: gop.gram_batched_reference(Xf, Pf)),
+        library_ms=None,  # no single torch call builds a kernel's Gram matrix
+    )
+    # K7 per fleet fit: each panel step's launch timed alone, with the kernel,
+    # its plain version and torch.linalg.cholesky_ex on the same tiles in turn
+    Kfit = gop.gram_batched(Xf, Pf)
+
+    def crout_total(diag):
+        tot = [0.0]
+        orig = fbatched.crout_chol
+
+        def timed_diag(D, out):
+            box = []
+            tot[0] += timed(lambda: box.append(diag(D)))
+            return box[0] if box[0] is out else out.copy_(box[0])
+
+        fbatched.crout_chol = timed_diag
+        try:
+            L = fbatched.cholesky_batched(Kfit)
+        finally:
+            fbatched.crout_chol = orig
+        check(bool(torch.isfinite(L[:, -1, -1]).all()), "timed fleet factorization failed")
+        return tot[0]
+
+    diags = {"kernel": lambda D: fcrout.crout_chol(D, out=D),
+             "plain": fcrout.crout_chol_reference,
+             "library": lambda D: torch.linalg.cholesky_ex(D)[0]}
+    k7runs = {k: [] for k in diags}
+    crout_total(diags["kernel"])  # warm-up
+    for order in (("kernel", "plain", "library"), ("library", "plain", "kernel")) * 3:
+        for k in order:
+            k7runs[k].append(crout_total(diags[k]))
+    kstats["crout_chol"].update(ms=float(np.median(k7runs["kernel"])),
+                                plain_ms=float(np.median(k7runs["plain"])),
+                                library_ms=float(np.median(k7runs["library"])))
+    del Kfit
+    fleet_vg = alternate(lambda: port_fleet_mll(Xf, Yf, 0.1, P0),
+                         lambda: plain_fleet_mll(Xf, Yf, sigf, P0), 5)
+
+    nbf, pf = nf // fbatched.PANEL, fbatched.PANEL
+    kstats["gram_batched"].update(bound(2.0 * Bf * nf * nf * df_,
+                                        4.0 * (Bf * nf * df_ + 4 * Bf + Bf * nf * nf)))
+    # K7 reads each tile's lower triangle and writes the whole tile
+    kstats["crout_chol"].update(sum_bounds(
+        [(Bf * pf ** 3 / 3.0, 4.0 * Bf * (pf * (pf + 1) / 2 + pf * pf))] * nbf))
+    print(f"phase 11 fleet timings ({smi}), CUDA events, medians:")
+    for (B_, n_), (tp, tq, rp, rq) in fleet_times.items():
+        print(f"  fleet fit B={B_} n={n_} d={df_} q={qf}: port {tp:.3f} ms = {B_ / tp * 1e3:.0f} "
+              f"fits/s (runs {', '.join(f'{t:.2f}' for t in rp)}); plain f32 route {tq:.3f} ms = "
+              f"{B_ / tq * 1e3:.0f} fits/s (runs {', '.join(f'{t:.2f}' for t in rq)})")
+    print(f"  K6 gram_batched per fit (B={Bf} n={nf} d={df_}, 1 launch): "
+          f"{kstats['gram_batched']['ms']:.4f} ms (plain {kstats['gram_batched']['plain_ms']:.4f})")
+    print(f"  K7 crout_chol per fit ({nbf} launches of {Bf} x {pf}^2 tiles): kernel "
+          f"{[round(t, 4) for t in k7runs['kernel']]} ms, plain "
+          f"{[round(t, 4) for t in k7runs['plain']]} ms, torch.linalg.cholesky_ex "
+          f"{[round(t, 4) for t in k7runs['library']]} ms")
+    tp, tq, rp, rq = fleet_vg
+    print(f"  mll_batched value + gradient B={Bf} n={nf}: port {tp:.3f} ms (runs "
+          f"{', '.join(f'{t:.2f}' for t in rp)}); plain f32 {tq:.3f} ms (runs "
+          f"{', '.join(f'{t:.2f}' for t in rq)})")
+    for (B_, n_), runs_ in panel_runs.items():
+        print("  panel sweep, fleet fit B=%d n=%d (K6 + factor + solve): %s" % (B_, n_, "; ".join(
+            f"p={p_} {float(np.median(r)):.3f} ms (runs {', '.join(f'{t:.2f}' for t in r)})"
+            for p_, r in runs_.items())))
+    print(f"  torch.profiler, 5 fleet fits B={Bf} n={nf}: {wall_fit:.3f} ms per fit on the host "
+          f"clock, device kernels {busy_fit:.3f} ms per fit, idle "
+          f"{100.0 * (1.0 - busy_fit / wall_fit):.1f} % (profiler on)")
+    for t, c, name in sorted(by_kernel, reverse=True)[:12]:
+        print(f"    {t:.4f} ms per fit, {c:g} launches: {name[:100]}")
+
+    sources = {"gram_tile": "gpr_tpu_torch/csrc/gram.cu", "syrk_update": "gpr_tpu_torch/csrc/syrk.cu",
+               "gram_batched": "gpr_tpu_torch/csrc/gram.cu",
+               "crout_chol": "gpr_tpu_torch/csrc/crout.cu"}
     replaces = {"gram_tile": "gpr_tpu/ops/pallas_gram.py:38",
-                "syrk_update": "gpr_tpu/ops/pallas_syrk.py:73"}
+                "syrk_update": "gpr_tpu/ops/pallas_syrk.py:73",
+                "gram_batched": "gpr_tpu/ops/pallas_gram.py:142",
+                "crout_chol": "gpr_tpu/ops/pallas_batched.py:205"}
     kernels = []
     for k in _cuda.KERNELS:
         kernels.append({

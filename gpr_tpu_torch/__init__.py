@@ -3,12 +3,13 @@
 Mirrors gpr_tpu/__init__.py for the names ported so far: the kernel algebra
 and its string DSL with hyperparameter gradients, exact GP fit -> predict,
 save/load of the reference's 5-file model artifacts, the marginal
-likelihood with its gradient, the prior densities and MLE / MAP training.
-On a CUDA tensor the fit and the likelihood run through hand-written CUDA
-kernels (ops/gram.py, ops/fullchol.py, ops/syrk.py; sources in csrc/); on a
-CPU tensor through their plain torch versions.  The entry points run on the
-card unless given ``device="cpu"`` or CPU tensors.  This package imports
-torch and numpy only, never JAX.
+likelihood with its gradient, the prior densities, MLE / MAP training and
+fleets of small GPs (fit, predict, likelihood and MLE of B GPs at once).
+On a CUDA tensor the fit, the likelihood and the fleet run through
+hand-written CUDA kernels (ops/gram.py, ops/fullchol.py, ops/syrk.py,
+ops/crout.py; sources in csrc/); on a CPU tensor through their plain torch
+versions.  The entry points run on the card unless given ``device="cpu"``
+or CPU tensors.  This package imports torch and numpy only, never JAX.
 """
 
 from .kernels.kernels import (  # noqa: F401
@@ -33,6 +34,7 @@ from .kernels.kernels import (  # noqa: F401
 )
 from .kernels.dsl import kernel_to_string, parse_kernel  # noqa: F401
 from .gp.exact import GP, fit, load  # noqa: F401
+from .gp.batched import fit_batched, mll_batched, predict_batched  # noqa: F401
 from .gp import likelihood  # noqa: F401
 from .inference.optimize import fit_map, fit_mle  # noqa: F401
 from .utils import config  # noqa: F401

@@ -8,8 +8,12 @@ the caller extracts the state from a ``gpr_tpu`` object.
                 pair: ``args`` is the list of the class's constructor
                 arguments as numpy arrays, or for ``Sum``/``Product`` the two
                 sub-trees.
+                A fleet's kernel may carry (B,) argument arrays (a leading
+                batch axis on every leaf).
   GP state      a dict ``{"kernel": tree, "X", "Y", "sigma", "alpha", "L",
                 "core"}`` of numpy arrays (``L`` and ``core`` may be None).
+  fleet state   a dict ``{"kernel": tree, "X", "Y", "sigma", "alpha", "L",
+                "batched_kernel"}`` from a ``gpr_tpu`` ``BatchedGP``.
   density       ``(class_name, args)``: a prior density's class name and its
                 constructor arguments, e.g. ``("LogGaussianDensity", [mu,
                 sigma])``, so that both packages build the same MAP objective.
@@ -20,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .gp.batched import BatchedGP
 from .gp.exact import GP
 from .inference import priors
 from .kernels import kernels as kermod
@@ -44,7 +49,7 @@ def kernel_from_numpy(tree) -> kermod.Kernel:
     cls = _CLASSES[name]
     if cls in (kermod.Sum, kermod.Product):
         return cls(kernel_from_numpy(args[0]), kernel_from_numpy(args[1]))
-    return cls(*[torch.as_tensor(np.asarray(a, np.float64)) for a in args])
+    return cls(*[torch.as_tensor(np.array(a, np.float64)) for a in args])
 
 
 _DENSITIES = {
@@ -75,3 +80,16 @@ def gp_from_numpy(state: dict, device=None) -> GP:
     return GP(kernel_from_numpy(state["kernel"]), X, tensor("Y"),
               float(np.asarray(state["sigma"])), tensor("alpha"), tensor("L"), tensor("core"),
               route="converted")
+
+
+def fleet_from_numpy(state: dict, device=None) -> BatchedGP:
+    """The port's ``BatchedGP`` from the numpy state of a ``gpr_tpu``
+    ``BatchedGP``, on ``device`` (by default the card, utils/config.py)."""
+    device = config.resolve_device(device)
+
+    def tensor(key):
+        return torch.as_tensor(np.array(state[key]), device=device)
+
+    return BatchedGP(kernel_from_numpy(state["kernel"]), tensor("X"), tensor("Y"),
+                     tensor("sigma"), tensor("alpha"), tensor("L"),
+                     bool(state.get("batched_kernel", False)), route="converted")

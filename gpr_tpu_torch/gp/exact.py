@@ -192,23 +192,6 @@ class GP(nn.Module):
 # training
 # ---------------------------------------------------------------------------
 
-def _gram_form(kernel):
-    """(form, sigma, scale, third) of a kernel the Gram kernels evaluate, or
-    None (exact.py:358-374)."""
-    t = type(kernel)
-    if t is kermod.Gaussian:
-        return "gaussian", float(kernel.sigma), float(kernel.scale), 1.0
-    if t is kermod.GaussianExp:
-        return "gaussian", float(torch.exp(kernel.sigma)), float(torch.exp(kernel.scale)), 1.0
-    if t is kermod.RationalQuadratic:
-        return "rq", float(kernel.sigma), float(kernel.scale), float(kernel.alpha)
-    if t in (kermod.Matern12, kermod.Matern32, kermod.Matern52):
-        return t.__name__.lower(), float(kernel.sigma), float(kernel.scale), 1.0
-    if t is kermod.Periodic:
-        return "periodic", float(kernel.sigma), float(kernel.scale), float(kernel.b)
-    return None
-
-
 def fit(kernel: kermod.Kernel, X, Y, sigma: float = 0.0, efficient_storage: bool = False,
         jitter: float = 0.0, use_pallas_gram: bool = False, device=None) -> GP:
     """Train an exact GP: factor K + sigma^2 I and solve for the regression
@@ -231,9 +214,10 @@ def fit(kernel: kermod.Kernel, X, Y, sigma: float = 0.0, efficient_storage: bool
     sigma = float(sigma)
     K = None
     if use_pallas_gram:
-        disp = _gram_form(kernel)
+        disp = kermod.kernel_form(kernel)
         if disp is not None:
-            form, sg, sc, third = disp
+            form, *vals = disp
+            sg, sc, third = (float(v) for v in vals)
             noise = float(np.float32(sigma) ** 2)  # sigma^2 in float32, as exact.py:351
             if (form in fullchol.GRAM_FORMS and X.dtype == torch.float32 and n >= 512
                     and X.device.type == "cuda"):

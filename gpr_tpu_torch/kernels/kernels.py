@@ -14,6 +14,12 @@ marginal likelihood is differentiated with respect to ``params_vector``.
 A 0-dim float64 hyperparameter does not promote a float32 Gram: the
 products below keep the dtype of X.  ``analytic_derivative`` holds the
 reference's hand-derived forms (golden checks for the tests).
+
+Fleets (gp/batched.py): a kernel's leaves may carry a leading batch axis
+(B,), as in ``Gaussian(torch.full((B,), 1.2), torch.ones(B))``;
+:func:`fleet_map` evaluates one member per slice of that axis under
+``torch.func.vmap``, where each member's leaves are 0-dim again.
+Validation checks every member.
 """
 
 from __future__ import annotations
@@ -31,11 +37,15 @@ def _as_2d(X) -> torch.Tensor:
     return X[:, None] if X.ndim == 1 else X
 
 
+def _is_fleet_member(v) -> bool:
+    # a torch.func transform's wrapped tensor: one member's view of a leaf
+    return isinstance(v, torch.Tensor) and torch._C._functorch.is_functorch_wrapped_tensor(v)
+
+
 def _hyper(v) -> torch.Tensor:
     """A float64 hyperparameter.  A tensor that carries a graph keeps it;
     anything else is copied, so that the kernel owns its values."""
-    if isinstance(v, torch.Tensor) and (
-            v.requires_grad or torch._C._functorch.is_functorch_wrapped_tensor(v)):
+    if isinstance(v, torch.Tensor) and (v.requires_grad or _is_fleet_member(v)):
         return v.to(torch.float64)
     return torch.as_tensor(v, dtype=torch.float64).detach().clone()
 
@@ -130,8 +140,11 @@ class Gaussian(Kernel):
 
     def __init__(self, sigma, scale=1.0):
         for name, v in (("sigma", sigma), ("scale", scale)):
+            if _is_fleet_member(v):
+                continue  # one member inside fleet_map: its fleet was checked whole
             v = v.detach() if isinstance(v, torch.Tensor) else v
-            if not float(v) > 0:  # rejects 0, negatives and NaN
+            # every member of a fleet leaf; rejects 0, negatives and NaN
+            if not bool((torch.as_tensor(v) > 0).all()):
                 raise ValueError(f"GaussianKernel: {name} has to be positive")
         super().__init__(sigma, scale)
 
@@ -449,11 +462,12 @@ class GaussianARD(Kernel):
 
     @property
     def params(self):
-        return tuple(self.sigmas) + (self.scale,)
+        # the feature axis is the last: fleet leaves are (B, d)
+        return tuple(self.sigmas.unbind(-1)) + (self.scale,)
 
     def _consume_params(self, vec):
-        d = self.sigmas.shape[0]
-        return GaussianARD(torch.stack([_hyper(v) for v in vec[:d]]), vec[d]), vec[d + 1:]
+        d = self.sigmas.shape[-1]
+        return GaussianARD(torch.stack([_hyper(v) for v in vec[:d]], -1), vec[d]), vec[d + 1:]
 
     def to_string(self):
         vals = ",".join(_fmt(v) for v in self.sigmas)
@@ -540,6 +554,39 @@ def gram_derivative(kernel: Kernel, X) -> torch.Tensor:
     vec = params_vector(kernel).detach()
     J = torch.func.jacfwd(lambda v: gram(kernel.with_params(list(v)), X))(vec)  # (n, n, p)
     return torch.movedim(J, -1, 0)
+
+
+def kernel_form(kernel: Kernel):
+    """(form, sigma, scale, third) of a kernel that the Gram kernels of
+    ``ops/gram.py`` evaluate, with its hyperparameters as the kernel holds
+    them (0-dim, or (B,) for a fleet), or None (gpr_tpu exact.py:358-374 and
+    batched.py:150-164)."""
+    t = type(kernel)
+    if t is Gaussian:
+        return "gaussian", kernel.sigma, kernel.scale, 1.0
+    if t is GaussianExp:
+        return "gaussian", torch.exp(kernel.sigma), torch.exp(kernel.scale), 1.0
+    if t is RationalQuadratic:
+        return "rq", kernel.sigma, kernel.scale, kernel.alpha
+    if t in (Matern12, Matern32, Matern52):
+        return t.__name__.lower(), kernel.sigma, kernel.scale, 1.0
+    if t is Periodic:
+        return "periodic", kernel.sigma, kernel.scale, kernel.b
+    return None
+
+
+def fleet_map(fn, kernel: Kernel, batched_kernel: bool, *tensors) -> torch.Tensor:
+    """``fn(kernel_b, *tensors_b)`` for every member b of a fleet, stacked:
+    ``torch.func.vmap`` over the leading axis of ``tensors``, as
+    gpr_tpu/gp/batched.py vmaps its per-member functions.  With
+    ``batched_kernel`` every hyperparameter leaf carries that axis too and
+    each member gets ``kernel.with_params`` of its own values; otherwise
+    all members share ``kernel``.  Autograd runs through it."""
+    if batched_kernel:
+        device = tensors[0].device
+        return torch.func.vmap(lambda ps, *ts: fn(kernel.with_params(ps), *ts))(
+            [p.to(device) for p in kernel.params], *tensors)
+    return torch.func.vmap(lambda *ts: fn(kernel, *ts))(*tensors)
 
 
 def analytic_gram_derivative(kernel: Kernel, X, Y=None) -> torch.Tensor:

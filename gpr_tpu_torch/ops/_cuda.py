@@ -31,7 +31,7 @@ BUILD_DIR = _PKG / "_build"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 
 def _nvcc() -> str:
@@ -130,7 +130,12 @@ PANEL_SOLVE = Kernel("panel_solve", "gpr_panel_solve", [_P, _P, _I, _I])
 # (A22, lda, L21, ldl, out, ldo, m, k)
 SYRK_UPDATE = Kernel("syrk_update", "gpr_syrk_update", [_P, _I, _P, _I, _P, _I, _I, _I])
 
-KERNELS = (GRAM, PANEL_UPDATE, DIAG_FACTOR_INV, PANEL_SOLVE, SYRK_UPDATE)
+# (X, P, K, B, n, d, form)
+GRAM_BATCHED = Kernel("gram_batched", "gpr_gram_batched", [_P, _P, _P, _I, _I, _I, _I])
+# (A, a_batch_stride, a_ld, L, l_batch_stride, l_ld, B, b)
+CROUT_CHOL = Kernel("crout_chol", "gpr_crout_chol", [_P, _LL, _I, _P, _LL, _I, _I, _I])
+
+KERNELS = (GRAM, PANEL_UPDATE, DIAG_FACTOR_INV, PANEL_SOLVE, SYRK_UPDATE, GRAM_BATCHED, CROUT_CHOL)
 
 
 def reset_launch_counts() -> None:

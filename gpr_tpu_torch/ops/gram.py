@@ -1,9 +1,11 @@
-"""Tiled Gram matrix of the stationary kernel forms (kernel K1).
+"""Tiled Gram matrix of the stationary kernel forms (kernels K1 and K6).
 
-Mirrors gpr_tpu/ops/pallas_gram.py:28-321 (``_tile_body`` and
-``gram_pallas``).  :func:`gram` launches the hand-written CUDA kernel
-``csrc/gram.cu`` for a CUDA tensor and runs :func:`gram_reference`, the same
-tile math in torch ops, for a CPU tensor.
+Mirrors gpr_tpu/ops/pallas_gram.py:28-321 (``_tile_body``, ``gram_pallas``
+and the fleet's ``gram_pallas_batched``).  :func:`gram` (K1) and
+:func:`gram_batched` (K6) launch the hand-written CUDA kernels of
+``csrc/gram.cu`` for a CUDA tensor and run :func:`gram_reference` /
+:func:`gram_batched_reference`, the same tile math in torch ops, for a CPU
+tensor.
 
 K[i, j] = scale^2 f(d2) + diag [i == j] with d2 = |x|^2 + |y|^2 - 2 x.y
 clamped at 0 (periodic: sum_k sin^2(b (x_k - y_k)); sqdist: d2 itself).  The
@@ -99,3 +101,52 @@ def _check(X, Y, form, tril):
             raise ValueError("gram: X and Y must be contiguous float32")
     if tril and X.shape[0] != Y.shape[0]:
         raise ValueError("gram: tril requires the symmetric square case")
+
+
+def gram_batched_reference(X, params, *, form: str = "gaussian") -> torch.Tensor:
+    """Plain torch version of kernel K6: K[b] = k(X[b], X[b]) + diag[b] I
+    with member b's (sigma, scale, third, diag) = params[b]."""
+    _check_batched(X, params, form)
+    sigma, scale, third, diag = (params[:, i, None, None] for i in range(4))
+    if form == "periodic":
+        s = torch.sin(third[..., None] * (X[:, :, None, :] - X[:, None, :, :]))
+        d2 = (s * s).sum(-1)
+    else:
+        xx = (X * X).sum(-1)
+        d2 = torch.clamp(xx[:, :, None] + xx[:, None, :] - 2.0 * (X @ X.mT), min=0.0)
+    val = form_value(form, d2, sigma, scale, third)
+    n = X.shape[1]
+    eye = torch.eye(n, dtype=torch.bool, device=X.device)
+    return val + torch.where(eye, diag, 0.0)
+
+
+def gram_batched(X, params, *, form: str = "gaussian") -> torch.Tensor:
+    """The fleet Gram (B, n, n), full square, float32: K[b] = k(X[b], X[b])
+    + diag[b] I for one of :data:`FORMS`.  X (B, n, d) and params (B, 4) =
+    per-member (sigma, scale, third, diag) are contiguous float32 on one
+    device, so per-member hyperparameters cost no extra launch.  A CUDA
+    tensor runs kernel K6; a CPU tensor runs :func:`gram_batched_reference`."""
+    _check_batched(X, params, form)
+    if X.device.type == "cpu":
+        return gram_batched_reference(X, params, form=form)
+    B, n, d = X.shape
+    K = torch.empty((B, n, n), dtype=torch.float32, device=X.device)
+    _cuda.GRAM_BATCHED.launch(X.device, X.data_ptr(), params.data_ptr(), K.data_ptr(), B, n, d,
+                              FORMS.index(form))
+    return K
+
+
+def _check_batched(X, params, form):
+    if form not in FORMS:
+        raise ValueError(f"gram_batched: unknown form {form!r}")
+    if X.ndim != 3 or params.shape != (X.shape[0], 4):
+        raise ValueError(f"gram_batched: shapes {tuple(X.shape)} and {tuple(params.shape)} "
+                         "must be (B, n, d) and (B, 4)")
+    if X.numel() == 0:
+        raise ValueError("gram_batched: empty input")
+    if X.device != params.device or X.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"gram_batched: X and params must be on one CPU or CUDA device, "
+                         f"got {X.device} and {params.device}")
+    for t in (X, params):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("gram_batched: X and params must be contiguous float32")

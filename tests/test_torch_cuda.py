@@ -1,4 +1,4 @@
-"""The port's hand-written CUDA kernels (K1-K5) against their plain torch
+"""The port's hand-written CUDA kernels (K1-K7) against their plain torch
 versions, on the card, at small shapes.  Marked ``cuda``: skipped where
 torch.cuda.is_available() is False.  On a machine with a card and without
 JAX run it alone, without the suite's conftest (which imports JAX):
@@ -15,7 +15,10 @@ against a float64 fit: its error must stay within 3x that of the float32 fit
 on the CPU.  K5's lower triangle gets 1e-5 of the largest |S| entry per
 sqrt(k) terms (float32 sums in another order); a gradient of the marginal
 likelihood through the card's factorization gets 3x the error of the same
-float32 computation on the CPU, both against float64.
+float32 computation on the CPU, both against float64.  K6 takes K1's
+tolerances; a K7 factor gets 1e-5 of its largest entry (the kernel pivots
+with rsqrt and scaled columns, the plain version with 1 / piv and unscaled
+ones).
 """
 
 import numpy as np
@@ -24,7 +27,9 @@ import torch
 
 import gpr_tpu_torch as tg
 from gpr_tpu_torch.gp import likelihood as lk
-from gpr_tpu_torch.ops import _cuda, blocked, fullchol, linalg, syrk
+from gpr_tpu_torch.gp import batched as fleet
+from gpr_tpu_torch.ops import _cuda, blocked, crout, fullchol, linalg, syrk
+from gpr_tpu_torch.ops import batched as fleet_ops
 from gpr_tpu_torch.ops import gram as gop
 
 pytestmark = pytest.mark.cuda
@@ -118,7 +123,9 @@ def test_fit_routes_reach_the_kernels(dev):
         truth = tg.fit(k, Xn.double(), Yn.double(), float(np.float32(0.1))).predict(Xs.double())
         err_cpu = _relerr(tg.fit(k, Xn, Yn, 0.1).predict(Xs), truth)
         assert _relerr(gp.predict(X[:16]).cpu(), truth) <= 3 * err_cpu
-    assert all(v > 0 for v in _cuda.launch_counts().values())
+    counts = _cuda.launch_counts()
+    assert all(counts[name] > 0 for name in ("gram_tile", "panel_update", "diag_factor_inv",
+                                              "panel_solve", "syrk_update"))
 
 
 def _syrk_err(S, A22, L21):
@@ -201,3 +208,103 @@ def test_mll_gradient_on_the_card(dev, n):
     err = float((g.cpu() - g64).abs().max() / g64.abs().max())
     err_cpu = float((g32 - g64).abs().max() / g64.abs().max())
     assert err <= 3 * err_cpu + 1e-6, (err, err_cpu)
+
+
+@pytest.mark.parametrize("form", gop.FORMS)
+def test_gram_batched_kernel(dev, form):
+    rng = np.random.default_rng(12)
+    X = _t(rng.standard_normal((3, 200, 37)), dev)  # ragged against the 64 tiles
+    P = _t([[1.7, 1.2, 0.7 if form == "periodic" else 2.0, 0.37],
+            [1.3, 0.9, 0.5 if form == "periodic" else 1.5, 0.1],
+            [2.2, 1.4, 0.9 if form == "periodic" else 3.0, 0.01]], dev)
+    _cuda.reset_launch_counts()
+    K = gop.gram_batched(X, P, form=form)
+    assert _cuda.launch_counts()["gram_batched"] == 1
+    R = gop.gram_batched_reference(X, P, form=form)
+    tol = (1e-2 if form == "matern12" else 3e-5) * (R.abs().max() if form == "sqdist" else 1.96)
+    assert float((K - R).abs().max()) <= tol
+
+
+def test_gram_batched_kernel_past_the_grid_z_limit(dev):
+    # more members than gridDim.z allows: the launcher sends them in chunks
+    rng = np.random.default_rng(17)
+    B = 70000
+    X = _t(rng.standard_normal((B, 16, 3)), dev)
+    P = _t(np.stack([rng.uniform(0.5, 2.0, B), rng.uniform(0.5, 1.5, B),
+                     np.ones(B), rng.uniform(0.01, 0.5, B)], 1), dev)
+    _cuda.reset_launch_counts()
+    K = gop.gram_batched(X, P)
+    assert _cuda.launch_counts()["gram_batched"] == 1
+    assert float((K - gop.gram_batched_reference(X, P)).abs().max()) <= 3e-5 * 2.25
+
+
+@pytest.mark.parametrize("b", [32, 33, 64, 128])
+def test_crout_kernel_contracts(dev, b):
+    rng = np.random.default_rng(13)
+    G = rng.standard_normal((5, b, b))
+    A = _t(G @ G.transpose(0, 2, 1) + b * np.eye(b), dev)
+    A[3, 1, 1] = -1.0  # not positive definite
+    junk = A.clone()
+    junk[:, torch.triu(torch.ones((b, b), dtype=torch.bool, device=dev), 1)] = float("nan")
+    _cuda.reset_launch_counts()
+    L = crout.crout_chol(junk)  # reads the lower triangle only
+    assert _cuda.launch_counts()["crout_chol"] == 1
+    R = crout.crout_chol_reference(A)
+    ok = [0, 1, 2, 4]
+    assert _relerr(L[ok], R[ok]) <= 1e-5
+    assert torch.all(torch.triu(L, 1) == 0) and torch.isfinite(L[ok]).all()
+    assert torch.isnan(L[3, -1, -1]) and not torch.isfinite(R[3, -1, -1])
+
+
+def test_crout_kernel_in_place_on_diagonal_blocks(dev):
+    rng = np.random.default_rng(14)
+    G = rng.standard_normal((2, 128, 128))
+    S = _t(G @ G.transpose(0, 2, 1) + 128 * np.eye(128), dev)
+    before = S.clone()
+    D = S[:, 64:, 64:]
+    out = crout.crout_chol(D, out=D)
+    assert out.data_ptr() == D.data_ptr()
+    assert _relerr(S[:, 64:, 64:], torch.linalg.cholesky(before[:, 64:, 64:])) <= 1e-5
+    assert torch.equal(S[:, :64], before[:, :64]) and torch.equal(S[:, 64:, :64], before[:, 64:, :64])
+
+
+def test_fleet_routes_reach_the_kernels(dev):
+    rng = np.random.default_rng(15)
+    B, n, panel = 4, 256, fleet_ops.PANEL
+    X = rng.standard_normal((B, n, 3))
+    Y = np.sin(X.sum(-1, keepdims=True)) + 0.1 * rng.standard_normal((B, n, 2))
+    Xs = rng.standard_normal((B, 16, 3))
+    k = tg.Gaussian(1.5, 1.0)
+    truth = fleet.fit_batched(k, X, Y, float(np.float32(0.1)), device="cpu")
+    cpu32 = fleet.fit_batched(k, X.astype(np.float32), Y.astype(np.float32), 0.1, device="cpu")
+    m64 = fleet.predict_batched(truth, Xs)
+    err_cpu = _relerr(fleet.predict_batched(cpu32, Xs.astype(np.float32)), m64)
+    _cuda.reset_launch_counts()
+    gp = fleet.fit_batched(k, _t(X, dev), _t(Y, dev), 0.1)
+    assert gp.route == "fleet-crout"
+    assert _cuda.launch_counts() == {**{kk.name: 0 for kk in _cuda.KERNELS},
+                                     "gram_batched": 1, "crout_chol": n // panel}
+    assert torch.all(torch.triu(gp.L, 1) == 0)
+    assert _relerr(fleet.predict_batched(gp, _t(Xs, dev)).cpu(), m64) <= 3 * err_cpu
+    gp = fleet.fit_batched(k, _t(X[:, :250], dev), _t(Y[:, :250], dev), 0.1)
+    assert gp.route == "torch-cholesky" and _cuda.launch_counts()["crout_chol"] == n // panel
+
+
+def test_fleet_gradient_on_the_card(dev):
+    rng = np.random.default_rng(16)
+    B, n = 3, 128
+    X = rng.standard_normal((B, n, 3))
+    Y = np.sin(X.sum(-1, keepdims=True)) + 0.1 * rng.standard_normal((B, n, 2))
+
+    def grad(Xa, Ya, **kw):
+        p = torch.tensor([[1.2, 1.5, 2.0], [0.9, 1.0, 1.1]], dtype=torch.float64,
+                         requires_grad=True)
+        v = fleet.mll_batched(tg.Gaussian(p[0], p[1]), Xa, Ya, 0.1, batched_kernel=True, **kw)
+        return torch.autograd.grad(v.sum(), p)[0].cpu()
+
+    g64 = grad(X, Y, device="cpu")
+    g32 = grad(X.astype(np.float32), Y.astype(np.float32), device="cpu")
+    _cuda.reset_launch_counts()
+    g = grad(_t(X, dev), _t(Y, dev))
+    assert _cuda.launch_counts()["crout_chol"] == n // fleet_ops.PANEL  # none in the backward
+    assert _relerr(g, g64) <= 3 * _relerr(g32, g64) + 1e-6
