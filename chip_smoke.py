@@ -7,14 +7,17 @@ It builds the hand-written kernels from gpr_tpu_torch/csrc with nvcc (one
 process per source, in parallel), then:
 
   1. holds each kernel (K1 gram_tile, K2 panel_update, K3 diag_factor_inv,
-     K4 panel_solve, K5 syrk_update, K6 gram_batched, K7 crout_chol) against
-     its plain torch version on the card: small ragged shapes, the contracts
-     of the fused factorization, each kernel at the shapes the n=16384 fit
-     gives it, K5 (lower triangle) at a ragged shape and at the top-level
-     trailing updates of n=3773 and n=16383, K6 on all 7 forms with
-     per-member parameters at B=3, n=200, d=37 and at the fleet's full width,
-     K7 at b = 32, 64, 33 and 128 with NaN above the diagonal and one member
-     that is not positive definite, and on the fleet's first diagonal block;
+     K4 panel_solve, K5 syrk_update, K6 gram_batched, K7 crout_chol, K8
+     crout_chol_wi, K9 fleet_fused) against its plain torch version on the
+     card: small ragged shapes, the contracts of the fused factorization, each
+     kernel at the shapes the n=16384 fit gives it, K5 (lower triangle) at a
+     ragged shape and at the top-level trailing updates of n=3773 and
+     n=16383, K6 on all 7 forms with per-member parameters at B=3, n=200,
+     d=37 and at the fleet's full width, K7 and K8 at b = 32, 64, 33 and 128
+     with NaN above the diagonal and one member that is not positive definite
+     (K8 strided, in place), on the fleet's first diagonal block, and K8 on
+     the fused backward's D D^T tiles; K9 at B=3, n = 128, 256, 384, q = 1
+     and 4 with a failed member, and at the fleet's full width;
   2. fits the bench model, Gaussian(8, 1) with sigma 0.1 at n=16384, d=128,
      q=8 (route "fused-gram"), and predicts mean and credible interval at
      1024 points;
@@ -48,16 +51,28 @@ process per source, in parallel), then:
      versions (K7 also against torch.linalg.cholesky_ex on the same tiles),
      the fleet fit at panels 32, 64 and 128 (B=128, n=512) and 64 and 128
      (B=256, n=1024), and traces 5 fleet fits with torch.profiler (device
-     time by kernel and idle share).
+     time by kernel and idle share);
+ 12. with the fused fleet on (ops.batched._FLEET_FUSED_MAX_N = 1024 for the
+     phase), fits at B=128, n=512 and B=256, n=1024 (route "fleet-fused":
+     K6, then one K9 launch), runs phase 9's value + gradient (one K8 launch
+     in the backward) and 5 fit_mle_batched steps; then a fleet fit under
+     GPR_FLEET_DIAG=crout (one K8 launch per panel step, no K7);
+ 13. times the fused fit against the panel-stepped fit and the plain route
+     at both sizes, K9 alone at panels 64 and 128, the fused value + gradient
+     against the panel-stepped one, K9 per fit against its plain version and
+     cholesky_ex + cholesky_solve, K8 per fit under GPR_FLEET_DIAG=crout
+     against K7 + the triangular solve, its plain version and cholesky_ex +
+     solve_triangular, K8 on the D D^T tiles, and traces 5 fused fits.
 
-Phases 2-4, 6 and 8 hold the port's mean and credible interval against a
+Phases 2-4, 6, 8 and 12 hold the port's mean and credible interval against a
 float64 torch reference and pass when the port's error is at most 3x that
 of the plain float32 torch route (torch Gram, torch.linalg.cholesky,
-cholesky_solve; for fleets also variance and alpha).  Phases 6, 7 and 9
+cholesky_solve; for fleets also variance and alpha).  Phases 6, 7, 9 and 12
 hold each value and gradient of the marginal likelihood (at each training
 step's parameters) against a float64 plain torch MLL (torch.linalg.cholesky
 + autograd) with the same 3x gate against the plain float32 MLL.  The launch
-counters are reset before each path (phases 2-5, 6, 7, 8-9) and read after
+counters are reset before each path (phases 2-5, 6, 7, 8-9, and each of
+phase 12's four) and read after
 it: each kernel of the path must have been launched there.  Any failure
 raises.  The last lines are the kernels' JSON, the card's name and power
 limit, then one JSON object with the device.  Exits non-zero, printing no result, where there is no CUDA device.
@@ -67,6 +82,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -291,10 +307,104 @@ def main() -> int:
     L7 = fcrout.crout_chol(D7)
     kstats["crout_chol"] = {"max_abs_err": float((L7 - fcrout.crout_chol_reference(D7)).abs().max())}
     check(kstats["crout_chol"]["max_abs_err"] <= 1e-5, "K7 at the fleet's first diagonal block")
-    del Kf, D7, L7
+    del D7, L7
     torch.cuda.synchronize()
     print(f"phase 1f K7 crout_chol: b=32, 64, 33, 128 with NaN upper and one non-SPD member ok; "
           f"B={Bf} b={fbatched.PANEL}: max abs err {kstats['crout_chol']['max_abs_err']:.3g}")
+
+    # K8: the tiles of 1f, with NaN above the diagonal and one member that is
+    # not positive definite, strided and in place (the lower-right blocks of a
+    # (6, 2b, 2b) buffer); then the tiles the main paths give it: the
+    # (B n / 64, 64, 64) tiles D D^T of the fused fleet's backward (D the
+    # diagonal blocks of the fleet's factor) and the fleet's first (B, 128,
+    # 128) diagonal block under GPR_FLEET_DIAG=crout.  L and W get 1e-5 and
+    # 1e-4 of their largest entry; on D D^T, whose condition is cond(D)^2
+    # (~4e3 here), two float32 inverse factors differ by up to ~cond eps, so
+    # W and L (= D) get 1e-3 there.
+    tri = {b: torch.triu(torch.ones((b, b), dtype=torch.bool, device=dev), 1) for b in (32, 33, 64, 128)}
+    for b in (32, 64, 33, 128):
+        G8 = torch.tensor(g6.standard_normal((6, b, b)), device=dev)
+        A8 = (G8 @ G8.mT + b * torch.eye(b, device=dev, dtype=G8.dtype)).float()
+        A8[4, b // 3, b // 3] = -1.0
+        buf = torch.zeros((6, 2 * b, 2 * b), device=dev)
+        D8 = buf[:, b:, b:]
+        D8.copy_(A8)
+        D8[:, tri[b]] = float("nan")
+        L8, W8 = fcrout.crout_chol_wi(D8, L_out=D8)
+        R8, RW8 = fcrout.crout_chol_wi_reference(A8)
+        ok = [0, 1, 2, 3, 5]
+        e_l, e_w = relerr(L8[ok], R8[ok]), relerr(W8[ok], RW8[ok])
+        check(e_l <= 1e-5 and e_w <= 1e-4, f"K8 b={b}: L {e_l}, W {e_w}")
+        check(bool(torch.all(L8[:, tri[b]] == 0) and torch.all(W8[:, tri[b]] == 0)),
+              f"K8 b={b}: strict upper not 0")
+        check(bool(torch.isnan(L8[4, -1, -1]) and torch.isnan(W8[4, -1, -1])),
+              f"K8 b={b}: the failed member's L[-1, -1], W[-1, -1] are not NaN")
+        check(bool(torch.isfinite(L8[ok]).all() and torch.isfinite(W8[ok]).all()),
+              f"K8 b={b}: a failure leaked into another tile")
+        check(bool((buf[:, :b] == 0).all() and (buf[:, b:, :b] == 0).all()),
+              f"K8 b={b}: wrote outside its view")
+    pf9 = fbatched.FUSED_PANEL
+    Lf = fbatched.cholesky_batched(Kf)
+    Df = torch.stack([Lf[:, i * pf9:(i + 1) * pf9, i * pf9:(i + 1) * pf9]
+                      for i in range(nf // pf9)], 1).reshape(-1, pf9, pf9)
+    DDt = torch.matmul(Df, Df.mT)
+    L8, W8 = fcrout.crout_chol_wi(DDt)
+    R8, RW8 = fcrout.crout_chol_wi_reference(DDt)
+    kstats["crout_chol_wi"] = {"max_abs_err": float((W8 - RW8).abs().max())}
+    e_w, e_d = relerr(W8, RW8), relerr(L8, Df)
+    check(e_w <= 1e-3 and e_d <= 1e-3, f"K8 on D D^T: W {e_w}, L against D {e_d}")
+    D8 = Kf[:, :fbatched.PANEL, :fbatched.PANEL].contiguous()
+    L8, W8 = fcrout.crout_chol_wi(D8)
+    R8, RW8 = fcrout.crout_chol_wi_reference(D8)
+    e_l, e_w = relerr(L8, R8), relerr(W8, RW8)
+    check(e_l <= 1e-5 and e_w <= 1e-4, f"K8 at the fleet's first diagonal block: L {e_l}, W {e_w}")
+    del Lf, Df, L8, W8, R8, RW8, D8
+    torch.cuda.synchronize()
+    print(f"phase 1g K8 crout_chol_wi: b=32, 64, 33, 128 with NaN upper, one non-SPD member, strided "
+          f"in place ok; D D^T tiles ({DDt.shape[0]} x {pf9}^2): W max abs err "
+          f"{kstats['crout_chol_wi']['max_abs_err']:.3g}, rel {e_w:.3g}; B={Bf} b={fbatched.PANEL} ok")
+
+    # K9: B=3, n = 128, 256, 384 at the fused panel and n = 384 at panel 128 (3
+    # panels, each depending on the ones before), q = 1 and 4, with NaN above
+    # the diagonal and member 1 failing in its last panel; factor 1e-5 and alpha
+    # 1e-4 of their largest entry.  Then at full width, the fleet's K (B=128,
+    # n=512) and Yf: the factor to 1e-4 absolute, alpha within 3x the plain
+    # version's error against a float64 solve.
+    g9 = np.random.default_rng(9)
+    for n9, p9 in ((128, pf9), (256, pf9), (384, pf9), (384, 128)):
+        up9 = torch.triu(torch.ones((n9, n9), dtype=torch.bool, device=dev), 1)
+        for q9 in (1, 4):
+            G9 = torch.tensor(g9.standard_normal((3, n9, n9)), device=dev)
+            A9 = (G9 @ G9.mT + n9 * torch.eye(n9, device=dev, dtype=G9.dtype)).float()
+            A9[1, n9 - 5, n9 - 5] = -1e4
+            Y9 = t32(g9.standard_normal((3, n9, q9)))
+            junk = A9.clone()
+            junk[:, up9] = float("nan")
+            L9, X9 = fbatched.factor_solve_fused(junk, Y9, p9)
+            R9, RX9 = fbatched.factor_solve_fused_reference(A9, Y9, p9)
+            ok = [0, 2]
+            e_l, e_x = relerr(L9[ok], R9[ok]), relerr(X9[ok], RX9[ok])
+            check(e_l <= 1e-5 and e_x <= 1e-4, f"K9 n={n9} p={p9} q={q9}: L {e_l}, alpha {e_x}")
+            check(bool(torch.all(L9[:, up9] == 0)), f"K9 n={n9} p={p9}: strict upper not 0")
+            check(bool(torch.isnan(L9[1, -1, -1]) and torch.isnan(X9[1]).any()),
+                  f"K9 n={n9} p={p9}: the failed member is not NaN")
+            check(bool(torch.isfinite(L9[ok]).all() and torch.isfinite(X9[ok]).all()),
+                  f"K9 n={n9} p={p9}: a failure leaked into another member")
+    del G9, A9, junk, L9, X9, R9, RX9
+    L9, X9 = fbatched.factor_solve_fused(Kf, Yf)
+    R9, RX9 = fbatched.factor_solve_fused_reference(Kf, Yf)
+    K64 = torch.tril(Kf.double()) + torch.tril(Kf.double(), -1).mT
+    X64 = torch.linalg.solve(K64, Yf.double())
+    e_k, e_p = relerr(X9, X64), relerr(RX9, X64)
+    kstats["fleet_fused"] = {"max_abs_err": float((X9 - RX9).abs().max())}
+    e_l = float((L9 - R9).abs().max())
+    check(e_l <= 1e-4 and e_k <= 3 * e_p, f"K9 at full width: L {e_l}, alpha {e_k} (plain {e_p})")
+    del Kf, L9, X9, R9, RX9, K64, X64
+    torch.cuda.synchronize()
+    print(f"phase 1h K9 fleet_fused: B=3, n=128, 256, 384 (p={pf9}) and 384 (p=128), q=1 and 4, NaN "
+          f"upper, failed member ok; B={Bf} n={nf} q={qf}: alpha max abs err vs plain "
+          f"{kstats['fleet_fused']['max_abs_err']:.3g}, rel err vs f64 {e_k:.3g} (plain {e_p:.3g}), "
+          f"L max abs err {e_l:.3g}")
 
     # -------------------------------------------------------- references ---
     def gaussian64(A, B, sigma, scale):
@@ -900,13 +1010,238 @@ def main() -> int:
     for t, c, name in sorted(by_kernel, reverse=True)[:12]:
         print(f"    {t:.4f} ms per fit, {c:g} launches: {name[:100]}")
 
+    # --------------------------------------------------------------- 12 ----
+    # the fused fleet: each path driven with the counts set to 0 just before
+    # it and read just after
+    print("phase 12 the fused fleet (route fleet-fused; GPR_FLEET_FUSED_MAX_N = 1024 for the phase)")
+    saved_max_n = fbatched._FLEET_FUSED_MAX_N
+    path_counts = []
+    fbatched._FLEET_FUSED_MAX_N = 1024
+    try:
+        _cuda.reset_launch_counts()
+        gpf = tg.fit_batched(k_f, Xf, Yf, 0.1)
+        check(gpf.route == "fleet-fused", f"fused fleet fit took route {gpf.route}")
+        judge_fleet(f"fused B={Bf} n={nf}", gpf, Xsf, 2.0, 1.0, sigf)
+        del gpf
+        r12 = np.random.default_rng(9)  # phase 8's data at B=256, n=1024
+        X2k = t32(r12.standard_normal((256, 1024, df_)))
+        Y2k = t32(r12.standard_normal((256, 1024, qf)))
+        gp2k = tg.fit_batched(k_f, X2k, Y2k, 0.1)
+        check(gp2k.route == "fleet-fused", f"fused B=256 n=1024 took route {gp2k.route}")
+        judge_fleet("fused B=256 n=1024", gp2k, t32(r12.standard_normal((256, 64, df_))), 2.0, 1.0,
+                    sigf)
+        del gp2k
+        torch.cuda.synchronize()
+        c = _cuda.launch_counts()
+        path_counts.append(c)
+        print(f"  launches on the fused fit path: {c}")
+        check(c["gram_batched"] == 2 and c["fleet_fused"] == 2 and c["crout_chol"] == 0
+              and c["crout_chol_wi"] == 0, "fused fit launches")
+
+        _cuda.reset_launch_counts()
+        v_ff, g_ff = port_fleet_mll(Xf, Yf, 0.1, P0)
+        torch.cuda.synchronize()
+        c = _cuda.launch_counts()
+        path_counts.append(c)
+        e_v, e_g = relerr(v_ff, v64), relerr(g_ff, g64)
+        print(f"  fused mll_batched value + gradient: rel err vs f64: value {e_v:.3g} (plain f32 "
+              f"{p_v:.3g}), gradient {e_g:.3g} (plain f32 {p_g:.3g}); launches {c}")
+        check(e_v <= 3 * p_v and e_g <= 3 * p_g, "fused fleet MLL: error above 3x the plain f32 route's")
+        check(c["fleet_fused"] == 1 and c["crout_chol_wi"] == 1 and c["crout_chol"] == 0,
+              "fused value + gradient launches: one K9 forward, one K8 in the backward, no K7")
+
+        _cuda.reset_launch_counts()
+        _, r_ff = fleet.fit_mle_batched(k_f, Xf, Yf, 0.1, iterations=5, init=init)
+        torch.cuda.synchronize()
+        c = _cuda.launch_counts()
+        path_counts.append(c)
+        check(r_ff.route == "fleet-fused" and r_ff.params.shape == (Bf, 2), "fused fit_mle_batched")
+        check(bool(torch.isfinite(r_ff.trace).all()) and r_ff.value > float(r_ff.trace[0]),
+              f"fused fit_mle_batched did not climb: {r_ff.trace.tolist()} -> {r_ff.value}")
+        print(f"  fused fit_mle_batched 5 steps: summed MLL {[round(float(v), 1) for v in r_ff.trace]}"
+              f" -> {r_ff.value:.1f}; launches {c}")
+        # a K9 launch per step and one for the final value, a K8 launch per backward
+        check(c["fleet_fused"] == 6 and c["crout_chol_wi"] == 5 and c["crout_chol"] == 0,
+              "fused fit_mle_batched launches")
+    finally:
+        fbatched._FLEET_FUSED_MAX_N = saved_max_n
+
+    saved_diag = os.environ.get("GPR_FLEET_DIAG")
+    os.environ["GPR_FLEET_DIAG"] = "crout"
+    try:
+        _cuda.reset_launch_counts()
+        gpc = tg.fit_batched(k_f, Xf, Yf, 0.1)
+        torch.cuda.synchronize()
+        c = _cuda.launch_counts()
+        path_counts.append(c)
+        check(gpc.route == "fleet-crout", f"GPR_FLEET_DIAG=crout fit took route {gpc.route}")
+        judge_fleet(f"GPR_FLEET_DIAG=crout B={Bf} n={nf}", gpc, Xsf, 2.0, 1.0, sigf)
+        del gpc
+        print(f"  launches on the crout-scheme path: {c}")
+        check(c["crout_chol_wi"] == nf // fbatched.PANEL and c["crout_chol"] == 0,
+              "GPR_FLEET_DIAG=crout: one K8 launch per panel step, no K7")
+    finally:
+        if saved_diag is None:
+            del os.environ["GPR_FLEET_DIAG"]
+        else:
+            os.environ["GPR_FLEET_DIAG"] = saved_diag
+    for c in path_counts:
+        for name, v in c.items():
+            counts[name] += v
+    check(counts["crout_chol_wi"] > 0 and counts["fleet_fused"] > 0,
+          "a kernel of the fused paths was never launched")
+
+    # --------------------------------------------------------------- 13 ----
+    def fleet_fit_at(max_n, X, Y):
+        fbatched._FLEET_FUSED_MAX_N = max_n
+        try:
+            tg.fit_batched(k_f, X, Y, 0.1)
+        finally:
+            fbatched._FLEET_FUSED_MAX_N = saved_max_n
+
+    def rotate(fns, rounds):
+        """Each fn timed in turns, the order reversed every round, after a
+        warm-up: {name: (median, runs)}."""
+        for fn in fns.values():
+            fn()
+        runs = {k: [] for k in fns}
+        keys = list(fns)
+        for i in range(rounds):
+            for k in (keys if i % 2 == 0 else keys[::-1]):
+                runs[k].append(timed(fns[k]))
+        return {k: (float(np.median(v)), v) for k, v in runs.items()}
+
+    r13 = np.random.default_rng(11)  # phase 11's data at B=256, n=1024
+    fit_cmp, panel_cmp = {}, {}
+    for B_, n_ in ((Bf, nf), (256, 1024)):
+        X_ = Xf if n_ == nf else t32(r13.standard_normal((B_, n_, df_)))
+        Y_ = Yf if n_ == nf else t32(r13.standard_normal((B_, n_, qf)))
+        fit_cmp[(B_, n_)] = rotate({"fused": lambda: fleet_fit_at(1024, X_, Y_),
+                                    "panel-stepped": lambda: fleet_fit_at(0, X_, Y_),
+                                    "plain f32": lambda: plain_fleet_fit(X_, Y_)}, 10)
+        P_ = Pf if B_ == Bf else t32(np.tile([2.0, 1.0, 1.0, sigf * sigf], (B_, 1)))
+        K_ = gop.gram_batched(X_, P_)
+        panel_cmp[(B_, n_)] = rotate({p_: (lambda p_=p_: fbatched.factor_solve_fused(K_, Y_, p_))
+                                      for p_ in (64, 128)}, 6)
+        del X_, Y_, P_, K_
+
+    def vg_at(max_n):
+        fbatched._FLEET_FUSED_MAX_N = max_n
+        try:
+            port_fleet_mll(Xf, Yf, 0.1, P0)
+        finally:
+            fbatched._FLEET_FUSED_MAX_N = saved_max_n
+
+    vg_cmp = rotate({"fused": lambda: vg_at(1024), "panel-stepped": lambda: vg_at(0)}, 6)
+
+    # K9 per fit: one launch on the fleet's K, against its plain version and the
+    # library pair torch.linalg.cholesky_ex + torch.cholesky_solve (two calls)
+    Kfit = gop.gram_batched(Xf, Pf)
+    k9 = rotate({"kernel": lambda: fbatched.factor_solve_fused(Kfit, Yf),
+                 "plain": lambda: fbatched.factor_solve_fused_reference(Kfit, Yf),
+                 "library": lambda: torch.cholesky_solve(Yf, torch.linalg.cholesky_ex(Kfit)[0])}, 5)
+    kstats["fleet_fused"].update(ms=k9["kernel"][0], plain_ms=k9["plain"][0],
+                                 library_ms=k9["library"][0])
+
+    # K8 per fleet fit under GPR_FLEET_DIAG=crout: each panel step's diagonal
+    # step timed alone, with K8, crout_xlaw's pair (K7 + the triangular solve),
+    # the plain version and the library pair torch.linalg.cholesky_ex +
+    # solve_triangular (two calls) in turn
+    def diag_total(step):
+        tot = [0.0]
+
+        def timed_diag(D, out):
+            box = []
+            tot[0] += timed(lambda: box.append(step(D, out)))
+            return box[0]
+
+        L = fbatched.cholesky_batched(Kfit, diag=timed_diag)
+        check(bool(torch.isfinite(L[:, -1, -1]).all()), "timed fleet factorization failed")
+        return tot[0]
+
+    def k7_trsm(D, out):
+        L = fcrout.crout_chol(D, out=out)
+        return L, fbatched._tri_inverse(L)
+
+    def library8(D, out):
+        L = out.copy_(torch.linalg.cholesky_ex(D)[0])
+        return L, fbatched._tri_inverse(L)
+
+    steps8 = {"kernel": lambda D, out: fcrout.crout_chol_wi(D, L_out=out),
+              "K7 + trsm": k7_trsm, "plain": fbatched._wi_reference, "library": library8}
+    k8runs = {k: [] for k in steps8}
+    diag_total(steps8["kernel"])  # warm-up
+    for order in (list(steps8), list(steps8)[::-1]) * 3:
+        for k in order:
+            k8runs[k].append(diag_total(steps8[k]))
+    kstats["crout_chol_wi"].update(ms=float(np.median(k8runs["kernel"])),
+                                   plain_ms=float(np.median(k8runs["plain"])),
+                                   library_ms=float(np.median(k8runs["library"])))
+    k8dd = rotate({"kernel": lambda: fcrout.crout_chol_wi(DDt),
+                   "plain": lambda: fcrout.crout_chol_wi_reference(DDt)}, 5)
+    del Kfit, DDt
+
+    fbatched._FLEET_FUSED_MAX_N = 1024
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t_w = time.perf_counter()
+            for _ in range(5):
+                tg.fit_batched(k_f, Xf, Yf, 0.1)
+            torch.cuda.synchronize()
+            wall_fused = (time.perf_counter() - t_w) * 1e3 / 5
+    finally:
+        fbatched._FLEET_FUSED_MAX_N = saved_max_n
+    by_kernel_f = []
+    for e in prof.key_averages():
+        if "CUDA" in str(e.device_type):
+            us = getattr(e, "self_device_time_total", None)
+            us = e.self_cuda_time_total if us is None else us
+            by_kernel_f.append((us / 1e3 / 5, e.count / 5, e.key))
+    busy_fused = sum(t for t, _, _ in by_kernel_f)
+
+    # K8 per fit: n / 128 launches of B tiles of 128, L and W (2 b^3 / 3 FLOP;
+    # the lower triangle read, both tiles written); K9 per fit: one launch
+    kstats["crout_chol_wi"].update(sum_bounds(
+        [(Bf * 2.0 * pf ** 3 / 3.0, 4.0 * Bf * (pf * (pf + 1) / 2 + 2 * pf * pf))] * nbf))
+    kstats["fleet_fused"].update(bound(Bf * (nf ** 3 / 3.0 + 2.0 * nf * nf * qf),
+                                       4.0 * Bf * (nf * (nf + 1) / 2 + nf * nf + 2 * nf * qf)))
+
+    def runs_text(r):
+        return ", ".join(f"{t:.3f}" for t in r)
+
+    print(f"phase 13 fused fleet timings ({smi}), CUDA events, medians:")
+    for (B_, n_), res in fit_cmp.items():
+        print(f"  fleet fit B={B_} n={n_} d={df_} q={qf}: " + "; ".join(
+            f"{k} {m:.3f} ms = {B_ / m * 1e3:.0f} fits/s (runs {runs_text(r)})" for k, (m, r) in res.items()))
+    for (B_, n_), res in panel_cmp.items():
+        print(f"  K9 alone, B={B_} n={n_}: " + "; ".join(
+            f"panel {k} {m:.3f} ms (runs {runs_text(r)})" for k, (m, r) in res.items()))
+    print("  mll_batched value + gradient B=%d n=%d: %s" % (Bf, nf, "; ".join(
+        f"{k} {m:.3f} ms (runs {runs_text(r)})" for k, (m, r) in vg_cmp.items())))
+    print(f"  K9 fleet_fused per fit (1 launch, B={Bf} n={nf} q={qf}, panel {pf9}): " + "; ".join(
+        f"{k} {m:.4f} ms" for k, (m, r) in k9.items()) + " (library: cholesky_ex + cholesky_solve)")
+    print(f"  K8 crout_chol_wi per fit under GPR_FLEET_DIAG=crout ({nbf} launches of {Bf} x {pf}^2 "
+          f"tiles): " + "; ".join(f"{k} {[round(t, 4) for t in v]} ms" for k, v in k8runs.items())
+          + " (library: cholesky_ex + solve_triangular)")
+    print(f"  K8 on the fused backward's D D^T tiles ({nf // pf9 * Bf} x {pf9}^2, 1 launch): kernel {k8dd['kernel'][0]:.4f} ms, plain {k8dd['plain'][0]:.4f} ms")
+    print(f"  torch.profiler, 5 fused fleet fits B={Bf} n={nf}: {wall_fused:.3f} ms per fit on the host "
+          f"clock, device kernels {busy_fused:.3f} ms per fit, idle "
+          f"{100.0 * (1.0 - busy_fused / wall_fused):.1f} % (profiler on; panel-stepped in phase 11: "
+          f"{100.0 * (1.0 - busy_fit / wall_fit):.1f} %)")
+    for t, c, name in sorted(by_kernel_f, reverse=True)[:8]:
+        print(f"    {t:.4f} ms per fit, {c:g} launches: {name[:100]}")
+
     sources = {"gram_tile": "gpr_tpu_torch/csrc/gram.cu", "syrk_update": "gpr_tpu_torch/csrc/syrk.cu",
                "gram_batched": "gpr_tpu_torch/csrc/gram.cu",
-               "crout_chol": "gpr_tpu_torch/csrc/crout.cu"}
+               "crout_chol": "gpr_tpu_torch/csrc/crout.cu",
+               "crout_chol_wi": "gpr_tpu_torch/csrc/crout.cu",
+               "fleet_fused": "gpr_tpu_torch/csrc/fleet.cu"}
     replaces = {"gram_tile": "gpr_tpu/ops/pallas_gram.py:38",
                 "syrk_update": "gpr_tpu/ops/pallas_syrk.py:73",
                 "gram_batched": "gpr_tpu/ops/pallas_gram.py:142",
-                "crout_chol": "gpr_tpu/ops/pallas_batched.py:205"}
+                "crout_chol": "gpr_tpu/ops/pallas_batched.py:205",
+                "crout_chol_wi": "gpr_tpu/ops/pallas_batched.py:199",
+                "fleet_fused": "gpr_tpu/ops/pallas_batched.py:560"}
     kernels = []
     for k in _cuda.KERNELS:
         kernels.append({

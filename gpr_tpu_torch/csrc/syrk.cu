@@ -12,7 +12,8 @@
 // k-slices of its two row tiles of L21 through shared memory.  The staging
 // and the register-tile product, summed in two levels (partials of 128
 // terms), are K2's (gram_tile.cuh: stage_rows, rank_update_chunk,
-// fold_update).
+// fold_update); the whole tile is gram_tile.cuh's syrk_tile, which K9's
+// trailing update runs too.
 //
 // Contracts, as on the TPU:
 //   * only the lower tiles are computed and written; upper tiles (j > i) of
@@ -45,38 +46,7 @@ __global__ void __launch_bounds__(kThreads)
   while (i * (i + 1) / 2 > t) --i;
   while ((i + 1) * (i + 2) / 2 <= t) ++i;
   const int j = t - i * (i + 1) / 2;
-  const int row0 = i * kTile;
-  const int col0 = j * kTile;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-
-  float acc[kPer][kPer];
-#pragma unroll
-  for (int a = 0; a < kPer; ++a)
-#pragma unroll
-    for (int b = 0; b < kPer; ++b) acc[a][b] = 0.0f;
-
-  float part[kPer][kPer] = {};
-  for (int k0 = 0, c = 1; k0 < k; k0 += kChunk, ++c) {
-    stage_rows(sm.a, L21, ldl, m, k, row0, k0);
-    stage_rows(sm.b, L21, ldl, m, k, col0, k0);
-    __syncthreads();
-    rank_update_chunk(sm, part);  // part -= L21[rows] . L21[cols]
-    __syncthreads();
-    if (c % kFold == 0) fold_update(acc, part);
-  }
-  fold_update(acc, part);
-
-#pragma unroll
-  for (int a = 0; a < kPer; ++a) {
-    const int r = row0 + ty * kPer + a;
-    if (r >= m) continue;
-#pragma unroll
-    for (int b = 0; b < kPer; ++b) {
-      const int c = col0 + tx * kPer + b;
-      if (c < m) out[r * ldo + c] = A22[r * lda + c] + acc[a][b];
-    }
-  }
+  syrk_tile(A22, lda, L21, ldl, out, ldo, m, k, i, j, false, sm);
 }
 
 }  // namespace gpr

@@ -11,13 +11,20 @@ function runs under ``torch.func.vmap`` (``kernels.fleet_map``).
 
 Routes, recorded in ``BatchedGP.route``:
 
-  ``"fleet-crout"``     the panel sweep of ops/batched.py: K7 crout_chol on
-                        every diagonal block, batched GEMMs for the rest,
+  ``"fleet-crout"``     the panel sweep of ops/batched.py: the diagonal scheme
+                        (``GPR_FLEET_DIAG``, default K7 crout_chol) on every
+                        diagonal block, batched GEMMs for the rest,
                         differentiable through its pullback.  Taken on the
                         card for float32 with n % PANEL == 0 (JAX takes its
                         Pallas fleet factorizer on a TPU), and wherever
                         ``use_crout=True``: on CPU tensors it runs the plain
                         versions, so the CPU tests follow the route.
+  ``"fleet-fused"``     where ``fleet-crout`` would be taken and n <=
+                        ``ops.batched._FLEET_FUSED_MAX_N`` (``GPR_FLEET_FUSED_MAX_N``
+                        at import, default 0: off, as in JAX): K9
+                        fleet_fused factors and solves every member in one
+                        launch; its pullback's fleet solve launches K8 once
+                        (batched.py:59-75).
   ``"torch-cholesky"``  every other case and ``use_crout=False``: batched
                         ``torch.linalg.cholesky_ex`` and ``cholesky_solve``
                         (batched.py:93-95).
@@ -68,9 +75,8 @@ def _fleet_inputs(X, Y, sigma, device):
     return X, Y, sigma
 
 
-def _panel(n: int) -> int:
-    # the port's panel, halved until it divides n (batched.py:84-86)
-    panel = fleet_ops.PANEL
+def _panel(n: int, panel: int) -> int:
+    # the port's panel, halved until it divides n (batched.py:65-69, 84-86)
     while n % panel and panel > 16:
         panel //= 2
     return panel
@@ -80,16 +86,22 @@ def fleet_route(n: int, dtype: torch.dtype, device, use_crout: Optional[bool] = 
     """The factorization route of a fleet of (n, n) matrices."""
     if use_crout is None:
         use_crout = fleet_ops.batched_usable(n, dtype, device)
-    return "fleet-crout" if use_crout else "torch-cholesky"
+    if not use_crout:
+        return "torch-cholesky"
+    return "fleet-fused" if n <= fleet_ops._FLEET_FUSED_MAX_N else "fleet-crout"
 
 
 def _factor_and_solve(K, Y, use_crout: Optional[bool]):
     """(L, alpha, route) of a fleet K (B, n, n), Y (B, n, q)
     (batched.py:45-95).  ``use_crout`` None picks the route by
-    :func:`fleet_route`; True forces the fleet sweep, False torch's."""
-    route = fleet_route(K.shape[-1], K.dtype, K.device, use_crout)
+    :func:`fleet_route`; True forces a fleet kernel route, False torch's."""
+    n = K.shape[-1]
+    route = fleet_route(n, K.dtype, K.device, use_crout)
+    if route == "fleet-fused":
+        L, alpha = fleet_ops.factor_solve_fused_diff(K, Y, _panel(n, fleet_ops.FUSED_PANEL))
+        return L, alpha, route
     if route == "fleet-crout":
-        L, alpha = fleet_ops.factor_solve_batched_diff(K, Y, _panel(K.shape[-1]))
+        L, alpha = fleet_ops.factor_solve_batched_diff(K, Y, _panel(n, fleet_ops.PANEL))
         return L, alpha, route
     L, info = torch.linalg.cholesky_ex(K)
     # NaN where a member failed, as jnp.linalg.cholesky returns it

@@ -134,8 +134,14 @@ SYRK_UPDATE = Kernel("syrk_update", "gpr_syrk_update", [_P, _I, _P, _I, _P, _I, 
 GRAM_BATCHED = Kernel("gram_batched", "gpr_gram_batched", [_P, _P, _P, _I, _I, _I, _I])
 # (A, a_batch_stride, a_ld, L, l_batch_stride, l_ld, B, b)
 CROUT_CHOL = Kernel("crout_chol", "gpr_crout_chol", [_P, _LL, _I, _P, _LL, _I, _I, _I])
+# (A, a_batch_stride, a_ld, L, l_batch_stride, l_ld, W, w_batch_stride, w_ld, B, b)
+CROUT_CHOL_WI = Kernel("crout_chol_wi", "gpr_crout_chol_wi",
+                       [_P, _LL, _I, _P, _LL, _I, _P, _LL, _I, _I, _I])
+# (A, L, Y, X, W, B, n, panel, q)
+FLEET_FUSED = Kernel("fleet_fused", "gpr_fleet_fused", [_P, _P, _P, _P, _P, _I, _I, _I, _I])
 
-KERNELS = (GRAM, PANEL_UPDATE, DIAG_FACTOR_INV, PANEL_SOLVE, SYRK_UPDATE, GRAM_BATCHED, CROUT_CHOL)
+KERNELS = (GRAM, PANEL_UPDATE, DIAG_FACTOR_INV, PANEL_SOLVE, SYRK_UPDATE, GRAM_BATCHED, CROUT_CHOL,
+           CROUT_CHOL_WI, FLEET_FUSED)
 
 
 def reset_launch_counts() -> None:

@@ -1,13 +1,16 @@
-"""K7's plain version (gpr_tpu_torch.ops.crout.crout_chol_reference) against
-the JAX package's Pallas Crout sweep (gpr_tpu.ops.pallas_batched.crout_chol)
-in interpret mode, its contracts, and the wrapper's refusals.
+"""K7's and K8's plain versions (gpr_tpu_torch.ops.crout.crout_chol_reference,
+crout_chol_wi_reference) against the JAX package's Pallas Crout sweeps
+(gpr_tpu.ops.pallas_batched.crout_chol, crout_chol_wi) in interpret mode,
+their contracts, and the wrappers' refusals.
 
 Both run the W-free sweep in float32; JAX fuses pivot pairs (step2,
 pallas_batched.py:119-173) where the plain version steps one column at a
 time, so they round differently: 1e-5 of the largest |L| entry.  A
 non-positive pivot leaves its tile's L[-1, -1] non-finite in both (-inf
 from 1 / max(piv, 0) = inf through the trailing updates); the kernel, whose
-pivot is rsqrt(piv), makes it NaN (tests/test_torch_cuda.py).
+pivot is rsqrt(piv), makes it NaN (tests/test_torch_cuda.py).  With W, both
+step the same forward substitution in other groupings: W agrees to 1e-5 of
+its largest entry, and W L = I to 1e-5.
 """
 
 import jax.numpy as jnp
@@ -87,3 +90,54 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         crout.crout_chol(A, out=torch.zeros((2, 8, 8), dtype=torch.float64))
     with pytest.raises(ValueError):
         crout.crout_chol(A.to("meta"))  # neither CPU nor CUDA
+
+
+@pytest.mark.parametrize("b", [32, 33, 64])
+def test_wi_matches_pallas_interpret(b):
+    A = _spd(4, b, b + 1)
+    A[2, 3, 3] = -1.0  # one member that is not positive definite
+    junk = A.copy()
+    junk[:, np.triu_indices(b, 1)[0], np.triu_indices(b, 1)[1]] = np.nan
+    Lj, Wj = (np.asarray(v) for v in pb.crout_chol_wi(jnp.asarray(junk), interpret=True))
+    _cuda.reset_launch_counts()
+    Lt, Wt = (v.numpy() for v in crout.crout_chol_wi(torch.tensor(junk)))  # lower read only
+    assert _cuda.launch_counts()["crout_chol_wi"] == 0
+    ok = [0, 1, 3]
+    np.testing.assert_allclose(Lt[ok], Lj[ok], rtol=0, atol=1e-5 * np.abs(Lj[ok]).max())
+    np.testing.assert_allclose(Wt[ok], Wj[ok], rtol=0, atol=1e-5 * np.abs(Wj[ok]).max())
+    ref = np.linalg.cholesky(A[ok].astype(np.float64))
+    assert np.abs(Wt[ok] @ ref - np.eye(b)).max() <= 1e-5
+    assert not np.isfinite(Lj[2, -1, -1]) and not np.isfinite(Lt[2, -1, -1])
+    assert not np.isfinite(Wt[2, -1, -1])
+    assert not np.triu(Lt, 1).any() and not np.triu(Wt, 1).any()
+
+
+def test_wi_in_place_on_strided_views():
+    S = torch.tensor(np.stack([np.kron(np.eye(2), m) for m in _spd(2, 16, 8)]))  # (2, 32, 32)
+    before = S.clone()
+    Wbuf = torch.full((2, 16, 20), 7.0, dtype=S.dtype)
+    D, Wv = S[:, 16:, 16:], Wbuf[:, :, 2:18]
+    L, W = crout.crout_chol_wi(D, L_out=D, W_out=Wv)
+    assert L.data_ptr() == D.data_ptr() and W.data_ptr() == Wv.data_ptr()
+    ref = torch.linalg.cholesky(before[:, 16:, 16:])
+    torch.testing.assert_close(S[:, 16:, 16:], ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(Wv, torch.linalg.inv(ref), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(S[:, :16], before[:, :16], rtol=0, atol=0)
+    assert bool((Wbuf[:, :, :2] == 7.0).all() and (Wbuf[:, :, 18:] == 7.0).all())
+
+
+def test_wi_wrapper_refuses_what_the_kernel_does_not_take():
+    A = torch.eye(8).expand(2, 8, 8).contiguous()
+    with pytest.raises(ValueError):
+        crout.crout_chol_wi(A[0])  # not (B, b, b)
+    with pytest.raises(ValueError):
+        crout.crout_chol_wi(A, W_out=A)  # W over A
+    L = torch.empty_like(A)
+    with pytest.raises(ValueError):
+        crout.crout_chol_wi(A, L_out=L, W_out=L)  # W over L
+    with pytest.raises(ValueError):
+        crout.crout_chol_wi(A, W_out=torch.zeros((2, 8, 8), dtype=torch.float64))
+    with pytest.raises(ValueError):
+        crout.crout_chol_wi(A, L_out=torch.zeros((2, 8, 8)).transpose(1, 2))  # not row-major
+    with pytest.raises(ValueError):
+        crout.crout_chol_wi(A.to("meta"))  # neither CPU nor CUDA

@@ -1,4 +1,4 @@
-"""The port's hand-written CUDA kernels (K1-K7) against their plain torch
+"""The port's hand-written CUDA kernels (K1-K9) against their plain torch
 versions, on the card, at small shapes.  Marked ``cuda``: skipped where
 torch.cuda.is_available() is False.  On a machine with a card and without
 JAX run it alone, without the suite's conftest (which imports JAX):
@@ -18,7 +18,9 @@ likelihood through the card's factorization gets 3x the error of the same
 float32 computation on the CPU, both against float64.  K6 takes K1's
 tolerances; a K7 factor gets 1e-5 of its largest entry (the kernel pivots
 with rsqrt and scaled columns, the plain version with 1 / piv and unscaled
-ones).
+ones).  K8's W gets 1e-4 relative (the kernel substitutes after the sweep,
+the plain version inside it); K9's factor 1e-5 and its alpha 1e-4 relative,
+against the plain version and a float64 solve.
 """
 
 import numpy as np
@@ -308,3 +310,150 @@ def test_fleet_gradient_on_the_card(dev):
     g = grad(_t(X, dev), _t(Y, dev))
     assert _cuda.launch_counts()["crout_chol"] == n // fleet_ops.PANEL  # none in the backward
     assert _relerr(g, g64) <= 3 * _relerr(g32, g64) + 1e-6
+
+
+def _spd_batch(rng, B, b):
+    G = rng.standard_normal((B, b, b))
+    return G @ G.transpose(0, 2, 1) + b * np.eye(b)
+
+
+@pytest.mark.parametrize("b", [32, 33, 64, 128])
+def test_crout_wi_kernel_contracts(dev, b):
+    rng = np.random.default_rng(18)
+    A = _t(_spd_batch(rng, 5, b), dev)
+    A[3, 1, 1] = -1.0  # not positive definite
+    junk = A.clone()
+    junk[:, torch.triu(torch.ones((b, b), dtype=torch.bool, device=dev), 1)] = float("nan")
+    _cuda.reset_launch_counts()
+    L, W = crout.crout_chol_wi(junk)  # reads the lower triangle only
+    assert _cuda.launch_counts()["crout_chol_wi"] == 1
+    R, RW = crout.crout_chol_wi_reference(A)
+    ok = [0, 1, 2, 4]
+    assert _relerr(L[ok], R[ok]) <= 1e-5 and _relerr(W[ok], RW[ok]) <= 1e-4
+    eye = torch.eye(b, device=dev)
+    assert float((W[ok] @ L[ok] - eye).abs().max()) <= 1e-4
+    assert torch.all(torch.triu(L, 1) == 0) and torch.all(torch.triu(W, 1) == 0)
+    assert torch.isfinite(L[ok]).all() and torch.isfinite(W[ok]).all()
+    assert torch.isnan(L[3, -1, -1]) and torch.isnan(W[3, -1, -1])
+    assert not torch.isfinite(R[3, -1, -1])
+
+
+def test_crout_wi_kernel_in_place_on_strided_views(dev):
+    rng = np.random.default_rng(19)
+    S = _t(_spd_batch(rng, 2, 128), dev)
+    before = S.clone()
+    Wbuf = torch.full((2, 64, 80), 7.0, device=dev)
+    D, Wv = S[:, 64:, 64:], Wbuf[:, :, 8:72]
+    L, W = crout.crout_chol_wi(D, L_out=D, W_out=Wv)
+    assert L.data_ptr() == D.data_ptr() and W.data_ptr() == Wv.data_ptr()
+    ref = torch.linalg.cholesky(before[:, 64:, 64:].double())
+    assert _relerr(S[:, 64:, 64:].double(), ref) <= 1e-5
+    assert float((Wv.double() @ ref - torch.eye(64, device=dev, dtype=torch.float64)).abs().max()) <= 1e-4
+    assert torch.equal(S[:, :64], before[:, :64]) and torch.equal(S[:, 64:, :64], before[:, 64:, :64])
+    assert bool((Wbuf[:, :, :8] == 7.0).all() and (Wbuf[:, :, 72:] == 7.0).all())
+
+
+@pytest.mark.parametrize("n,panel,q", [(128, 64, 1), (192, 64, 4), (384, 128, 4), (256, 32, 9)])
+def test_fused_kernel_contracts(dev, n, panel, q):
+    # n = 3 panel: every member's later panels depend on the earlier ones
+    rng = np.random.default_rng(20)
+    A = _t(_spd_batch(rng, 3, n), dev)
+    A[1, n - 5, n - 5] = -1e4  # member 1 fails in its last panel
+    Y = _t(rng.standard_normal((3, n, q)), dev)
+    junk = A.clone()
+    junk[:, torch.triu(torch.ones((n, n), dtype=torch.bool, device=dev), 1)] = float("nan")
+    _cuda.reset_launch_counts()
+    L, X = fleet_ops.factor_solve_fused(junk, Y, panel)  # reads the lower triangle only
+    assert _cuda.launch_counts()["fleet_fused"] == 1
+    R, RX = fleet_ops.factor_solve_fused_reference(A, Y, panel)
+    ok = [0, 2]
+    assert _relerr(L[ok], R[ok]) <= 1e-5 and _relerr(X[ok], RX[ok]) <= 1e-4
+    truth = torch.linalg.solve(A[ok].double(), Y[ok].double())
+    assert _relerr(X[ok].double(), truth) <= 1e-4
+    assert torch.all(torch.triu(L, 1) == 0) and torch.isfinite(L[ok]).all()
+    assert torch.isnan(L[1, -1, -1]) and torch.isnan(X[1]).any()
+    assert not torch.isfinite(R[1, -1, -1])
+
+
+def test_fused_kernel_at_its_largest_n(dev):
+    rng = np.random.default_rng(21)
+    n = fleet_ops.FUSED_MAX_N
+    G = torch.randn((1, n, n), device=dev, generator=torch.Generator(device=dev).manual_seed(21))
+    A = G @ G.mT / n + torch.eye(n, device=dev)
+    Y = _t(rng.standard_normal((1, n, 2)), dev)
+    L, X = fleet_ops.factor_solve_fused(A, Y, 128)
+    truth = torch.linalg.solve(A.double(), Y.double())
+    assert _relerr(X.double(), truth) <= 1e-3 and torch.all(torch.triu(L, 1) == 0)
+    with pytest.raises(ValueError):
+        fleet_ops.factor_solve_fused(torch.eye(n + 128, device=dev)[None],
+                                     torch.zeros((1, n + 128, 1), device=dev), 128)
+
+
+def test_fleet_fused_route_reaches_its_kernels(dev, monkeypatch):
+    monkeypatch.setattr(fleet_ops, "_FLEET_FUSED_MAX_N", 1024)
+    rng = np.random.default_rng(22)
+    B, n = 4, 256
+    X = rng.standard_normal((B, n, 3))
+    Y = np.sin(X.sum(-1, keepdims=True)) + 0.1 * rng.standard_normal((B, n, 2))
+    Xs = rng.standard_normal((B, 16, 3))
+    k = tg.Gaussian(1.5, 1.0)
+    m64 = fleet.predict_batched(fleet.fit_batched(k, X, Y, float(np.float32(0.1)), device="cpu"), Xs)
+    cpu32 = fleet.fit_batched(k, X.astype(np.float32), Y.astype(np.float32), 0.1, device="cpu",
+                              use_crout=False)
+    err_cpu = _relerr(fleet.predict_batched(cpu32, Xs.astype(np.float32)), m64)
+    _cuda.reset_launch_counts()
+    gp = fleet.fit_batched(k, _t(X, dev), _t(Y, dev), 0.1)
+    assert gp.route == "fleet-fused"
+    assert _cuda.launch_counts() == {**{kk.name: 0 for kk in _cuda.KERNELS},
+                                     "gram_batched": 1, "fleet_fused": 1}
+    assert _relerr(fleet.predict_batched(gp, _t(Xs, dev)).cpu(), m64) <= 3 * err_cpu
+
+
+
+def test_fleet_fused_gradient_on_the_card(dev, monkeypatch):
+    # test_fleet_gradient_on_the_card's fleet and gate, on the fused route
+    monkeypatch.setattr(fleet_ops, "_FLEET_FUSED_MAX_N", 1024)
+    rng = np.random.default_rng(16)
+    B, n = 3, 128
+    X = rng.standard_normal((B, n, 3))
+    Y = np.sin(X.sum(-1, keepdims=True)) + 0.1 * rng.standard_normal((B, n, 2))
+
+    def grad(Xa, Ya, **kw):
+        p = torch.tensor([[1.2, 1.5, 2.0], [0.9, 1.0, 1.1]], dtype=torch.float64,
+                         requires_grad=True)
+        v = fleet.mll_batched(tg.Gaussian(p[0], p[1]), Xa, Ya, 0.1, batched_kernel=True, **kw)
+        return torch.autograd.grad(v.sum(), p)[0].cpu()
+
+    g64 = grad(X, Y, device="cpu", use_crout=False)
+    g32 = grad(X.astype(np.float32), Y.astype(np.float32), device="cpu", use_crout=False)
+    _cuda.reset_launch_counts()
+    g = grad(_t(X, dev), _t(Y, dev))
+    # one K9 launch forward; the pullback's fleet solve: one K8 launch; no K7
+    counts = _cuda.launch_counts()
+    assert (counts["fleet_fused"], counts["crout_chol_wi"], counts["crout_chol"]) == (1, 1, 0)
+    assert _relerr(g, g64) <= 3 * _relerr(g32, g64) + 1e-6
+
+
+def test_fleet_diag_crout_scheme_launches_k8(dev, monkeypatch):
+    monkeypatch.setenv("GPR_FLEET_DIAG", "crout")
+    rng = np.random.default_rng(23)
+    B, n = 3, 256
+    A = _t(_spd_batch(rng, B, n), dev)
+    Y = _t(rng.standard_normal((B, n, 2)), dev)
+    _cuda.reset_launch_counts()
+    L, X = fleet_ops.factor_solve_batched_diff(A, Y)
+    counts = _cuda.launch_counts()
+    assert (counts["crout_chol_wi"], counts["crout_chol"]) == (n // fleet_ops.PANEL, 0)
+    assert _relerr(X.double(), torch.linalg.solve(A.double(), Y.double())) <= 1e-4
+    assert _relerr(L.double(), torch.linalg.cholesky(A.double())) <= 1e-5
+
+
+def test_cho_solve_without_inverses_launches_k8_once(dev):
+    rng = np.random.default_rng(24)
+    A = _t(_spd_batch(rng, 3, 384), dev)
+    Y = _t(rng.standard_normal((3, 384, 2)), dev)
+    L = fleet_ops.cholesky_batched(A)
+    _cuda.reset_launch_counts()
+    X = fleet_ops.cho_solve_batched(L, Y)
+    assert _cuda.launch_counts()["crout_chol_wi"] == 1
+    assert _relerr(X.double(), torch.linalg.solve(A.double(), Y.double())) <= 1e-4
