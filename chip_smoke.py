@@ -62,14 +62,35 @@ process per source, in parallel), then:
      against the panel-stepped one, K9 per fit against its plain version and
      cholesky_ex + cholesky_solve, K8 per fit under GPR_FLEET_DIAG=crout
      against K7 + the triangular solve, its plain version and cholesky_ex +
-     solve_triangular, K8 on the D D^T tiles, and traces 5 fused fits.
+     solve_triangular, K8 on the D D^T tiles, and traces 5 fused fits;
+ 14. holds K10 narrow_subst and K11 diag_tri_inv (csrc/solve.cu) against
+     their plain versions: the sweeps at n=16384 (q = 1, 8, 128 at bs 512; 8
+     at bs 1024, K11 by pairs) and n=4096 (q = 3), K11 at bs 256 and 512,
+     junk above the diagonal, NaN in L;
+ 15. under GPR_SOLVE_SCHEDULE=narrow and GPR_SOLVE_DIAGINV=pallas fits the
+     bench model at n=16384 (route "fused-matrix", alpha by the narrow solve),
+     takes the credible interval at 128 points (a narrow solve with q = 128)
+     and one MLL value + gradient (a narrow solve forward and one in its
+     backward), each with exact K10 / K11 launch counts;
+ 16. drives the sliding window under the same switches: fit at n=4096 (d=5,
+     q=3), extend by the newest 512, shrink by the oldest 512, predict and
+     credible interval at 64 points, loo_cv; each held against a fresh float64
+     fit of its window; then times shrink by 64 at n=3773 against a refit;
+ 17. times K10 per solve at n=16384 (q=8) against its bound, its plain
+     version, torch.cholesky_solve and the port's cho_solve_panels, K11
+     against its plain version and the batched triangular solve, and the
+     narrow fit and MLL against the default triangular solves.
+
+Phase 4's fit and phase 6's training steps are the standing check at the
+breathing-fixture shape: their gates go to chip_smoke_out/breathing_check.json
+(gitignored), summed up on one line.
 
 Phases 2-4, 6, 8 and 12 hold the port's mean and credible interval against a
 float64 torch reference and pass when the port's error is at most 3x that
 of the plain float32 torch route (torch Gram, torch.linalg.cholesky,
 cholesky_solve; for fleets also variance and alpha).  Phases 6, 7, 9 and 12
 hold each value and gradient of the marginal likelihood (at each training
-step's parameters) against a float64 plain torch MLL (torch.linalg.cholesky
+step's parameters; phase 15 too) against a float64 plain torch MLL (torch.linalg.cholesky
 + autograd) with the same 3x gate against the plain float32 MLL.  The launch
 counters are reset before each path (phases 2-5, 6, 7, 8-9, and each of
 phase 12's four) and read after
@@ -91,6 +112,7 @@ import numpy as np
 
 
 LDBL_LOG_MAX = 11356.523406294143  # log of the largest 80-bit long double
+BREATHING_JSON = "chip_smoke_out/breathing_check.json"  # gitignored
 
 
 def check(cond, msg):
@@ -101,6 +123,45 @@ def check(cond, msg):
 def relerr(a, b):
     a, b = a.double().to(b.device), b.double()
     return float((a - b).abs().max() / b.abs().max())
+
+
+def gate(port, plain, ref):
+    """The accuracy protocol: the port's float32 result and the plain float32
+    route's, each as its max relative error against the float64 reference;
+    the port passes within 3x the plain route's error (ADVICE.md:5)."""
+    e, p = relerr(port, ref), relerr(plain, ref)
+    return {"err": e, "plain_f32_err": p, "limit": 3 * p, "ok": e <= 3 * p}
+
+
+def gaussian64(A, B, sigma, scale):
+    """Gaussian Gram matrix k(A, B) in the dtype of A."""
+    d2 = (A * A).sum(1)[:, None] + (B * B).sum(1)[None, :] - 2.0 * (A @ B.T)
+    return scale * scale * (-0.5 * d2.clamp(min=0.0) / (sigma * sigma)).exp()
+
+
+def plain_gp(X, Y, Xs, kfun, kss, sigma):
+    """Mean, credible interval, alpha and K + sigma^2 I of the straightforward
+    exact GP in the dtype of X: torch Gram, torch.linalg.cholesky,
+    cholesky_solve."""
+    import torch
+
+    K = kfun(X, X)
+    K.diagonal().add_(sigma * sigma)
+    L = torch.linalg.cholesky(K)
+    alpha = torch.cholesky_solve(Y, L)
+    Ks = kfun(Xs, X)
+    var = kss - (Ks * torch.cholesky_solve(Ks.T, L).T).sum(1)
+    return Ks @ alpha, 2.0 * torch.sqrt(var.clamp(min=0.0)), alpha, K
+
+
+def fit_gates(gp, X, Y, Xs, kfun, kss, sigma):
+    """The protocol on a fitted port GP: its mean, credible interval and alpha
+    at Xs against the plain GP in float64, beside the plain GP in float32."""
+    m64, c64, a64, _ = plain_gp(X.double(), Y.double(), Xs.double(), kfun, kss, sigma)
+    m32, c32, a32, _ = plain_gp(X, Y, Xs, kfun, kss, sigma)
+    return {"mean": gate(gp.predict(Xs), m32, m64),
+            "credible_interval": gate(gp.credible_interval(Xs), c32, c64),
+            "alpha": gate(gp.alpha, a32, a64)}
 
 
 def main() -> int:
@@ -118,6 +179,9 @@ def main() -> int:
     from gpr_tpu_torch.ops import batched as fbatched
     from gpr_tpu_torch.ops import crout as fcrout
     from gpr_tpu_torch.ops import gram as gop
+    from gpr_tpu_torch.gp import exact as texact
+    from gpr_tpu_torch.ops import linalg as tlin
+    from gpr_tpu_torch.ops import solve as nsolve
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -407,10 +471,6 @@ def main() -> int:
           f"L max abs err {e_l:.3g}")
 
     # -------------------------------------------------------- references ---
-    def gaussian64(A, B, sigma, scale):
-        d2 = (A * A).sum(1)[:, None] + (B * B).sum(1)[None, :] - 2.0 * (A @ B.T)
-        return scale * scale * torch.exp(-0.5 * d2.clamp(min=0.0) / (sigma * sigma))
-
     def plain_mll(X, Y, sigma, params):
         """(value per output, gradient) of the straightforward marginal
         likelihood of Gaussian(*params) in the dtype of X: torch Gram,
@@ -433,42 +493,35 @@ def main() -> int:
 
     def hold_mll(name, params, X, Y, v, g, sigma):
         """The port's value and gradient against the float64 plain MLL, within
-        3x the plain float32 MLL's error."""
+        3x the plain float32 MLL's error; returns the two gates."""
         v64, g64 = plain_mll(X.double(), Y.double(), sigma, params)
         v32, g32 = plain_mll(X, Y, sigma, params)
-        e_v, e_g = relerr(v, v64), relerr(g, g64)
-        p_v, p_g = relerr(v32, v64), relerr(g32, g64)
-        print(f"  {name}: rel err vs f64: value {e_v:.3g} (plain f32 {p_v:.3g}), "
-              f"gradient {e_g:.3g} (plain f32 {p_g:.3g})")
-        check(e_v <= 3 * p_v and e_g <= 3 * p_g, f"{name}: error above 3x the plain f32 MLL's")
+        gates = {"value": gate(v, v32, v64), "gradient": gate(g, g32, g64)}
+        print(f"  {name}: rel err vs f64: " + ", ".join(
+            f"{k} {r['err']:.3g} (plain f32 {r['plain_f32_err']:.3g})" for k, r in gates.items()))
+        check(all(r["ok"] for r in gates.values()), f"{name}: error above 3x the plain f32 MLL's")
+        return gates
 
-    def plain_gp(X, Y, Xs, kfun, kss, sigma):
-        """Mean and credible interval of the straightforward exact GP in the
-        dtype of X: torch Gram, torch.linalg.cholesky, cholesky_solve."""
-        K = kfun(X, X)
-        K.diagonal().add_(sigma * sigma)
-        L = torch.linalg.cholesky(K)
-        alpha = torch.cholesky_solve(Y, L)
-        Ks = kfun(Xs, X)
-        var = kss - (Ks * torch.cholesky_solve(Ks.T, L).T).sum(1)
-        return Ks @ alpha, 2.0 * torch.sqrt(var.clamp(min=0.0)), alpha, K
-
-    def judge(name, gp, X, Y, Xs, kfun, kss, sigma):
+    def judge(name, gp, X, Y, Xs, kfun, kss, sigma, with_alpha=False):
+        """Mean and credible interval at Xs (and alpha) within 3x the plain
+        float32 route's error against float64; returns the gates."""
         mean = gp.predict(Xs)
         ci = gp.credible_interval(Xs)
         check(mean.shape == (Xs.shape[0], Y.shape[1]) and ci.shape == (Xs.shape[0],),
               f"{name}: output shapes")
         check(bool(torch.isfinite(mean).all() and torch.isfinite(ci).all()), f"{name}: non-finite")
-        m64, c64, _, K64 = plain_gp(X.double(), Y.double(), Xs.double(), kfun, kss, sigma)
-        m32, c32, _, _ = plain_gp(X, Y, Xs, kfun, kss, sigma)
-        e_m, e_c = relerr(mean, m64), relerr(ci, c64)
-        p_m, p_c = relerr(m32, m64), relerr(c32, c64)
+        gates = fit_gates(gp, X, Y, Xs, kfun, kss, sigma)
+        if not with_alpha:
+            del gates["alpha"]
+        K64 = kfun(X.double(), X.double())
+        K64.diagonal().add_(sigma * sigma)
         res = float((K64 @ gp.alpha.double() - Y.double()).norm() / Y.double().norm())
-        print(f"  {name}: route {gp.route}; rel err vs f64: mean {e_m:.3g} (plain f32 {p_m:.3g}), "
-              f"credible interval {e_c:.3g} (plain f32 {p_c:.3g}); residual |(K+s^2I)a-Y|/|Y| "
-              f"{res:.3g}")
-        check(e_m <= 3 * p_m and e_c <= 3 * p_c, f"{name}: error above 3x the plain f32 route's")
         del K64
+        print(f"  {name}: route {gp.route}; rel err vs f64: " + ", ".join(
+            f"{k} {r['err']:.3g} (plain f32 {r['plain_f32_err']:.3g})" for k, r in gates.items())
+            + f"; residual |(K+s^2I)a-Y|/|Y| {res:.3g}")
+        check(all(r["ok"] for r in gates.values()), f"{name}: error above 3x the plain f32 route's")
+        return gates
 
     sig = float(np.float32(0.1))
 
@@ -514,8 +567,10 @@ def main() -> int:
     k4 = tg.Gaussian(2.0, 1.0)
     gp = tg.fit(k4, X4, Y4, sigma=0.1, use_pallas_gram=True)
     check(gp.route == "fused-gram" and gp.L.shape == (3773, 3773), "n=3773 route / factor shape")
-    judge("n=3773 d=5 q=3 (pad to 3840)", gp, X4, Y4, Xs4,
-          lambda A, B: gaussian64(A, B, 2.0, 1.0), 1.0, sig)
+    breathing = {"shape": "n=3773 d=5 q=3 float32, Gaussian(2, 1) start, sigma 0.1",
+                 "fit n=3773 (fused-gram)": judge("n=3773 d=5 q=3 (pad to 3840)", gp, X4, Y4, Xs4,
+                                                  lambda A, B: gaussian64(A, B, 2.0, 1.0), 1.0, sig,
+                                                  with_alpha=True)}
     gp = tg.fit(bench_k, Xb[:384], Yb[:384], sigma=0.1, use_pallas_gram=True)
     check(gp.route == "gram-kernel", f"n=384 fit took route {gp.route}")
     judge("n=384 d=128 q=8", gp, Xb[:384], Yb[:384], Xt[:64],
@@ -552,8 +607,9 @@ def main() -> int:
     counts_train = _cuda.launch_counts()
     print(f"  fit_mle trace {[round(float(v), 3) for v in r_mle.trace]} -> Gaussian({sg:.5g}, "
           f"{sc:.5g}); fit_map trace {[round(float(v), 3) for v in r_map.trace]}")
-    judge("learned Gaussian, n=3773", gp, X4, Y4, Xs4, lambda A, B: gaussian64(A, B, sg, sc),
-          sc * sc, sig)
+    breathing["fit with the learned kernel (blocked-syrk)"] = judge(
+        "learned Gaussian, n=3773", gp, X4, Y4, Xs4, lambda A, B: gaussian64(A, B, sg, sc),
+        sc * sc, sig, with_alpha=True)
     del gp
     print(f"launches on the training path (phase 6): {counts_train}")
     check(counts_train["syrk_update"] > 0, "K5 was never launched on the training path")
@@ -568,7 +624,14 @@ def main() -> int:
             if name == "fit_mle":
                 s_i = float(lk.mll_scalar(ki, X4, Y4, 0.1))
                 check(abs(s_i - float(r_mle.trace[i])) <= 1e-5 * abs(s_i), f"trace of step {i}")
-            hold_mll(f"{name} step {i}", [float(p) for p in ki.params], X4, Y4, v, g, sig)
+            breathing[f"{name} step {i}"] = hold_mll(f"{name} step {i}", [float(p) for p in ki.params],
+                                                     X4, Y4, v, g, sig)
+    os.makedirs(os.path.dirname(BREATHING_JSON), exist_ok=True)
+    with open(BREATHING_JSON, "w") as f:
+        json.dump(breathing, f, indent=1)
+    print(f"breathing check ({BREATHING_JSON}): " + json.dumps(
+        {k: {q: round(r["err"] / r["limit"], 3) for q, r in v.items()}
+         for k, v in breathing.items() if k != "shape"}) + " (each the port's error over its limit)")
 
     # ---------------------------------------------------------------- 7 ----
     print("phase 7 value + gradient at full width: Gaussian(8, 1), d=128, q=8, sigma 0.1")
@@ -1231,17 +1294,245 @@ def main() -> int:
     for t, c, name in sorted(by_kernel_f, reverse=True)[:8]:
         print(f"    {t:.4f} ms per fit, {c:g} launches: {name[:100]}")
 
+    # --------------------------------------------------------------- 14 ----
+    # K10 narrow_subst and K11 diag_tri_inv against their plain versions, on
+    # the narrow-solve system of tests/test_ops.py:630-634 (X X^T / 64 + 4 I)
+    # at n=16384 and 4096 with junk above the diagonal (only the lower triangle
+    # is read): q = 1, 8, 128 (bs 512) and 8 (bs 1024, K11 by pairs) at 16384,
+    # q = 3 at 4096; K11 at bs 256 and 512; a NaN in L makes the solve
+    # non-finite.  K10's sweeps get 1e-5 and K11 1e-4 of the plain result's
+    # largest entry (float32 sums in other orders); the solve 2e-5 against a
+    # float64 solve of the same factor.
+    print("phase 14 K10 narrow_subst and K11 diag_tri_inv against their plain versions")
+    g14 = torch.Generator(device=dev).manual_seed(14)
+
+    def narrow_system(n_):
+        G = torch.randn((n_, 64), generator=g14, device=dev)
+        A_ = G @ G.T / 64
+        A_.diagonal().add_(4.0)
+        L_ = torch.linalg.cholesky(A_)
+        del A_
+        return L_, L_ + torch.triu(torch.randn((n_, n_), generator=g14, device=dev), 1)
+
+    L16, Lj16 = narrow_system(n)
+    worst10 = {}
+    for n_, Lc, Lj in ((n, L16, Lj16), (4096, *narrow_system(4096))):
+        L64 = Lc.double()
+        for bs, qs in (((512, (1, 8, 128)), (1024, (8,))) if n_ == n else ((512, (3,)),)):
+            W_ = nsolve.diag_block_inverses(Lj, bs, "pallas")
+            check(relerr(W_, nsolve.diag_block_inverses(Lc, bs, "xla")) <= 1e-4,
+                  f"diagonal-tile inverses n={n_} bs={bs}")
+            for q_ in qs:
+                B_ = torch.randn((n_, q_), generator=g14, device=dev)
+                Y_ = nsolve.subst_pass(Lj, W_, B_, True)
+                X_ = nsolve.subst_pass(Lj, W_, Y_, False)
+                Yr = nsolve.subst_pass_reference(Lc, W_, B_, True)
+                Xr = nsolve.subst_pass_reference(Lc, W_, Y_, False)
+                e_s, e_64 = max(relerr(Y_, Yr), relerr(X_, Xr)), relerr(X_, torch.cholesky_solve(B_.double(), L64))
+                worst10[(n_, bs, q_)] = (e_s, e_64)
+                check(e_s <= 1e-5 and e_64 <= 2e-5, f"K10 n={n_} bs={bs} q={q_}: sweeps {e_s}, solve {e_64}")
+                if (n_, bs, q_) == (n, 512, 8):
+                    kstats["narrow_subst"] = {"max_abs_err": max(float((Y_ - Yr).abs().max()),
+                                                                 float((X_ - Xr).abs().max()))}
+        x1 = nsolve.cho_solve_narrow(Lj, B_[:, 0], diag_inv="pallas")
+        check(x1.shape == (n_,) and relerr(x1, torch.cholesky_solve(B_[:, :1].double(), L64)[:, 0]) <= 2e-5,
+              f"1-D right-hand side at n={n_}")
+        del L64
+    for bs in (256, 512):
+        W_ = nsolve.diag_tri_inv(Lj16, bs)
+        Wr = nsolve.diag_tri_inv_reference(L16, bs)
+        e = relerr(W_, Wr)
+        check(e <= 1e-4 and bool(torch.all(torch.triu(W_, 1) == 0)), f"K11 bs={bs}: {e}")
+        if bs == 512:
+            kstats["diag_tri_inv"] = {"max_abs_err": float((W_ - Wr).abs().max())}
+    bad = L16.clone()
+    bad[n - 3, 5] = float("nan")
+    check(not bool(torch.isfinite(nsolve.cho_solve_narrow(bad, torch.ones((n, 1), device=dev),
+                                                          diag_inv="pallas")).all()),
+          "a NaN in L did not reach the solve")
+    bad[700, 700] = float("nan")
+    check(not bool(torch.isfinite(nsolve.diag_tri_inv(bad, 512)[1]).all()), "a NaN pivot did not reach W")
+    del bad, W_, Wr
+    torch.cuda.synchronize()
+    print("  " + "; ".join(f"n={a} bs={b} q={c}: sweeps vs plain {e1:.3g}, solve vs f64 {e2:.3g}"
+                           for (a, b, c), (e1, e2) in worst10.items()))
+    print(f"  K11 bs 256, 512 ok (bs 512 max abs err {kstats['diag_tri_inv']['max_abs_err']:.3g}); "
+          "junk upper ignored; NaN in L and on a pivot non-finite ok")
+
+    def with_env(env, fn):
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            return fn()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    narrow_env = {"GPR_SOLVE_SCHEDULE": "narrow", "GPR_SOLVE_DIAGINV": "pallas"}
+    nb16 = n // 512
+
+    # --------------------------------------------------------------- 15 ----
+    print("phase 15 the narrow solve at full width (GPR_SOLVE_SCHEDULE=narrow, GPR_SOLVE_DIAGINV=pallas):"
+          " bench fit n=16384 d=128 q=8, credible interval at 128 points, MLL value + gradient")
+    bench64 = lambda A, B: gaussian64(A, B, 8.0, 1.0)  # noqa: E731
+
+    def phase15_fit():
+        _cuda.reset_launch_counts()
+        gp_ = tg.fit(bench_k, Xb, Yb, sigma=0.1)
+        gp_.credible_interval(Xt[:128])
+        torch.cuda.synchronize()
+        c_ = _cuda.launch_counts()
+        check(gp_.route == "fused-matrix" and tlin.solve_route(gp_.L, gp_.Y) == "narrow"
+              and tlin.solve_route(gp_.L, Xt[:128].T) == "narrow", "narrow fit routes")
+        # alpha and the interval's solve (q = 128): 2 nb K10 launches and one K11 each
+        check(c_["narrow_subst"] == 2 * 2 * nb16 and c_["diag_tri_inv"] == 2
+              and c_["panel_update"] > 0, f"narrow fit launches {c_}")
+        print(f"  launches on the narrow fit path: {c_}")
+        judge("narrow bench fit", gp_, Xb, Yb, Xt[:128], bench64, 1.0, sig, with_alpha=True)
+        return c_
+
+    def phase15_mll():
+        _cuda.reset_launch_counts()
+        v_, g_ = lk.mll_value_and_grad(bench_k, Xb, Yb, 0.1)
+        torch.cuda.synchronize()
+        c_ = _cuda.launch_counts()
+        # alpha forward and its backward's solve
+        check(c_["narrow_subst"] == 2 * 2 * nb16 and c_["diag_tri_inv"] == 2, f"narrow MLL launches {c_}")
+        print(f"  launches on the narrow MLL path: {c_}")
+        hold_mll("narrow MLL n=16384", [8.0, 1.0], Xb, Yb, v_, g_, sig)
+        return c_
+
+    path_counts.extend([with_env(narrow_env, phase15_fit), with_env(narrow_env, phase15_mll)])
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 16 ----
+    nw, kw = 4096, 512
+    print(f"phase 16 the sliding window under the narrow schedule: Gaussian(2, 1), sigma 0.1, d=5 q=3, "
+          f"fit n={nw} -> extend {kw} -> shrink {kw} -> predict at 64 points -> loo_cv")
+    r16 = np.random.default_rng(16)
+    Xw = t32(r16.standard_normal((nw + kw, 5)))
+    Yw = t32(np.sin(Xw[:, :3].cpu().numpy()) + 0.1 * r16.standard_normal((nw + kw, 3)))
+    Xs16 = t32(r16.standard_normal((64, 5)))
+    k16 = lambda A, B: gaussian64(A, B, 2.0, 1.0)  # noqa: E731
+
+    def plain_loo(X, Y):
+        K = k16(X, X)
+        K.diagonal().add_(sig * sig)
+        L_ = torch.linalg.cholesky(K)
+        dinv = torch.cholesky_inverse(L_).diagonal()
+        return Y - torch.cholesky_solve(Y, L_) / dinv[:, None], 1.0 / dinv
+
+    def phase16():
+        _cuda.reset_launch_counts()
+        gw = tg.fit(k4, Xw[:nw], Yw[:nw], sigma=0.1)
+        ge = tg.extend(gw, Xw[nw:], Yw[nw:])
+        gs = tg.shrink(ge, kw)
+        gs.predict(Xs16)
+        gs.credible_interval(Xs16)
+        loo = texact.loo_cv(gs)
+        torch.cuda.synchronize()
+        c_ = _cuda.launch_counts()
+        check(gw.route == "fused-matrix" and tlin.solve_route(ge.L, ge.Y) == "narrow"
+              and tlin.solve_route(gs.L, gs.Y) == "narrow", "window routes")
+        # alpha at 4096, 4608 and 4096, and the interval's solve
+        check(c_["narrow_subst"] == 2 * (8 + 9 + 8 + 8) and c_["diag_tri_inv"] == 4, f"window launches {c_}")
+        print(f"  launches on the window path: {c_}")
+        win = {"fit n=4096": judge("window fit n=4096", gw, Xw[:nw], Yw[:nw], Xs16, k16, 1.0, sig, True),
+               "extend to 4608": judge("extended n=4608", ge, Xw, Yw, Xs16, k16, 1.0, sig, True),
+               "shrink to 4096": judge("shrunk n=4096", gs, Xw[kw:], Yw[kw:], Xs16, k16, 1.0, sig, True)}
+        m64, v64_ = plain_loo(Xw[kw:].double(), Yw[kw:].double())
+        m32, v32_ = plain_loo(Xw[kw:], Yw[kw:])
+        win["loo_cv"] = {"loo_mean": gate(loo[0], m32, m64), "loo_var": gate(loo[1], v32_, v64_)}
+        print("  loo_cv: rel err vs f64: " + ", ".join(
+            f"{k} {r['err']:.3g} (plain f32 {r['plain_f32_err']:.3g})" for k, r in win["loo_cv"].items()))
+        check(all(r["ok"] for r in win["loo_cv"].values()) and bool(torch.isfinite(loo[2])),
+              "loo_cv: error above 3x the plain f32 route's")
+        return c_
+
+    path_counts.append(with_env(narrow_env, phase16))
+    # ROADMAP's open cell: shrink by 64 at the breathing shape, against a refit
+    gp4 = tg.fit(k4, X4, Y4, sigma=0.1)
+    shrink_ms = [timed(lambda: tg.shrink(gp4, 64)) for _ in range(3)]
+    refit_ms = [timed(lambda: tg.fit(k4, X4[64:], Y4[64:], sigma=0.1)) for _ in range(3)]
+    judge("shrink by 64 at n=3773", tg.shrink(gp4, 64), X4[64:], Y4[64:], Xs4, k16, 1.0, sig, True)
+    del gp4
+    print(f"  shrink k=64 at n=3773 (two products, then blocked-syrk at 3709): "
+          f"{float(np.median(shrink_ms)):.2f} ms (runs "
+          f"{', '.join(f'{t:.1f}' for t in shrink_ms)}); a refit on the 3709 samples "
+          f"{float(np.median(refit_ms)):.2f} ms (runs {', '.join(f'{t:.1f}' for t in refit_ms)})")
+
+    # --------------------------------------------------------------- 17 ----
+    B8 = torch.randn((n, 8), generator=g14, device=dev)
+    W16 = nsolve.diag_block_inverses(Lj16, 512, "pallas")
+    W128 = nsolve.diag_block_inverses(L16, 128, "xla")
+    k10 = rotate({
+        "kernel": lambda: nsolve.subst_pass(Lj16, W16, nsolve.subst_pass(Lj16, W16, B8, True), False),
+        "plain": lambda: nsolve.subst_pass_reference(L16, W16, nsolve.subst_pass_reference(L16, W16, B8, True), False),
+        "library": lambda: torch.cholesky_solve(B8, L16),
+        "cho_solve_panels": lambda: fullchol.cho_solve_panels(L16, W128, B8),
+        "narrow solve (K11 + K10)": lambda: nsolve.cho_solve_narrow(Lj16, B8, diag_inv="pallas")}, 6)
+    kstats["narrow_subst"].update(ms=k10["kernel"][0], plain_ms=k10["plain"][0],
+                                  library_ms=k10["library"][0])
+    k11 = rotate({"kernel": lambda: nsolve.diag_tri_inv(Lj16, 512),
+                  "plain": lambda: nsolve.diag_tri_inv_reference(L16, 512),
+                  "library": lambda: nsolve.diag_block_inverses(L16, 512, "xla")}, 6)
+    kstats["diag_tri_inv"].update(ms=k11["kernel"][0], plain_ms=k11["plain"][0],
+                                  library_ms=k11["library"][0])
+    # a sweep reads the nb(nb-1)/2 off-diagonal tiles of L and the lower
+    # triangle of each W_ii (never L's diagonal tiles), reads B, writes X
+    offdiag, wlow = nb16 * (nb16 - 1) / 2 * 512 * 512, nb16 * 512 * 513 / 2
+    sweep = (2.0 * 8 * (offdiag + wlow), 4.0 * (offdiag + wlow + 2 * n * 8))
+    kstats["narrow_subst"].update(sum_bounds([sweep, sweep]))
+    kstats["diag_tri_inv"].update(bound(nb16 * 512 ** 3 / 3.0, 4.0 * nb16 * (512 * 513 / 2 + 512 * 512)))
+    Lw, _ = narrow_system(4096)
+    Ww = nsolve.diag_block_inverses(Lw, 512, "pallas")
+    B3 = torch.randn((4096, 3), generator=g14, device=dev)
+    k10w = median_ms(lambda: nsolve.subst_pass(Lw, Ww, nsolve.subst_pass(Lw, Ww, B3, True), False), 10)
+    libw = median_ms(lambda: torch.cholesky_solve(B3, Lw), 10)
+    del L16, Lj16, W16, W128, Lw, Ww
+    torch.cuda.empty_cache()
+    fit_cmp17 = rotate({"narrow": lambda: with_env(narrow_env, lambda: tg.fit(bench_k, Xb, Yb, sigma=0.1)),
+                        "default": lambda: with_env({"GPR_SOLVE_SCHEDULE": "blocked"},
+                                                    lambda: tg.fit(bench_k, Xb, Yb, sigma=0.1))}, 4)
+    mll_cmp17 = rotate({"narrow": lambda: with_env(narrow_env, lambda: lk.mll_value_and_grad(bench_k, Xb, Yb, 0.1)),
+                        "default": lambda: with_env({"GPR_SOLVE_SCHEDULE": "blocked"},
+                                                    lambda: lk.mll_value_and_grad(bench_k, Xb, Yb, 0.1))}, 4)
+    print(f"phase 17 narrow-solve timings ({smi}), CUDA events, medians:")
+    print(f"  per solve at n=16384 q=8 (K10: {2 * nb16} launches): " + "; ".join(
+        f"{k} {m:.4f} ms (runs {runs_text(r)})" for k, (m, r) in k10.items())
+        + f"; bound {kstats['narrow_subst']['bound_ms']:.4f} ms ({kstats['narrow_subst']['bound_by']})")
+    print(f"  K11 per call at n=16384 bs=512 (32 tiles): " + "; ".join(
+        f"{k} {m:.4f} ms (runs {runs_text(r)})" for k, (m, r) in k11.items())
+        + f"; bound {kstats['diag_tri_inv']['bound_ms']:.4f} ms ({kstats['diag_tri_inv']['bound_by']})")
+    print(f"  K10 per solve at n=4096 q=3 (16 launches): {k10w:.4f} ms; torch.cholesky_solve {libw:.4f} ms")
+    print("  fit n=16384 d=128 q=8 (fused-matrix), alpha by the narrow solve against the default "
+          "triangular solves: " + "; ".join(f"{k} {m:.2f} ms (runs {runs_text(r)})" for k, (m, r) in fit_cmp17.items()))
+    print("  MLL value + gradient n=16384: " + "; ".join(
+        f"{k} {m:.2f} ms (runs {runs_text(r)})" for k, (m, r) in mll_cmp17.items()))
+    for c in path_counts[-3:]:
+        for name, v in c.items():
+            counts[name] += v
+    check(counts["narrow_subst"] > 0 and counts["diag_tri_inv"] > 0,
+          "a kernel of the narrow-solve paths was never launched")
+
     sources = {"gram_tile": "gpr_tpu_torch/csrc/gram.cu", "syrk_update": "gpr_tpu_torch/csrc/syrk.cu",
                "gram_batched": "gpr_tpu_torch/csrc/gram.cu",
                "crout_chol": "gpr_tpu_torch/csrc/crout.cu",
                "crout_chol_wi": "gpr_tpu_torch/csrc/crout.cu",
-               "fleet_fused": "gpr_tpu_torch/csrc/fleet.cu"}
+               "fleet_fused": "gpr_tpu_torch/csrc/fleet.cu",
+               "narrow_subst": "gpr_tpu_torch/csrc/solve.cu",
+               "diag_tri_inv": "gpr_tpu_torch/csrc/solve.cu"}
     replaces = {"gram_tile": "gpr_tpu/ops/pallas_gram.py:38",
                 "syrk_update": "gpr_tpu/ops/pallas_syrk.py:73",
                 "gram_batched": "gpr_tpu/ops/pallas_gram.py:142",
                 "crout_chol": "gpr_tpu/ops/pallas_batched.py:205",
                 "crout_chol_wi": "gpr_tpu/ops/pallas_batched.py:199",
-                "fleet_fused": "gpr_tpu/ops/pallas_batched.py:560"}
+                "fleet_fused": "gpr_tpu/ops/pallas_batched.py:560",
+                "narrow_subst": "gpr_tpu/ops/pallas_solve.py:52",
+                "diag_tri_inv": "gpr_tpu/ops/pallas_solve.py:173"}
     kernels = []
     for k in _cuda.KERNELS:
         kernels.append({

@@ -7,7 +7,7 @@ likelihood with its gradient, the prior densities, MLE / MAP training and
 fleets of small GPs (fit, predict, likelihood and MLE of B GPs at once).
 On a CUDA tensor the fit, the likelihood and the fleet run through
 hand-written CUDA kernels (ops/gram.py, ops/fullchol.py, ops/syrk.py,
-ops/crout.py; sources in csrc/); on a CPU tensor through their plain torch
+ops/crout.py, ops/solve.py; sources in csrc/); on a CPU tensor through their plain torch
 versions.  The entry points run on the card unless given ``device="cpu"``
 or CPU tensors.  This package imports torch and numpy only, never JAX.
 """
@@ -33,7 +33,8 @@ from .kernels.kernels import (  # noqa: F401
     params_vector,
 )
 from .kernels.dsl import kernel_to_string, parse_kernel  # noqa: F401
-from .gp.exact import GP, fit, load  # noqa: F401
+from .kernels.utils import get_general_kernel  # noqa: F401
+from .gp.exact import GP, extend, fit, load, shrink  # noqa: F401
 from .gp.batched import fit_batched, mll_batched, predict_batched  # noqa: F401
 from .gp import likelihood  # noqa: F401
 from .inference.optimize import fit_map, fit_mle  # noqa: F401

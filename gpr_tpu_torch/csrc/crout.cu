@@ -23,7 +23,7 @@
 // Contracts kept from the TPU kernels:
 //   * only A[r, c] with r >= c is read;
 //   * the strict upper triangles of L and W are written as exact zeros;
-//   * a non-positive (or NaN) pivot gives NaN through rsqrtf, with no clamp
+//   * a non-positive (or NaN) pivot gives NaN through sqrtf, with no clamp
 //     and no early exit, in its tile only: its L[-1, -1] and W[-1, -1] are
 //     NaN.  Other tiles are untouched.
 // A and L may be one tensor (in place): a block reads its whole tile before

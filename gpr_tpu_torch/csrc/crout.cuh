@@ -39,9 +39,12 @@ __device__ __forceinline__ void store_lower(const float* S, int ld, float* dst, 
 // t owns column l = t % b and rows rg, rg + G, ... (rg = t / b, G = 256 / b row
 // groups).  One barrier per column: step k updates the trailing lower triangle
 // from the unscaled column k (each thread scales its own factors by
-// rsqrt(pivot)) and scales column k - 1, which no thread reads in step k.  A
-// non-positive (or NaN) pivot gives NaN through rsqrtf, with no clamp and no
-// early exit: L[k, k] = piv * rsqrt(piv) is NaN for piv <= 0, and so is every
+// 1 / sqrt(pivot)) and scales column k - 1, which no thread reads in step k.
+// The scale is 1.0f / sqrtf(pivot), both correctly rounded: rsqrtf's 2-ulp
+// error scales a whole column the same way, and over two panels it tripled
+// the fleet MLL gradient's error on the H100 (PERF.md section 6).  A
+// non-positive (or NaN) pivot gives NaN through sqrtf, with no clamp and no
+// early exit: L[k, k] = piv / sqrt(piv) is NaN for piv <= 0, and so is every
 // later pivot of the tile, so its L[-1, -1].
 __device__ __forceinline__ void crout_sweep(float* S, int ld, int b) {
   const int t = threadIdx.x;
@@ -54,7 +57,7 @@ __device__ __forceinline__ void crout_sweep(float* S, int ld, int b) {
 
   float rd_prev = 0.0f;
   for (int k = 0; k < b; ++k) {
-    const float rd = rsqrtf(S[k * ld + k]);  // NaN for a negative pivot, inf for 0
+    const float rd = 1.0f / sqrtf(S[k * ld + k]);  // NaN for a negative pivot, inf for 0
     if (active && l > k) {
       const float m = S[l * ld + k] * rd;  // L[l, k]
       for (int i = i0; i < b; i += groups)

@@ -21,7 +21,8 @@ Routes, recorded in ``BatchedGP.route``:
                         versions, so the CPU tests follow the route.
   ``"fleet-fused"``     where ``fleet-crout`` would be taken and n <=
                         ``ops.batched._FLEET_FUSED_MAX_N`` (``GPR_FLEET_FUSED_MAX_N``
-                        at import, default 0: off, as in JAX): K9
+                        at import, default 0: off, as in JAX) and n <=
+                        ``ops.batched.FUSED_MAX_N``, K9's limit: K9
                         fleet_fused factors and solves every member in one
                         launch; its pullback's fleet solve launches K8 once
                         (batched.py:59-75).
@@ -41,6 +42,7 @@ waits for the multi-device port.
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -88,7 +90,9 @@ def fleet_route(n: int, dtype: torch.dtype, device, use_crout: Optional[bool] = 
         use_crout = fleet_ops.batched_usable(n, dtype, device)
     if not use_crout:
         return "torch-cholesky"
-    return "fleet-fused" if n <= fleet_ops._FLEET_FUSED_MAX_N else "fleet-crout"
+    # K9 takes n <= FUSED_MAX_N; above it the panel sweep serves any cap
+    fused_max_n = min(fleet_ops._FLEET_FUSED_MAX_N, fleet_ops.FUSED_MAX_N)
+    return "fleet-fused" if n <= fused_max_n else "fleet-crout"
 
 
 def _factor_and_solve(K, Y, use_crout: Optional[bool]):
@@ -112,8 +116,10 @@ def _factor_and_solve(K, Y, use_crout: Optional[bool]):
 def _fleet_gram(kernel, X, noise, batched_kernel: bool):
     """K[b] + noise[b] I for the fleet (batched.py:132-176): K6 for float32
     and the stationary forms, with the (B, 4) parameter rows built on the
-    device; the vmapped torch Gram otherwise."""
-    disp = kermod.kernel_form(kernel) if X.dtype == torch.float32 else None
+    device; the vmapped torch Gram otherwise, and wherever
+    ``GPR_FLEET_GRAM`` is not ``pallas`` (read at call time, batched.py:138-146)."""
+    use_k6 = X.dtype == torch.float32 and os.environ.get("GPR_FLEET_GRAM", "pallas") == "pallas"
+    disp = kermod.kernel_form(kernel) if use_k6 else None
     if disp is not None:
         form, *vals = disp
         B = X.shape[0]

@@ -1,7 +1,8 @@
 """Exact multivariate GP regression.
 
-Mirrors gpr_tpu/gp/exact.py:41-451 (``GP`` and ``fit``) and 454-499
-(``load``).  ``GP`` is an ``nn.Module`` whose training state (X, Y, sigma,
+Mirrors gpr_tpu/gp/exact.py:41-451 (``GP`` and ``fit``), 454-499 (``load``),
+502-530 (``loo_cv``), 533-579 (``extend``) and 582-635 (``_cholupdate``,
+``shrink``).  ``GP`` is an ``nn.Module`` whose training state (X, Y, sigma,
 alpha, L, core) are registered buffers and whose kernel is a submodule, so
 ``gp.to(device)`` moves a model.  All solves go through the Cholesky factor;
 the explicit inverse exists only as the reference's CoreMatrix artifact.
@@ -21,14 +22,29 @@ records the route it took in ``GP.route``:
                      (``linalg.cholesky_route``) is recorded: ``"fused-matrix"``,
                      ``"blocked-syrk"``, ``"blocked"`` or ``"torch-cholesky"``.
 
+``fit_route`` names the route without fitting.  The switches are read at
+call time, as JAX reads them at trace time: ``GPR_FIT_SCHEDULE=twopass`` or
+``GPR_CHOL_SCHEDULE`` other than ``fused`` turn ``"fused-gram"`` into
+``"gram-kernel"`` (exact.py:386-393); the factorization routes follow
+``linalg.route_for``.  Every ``linalg.cho_solve`` here (alpha, the covariance
+solves, ``extend``, ``shrink``) takes the narrow solve under
+``GPR_SOLVE_SCHEDULE=narrow`` where it applies (``linalg.solve_route``).
+
+``extend`` and ``shrink`` maintain a sliding window (apps/drift.py): add the
+newest samples by one block row of the factor, drop the oldest by a rank-k
+Cholesky update of the trailing factor (refactored on the factor routes,
+where JAX sweeps the columns).  ``loo_cv`` scores every held-out
+sample from one factor.
+
 ``fit`` and ``load`` run on the card unless given ``device="cpu"`` or CPU
 tensors (utils/config.py).
 """
 
 from __future__ import annotations
 
+import math
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,6 +93,16 @@ class GP(nn.Module):
         mean = Ks @ self.alpha
         return mean[0] if Xs.ndim <= 1 and Xs2.shape[0] == 1 else mean
 
+    def predict_derivative(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mean, D) with D[i, j] = d mean_j / d x_i, the exact Jacobian of the
+        posterior mean by forward-mode autodiff (exact.py:84-93; the reference's
+        formula, lib/GaussianProcess.cpp:63-81, holds for unit-sigma Gaussian
+        kernels only)."""
+        x = torch.atleast_1d(torch.as_tensor(x, device=self.X.device))
+        mean = self.predict(x)
+        J = torch.func.jacfwd(self.predict)(x)  # (q, d)
+        return mean, J.T
+
     def posterior_cov(self, x, y) -> torch.Tensor:
         """k(x, y) - Kx^T (K + sigma^2 I)^-1 Ky (reference lib/GaussianProcess.cpp:83-99)."""
         x = torch.atleast_1d(torch.as_tensor(x, device=self.X.device))
@@ -103,6 +129,29 @@ class GP(nn.Module):
         else:
             var = self.posterior_var(x2)
         return 2.0 * torch.sqrt(torch.clamp(var, min=0.0))
+
+    def _posterior_factor(self, Xs, jitter: float = 1e-10) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mean (m, q), Lc (m, m)): the posterior mean at Xs and the Cholesky
+        factor of the symmetrized posterior covariance, with jitter escalation
+        from ``jitter`` (exact.py:128-134)."""
+        Xs2 = self._check_input(torch.as_tensor(Xs, device=self.X.device))
+        mean = self.predict(Xs2)
+        Ks = kermod.gram(self.kernel, Xs2, self.X)
+        cov = kermod.gram(self.kernel, Xs2) - Ks @ self._core_solve(Ks.T)
+        Lc, _ = linalg.safe_cholesky(0.5 * (cov + cov.T), initial_jitter=jitter)
+        return mean, Lc
+
+    def sample_posterior(self, generator: torch.Generator, Xs, num_samples: int = 1,
+                         jitter: float = 1e-10) -> torch.Tensor:
+        """Functions drawn from the posterior at Xs, (num_samples, m, q):
+        mean + Lc eps with eps standard normal from ``generator``
+        (exact.py:124-136, the capability of the reference's
+        tests/PosteriorProcessTest.cpp:97-165).  ``generator`` lives on the
+        model's device; its stream is torch's, not JAX's."""
+        mean, Lc = self._posterior_factor(Xs, jitter)
+        eps = torch.randn((num_samples, *mean.shape), generator=generator, dtype=mean.dtype,
+                          device=mean.device)
+        return mean[None] + torch.einsum("ij,sjq->siq", Lc, eps)
 
     # --- internals ----------------------------------------------------------
     def _check_input(self, x: torch.Tensor) -> torch.Tensor:
@@ -160,6 +209,54 @@ class GP(nn.Module):
     def output_dim(self) -> int:
         return self.Y.shape[1]
 
+    # --- diagnostics --------------------------------------------------------
+    def describe(self) -> str:
+        """The reference's ``ToString`` summary (lib/GaussianProcess.cpp:268-288),
+        returned instead of printed (exact.py:201-219)."""
+        bar = "---------------------------------------"
+        return "\n".join([
+            bar,
+            "Gaussian Process",
+            f" - initialized:\t\t{self.alpha is not None}",
+            f" - # samples:\t\t{self.num_samples}",
+            f" - # labels:\t\t{self.Y.shape[0]}",
+            f" - noise:\t\t{float(self.sigma)}",
+            f" - input dimension:\t{self.input_dim}",
+            f" - output dimension:\t{self.output_dim}",
+            "",
+            " - Kernel:",
+            f"       - Type:\t\t{kernel_to_string(self.kernel)}",
+            bar,
+        ])
+
+    def inversion_error(self) -> torch.Tensor:
+        """Frobenius norm of (K + sigma^2 I) C - I with C = (L L^T)^-1, the
+        reference's debug-mode inversion check (lib/GaussianProcess.cpp:
+        507-509; exact.py:221-231).  O(n^3), diagnostics only."""
+        K = linalg.add_diagonal(kermod.gram(self.kernel, self.X), self.sigma.to(self.X.dtype) ** 2)
+        eye = torch.eye(K.shape[0], dtype=K.dtype, device=K.device)
+        return torch.linalg.norm(K @ self._core_solve(eye) - eye)
+
+    def __eq__(self, other) -> bool:
+        """Deep comparison of alpha, X, Y, the kernel and sigma (reference
+        lib/GaussianProcess.cpp:291-360; exact.py:277-297)."""
+        if not isinstance(other, GP):
+            return NotImplemented
+
+        def same(a, b):
+            if a is None or b is None:
+                return a is None and b is None
+            return a.shape == b.shape and bool(torch.equal(a.cpu(), b.cpu()))
+
+        return (same(self.alpha, other.alpha) and same(self.X, other.X)
+                and same(self.Y, other.Y) and _same_kernel(self.kernel, other.kernel)
+                and float(self.sigma) == float(other.sigma))
+
+    def __hash__(self) -> int:
+        # identity, as exact.py:299-300: nn.Module must stay hashable
+        # (named_modules collects modules in a set)
+        return id(self)
+
     # --- persistence --------------------------------------------------------
     def save(self, prefix: str) -> None:
         """Write the reference's 5-file artifact set (lib/GaussianProcess.cpp:133-180):
@@ -192,6 +289,22 @@ class GP(nn.Module):
 # training
 # ---------------------------------------------------------------------------
 
+def fit_route(kernel: kermod.Kernel, n: int, dtype: torch.dtype, device,
+              use_pallas_gram: bool = False) -> str:
+    """The route :func:`fit` takes for n samples of this dtype on this device
+    (exact.py:347-443), with the switches read now."""
+    device = torch.device(device)
+    if use_pallas_gram:
+        disp = kermod.kernel_form(kernel)
+        if disp is not None:
+            if (disp[0] in fullchol.GRAM_FORMS and dtype == torch.float32 and n >= 512
+                    and device.type == "cuda" and linalg._chol_schedule() == "fused"
+                    and os.environ.get("GPR_FIT_SCHEDULE", "fused") == "fused"):
+                return "fused-gram"
+            return "gram-kernel"
+    return linalg.route_for(n, dtype, device)
+
+
 def fit(kernel: kermod.Kernel, X, Y, sigma: float = 0.0, efficient_storage: bool = False,
         jitter: float = 0.0, use_pallas_gram: bool = False, device=None) -> GP:
     """Train an exact GP: factor K + sigma^2 I and solve for the regression
@@ -212,33 +325,28 @@ def fit(kernel: kermod.Kernel, X, Y, sigma: float = 0.0, efficient_storage: bool
     X = X.contiguous()
     n = X.shape[0]
     sigma = float(sigma)
-    K = None
-    if use_pallas_gram:
-        disp = kermod.kernel_form(kernel)
-        if disp is not None:
-            form, *vals = disp
-            sg, sc, third = (float(v) for v in vals)
-            noise = float(np.float32(sigma) ** 2)  # sigma^2 in float32, as exact.py:351
-            if (form in fullchol.GRAM_FORMS and X.dtype == torch.float32 and n >= 512
-                    and X.device.type == "cuda"):
-                L, W, _ = fullchol.safe_gram_cholesky_fused(
-                    X, sg, sc, third, noise, form=form, initial_jitter=jitter, return_winv=True,
-                )
-                n_pad = L.shape[0]
-                Yp = torch.zeros((n_pad, Y.shape[1]), dtype=Y.dtype, device=Y.device)
-                Yp[:n] = Y
-                # the padded system is block diagonal: its leading factor is
-                # chol(K + sigma^2 I) and the pad rows of alpha are exact 0
-                alpha = fullchol.cho_solve_panels(L, W, Yp)[:n]
-                return GP(kernel, X, Y, sigma, alpha, None if efficient_storage else L[:n, :n],
-                          route="fused-gram")
-            Xf = X.to(torch.float32)
-            K = gram_op.gram(Xf, Xf, sg, sc, third, diag=noise, form=form,
-                             tril=n >= linalg.BLOCKED_MIN_N).to(X.dtype)
-            route = "gram-kernel"
-    if K is None:
+    route = fit_route(kernel, n, X.dtype, X.device, use_pallas_gram)
+    if route in ("fused-gram", "gram-kernel"):
+        form, *vals = kermod.kernel_form(kernel)
+        sg, sc, third = (float(v) for v in vals)
+        noise = float(np.float32(sigma) ** 2)  # sigma^2 in float32, as exact.py:351
+        if route == "fused-gram":
+            L, W, _ = fullchol.safe_gram_cholesky_fused(
+                X, sg, sc, third, noise, form=form, initial_jitter=jitter, return_winv=True,
+            )
+            n_pad = L.shape[0]
+            Yp = torch.zeros((n_pad, Y.shape[1]), dtype=Y.dtype, device=Y.device)
+            Yp[:n] = Y
+            # the padded system is block diagonal: its leading factor is
+            # chol(K + sigma^2 I) and the pad rows of alpha are exact 0
+            alpha = fullchol.cho_solve_panels(L, W, Yp)[:n]
+            return GP(kernel, X, Y, sigma, alpha, None if efficient_storage else L[:n, :n],
+                      route="fused-gram")
+        Xf = X.to(torch.float32)
+        K = gram_op.gram(Xf, Xf, sg, sc, third, diag=noise, form=form,
+                         tril=n >= linalg.BLOCKED_MIN_N).to(X.dtype)
+    else:
         K = linalg.add_diagonal(kermod.gram(kernel, X), torch.as_tensor(sigma, dtype=X.dtype) ** 2)
-        route = linalg.cholesky_route(K)
     L, _ = linalg.safe_cholesky(K, initial_jitter=jitter)
     alpha = linalg.cho_solve(L, Y)
     return GP(kernel, X, Y, sigma, alpha, None if efficient_storage else L, route=route)
@@ -270,3 +378,96 @@ def load(prefix: str, dtype=None, device=None) -> GP:
     kernel = parse_kernel(parts[5].strip())
     return GP(kernel, X, Y, float(parts[0]), alpha, None, core if core.numel() else None,
               route="loaded")
+
+
+def _same_kernel(a: kermod.Kernel, b: kermod.Kernel) -> bool:
+    """The JAX kernels' equality (kernels.py:138-147): one class and the same
+    hyperparameters within 10 float64 eps."""
+    if type(a) is not type(b):
+        return False
+    pa = [float(p) for p in a.params]
+    pb = [float(p) for p in b.params]
+    return len(pa) == len(pb) and bool(np.allclose(pa, pb, rtol=0, atol=10 * np.finfo(np.float64).eps))
+
+
+# ---------------------------------------------------------------------------
+# the sliding window: leave-one-out, extend, shrink
+# ---------------------------------------------------------------------------
+
+def _factor_of(gp: GP, name: str) -> torch.Tensor:
+    if gp.L is None:
+        raise ValueError(f"{name}: efficient-storage GP has no factor; call gp.materialize() first")
+    return gp.L
+
+
+def loo_cv(gp: GP):
+    """Exact leave-one-out cross-validation from one factor (exact.py:502-530):
+    with A = K + sigma^2 I and alpha = A^-1 Y (Rasmussen & Williams 5.10-5.12)
+
+        loo_mean_i = y_i - alpha_i / (A^-1)_ii,   loo_var_i = 1 / (A^-1)_ii.
+
+    diag(A^-1) = column sums of (L^-1)^2, one triangular solve.  Returns
+    (loo_mean (n, q), loo_var (n,), log predictive density)."""
+    L = gp._require_core()
+    Linv = linalg._tri_solve(L, torch.eye(L.shape[0], dtype=L.dtype, device=L.device))
+    diag = (Linv * Linv).sum(0)
+    loo_mean = gp.Y - gp.alpha / diag[:, None]
+    loo_var = 1.0 / diag
+    resid = gp.Y - loo_mean
+    lpd = (-0.5 * torch.log(2 * math.pi * loo_var)[:, None] - 0.5 * resid ** 2 / loo_var[:, None]).sum()
+    return loo_mean, loo_var, lpd
+
+
+def extend(gp: GP, Xn, Yn, jitter: float = 0.0) -> GP:
+    """Add k samples in O(n^2 k) (exact.py:533-579): with L11 = chol(K11 +
+    sigma^2 I) known, the factor grows by one block row,
+
+        B = (L11^-1 K12)^T,   C = chol(K22 + (sigma^2 + jitter) I - B B^T),
+
+    and alpha is solved again against the grown factor.  Equal to ``fit`` on
+    the joined data up to rounding."""
+    L11 = _factor_of(gp, "extend")
+    Xn = torch.as_tensor(Xn, dtype=gp.X.dtype, device=gp.X.device)
+    Yn = torch.as_tensor(Yn, dtype=gp.Y.dtype, device=gp.Y.device)
+    Xn = Xn[:, None] if Xn.ndim == 1 else Xn
+    Yn = Yn[:, None] if Yn.ndim == 1 else Yn
+    K12 = kermod.gram(gp.kernel, gp.X, Xn)  # (n, k)
+    K22 = kermod.gram(gp.kernel, Xn)
+    Bt = linalg._tri_solve(L11, K12)  # L11^-1 K12
+    C, _ = linalg.safe_cholesky(linalg.add_diagonal(K22, gp.sigma.to(K22.dtype) ** 2 + jitter)
+                                - Bt.T @ Bt)
+    n, k = K12.shape
+    L = torch.zeros((n + k, n + k), dtype=L11.dtype, device=L11.device)
+    L[:n, :n] = L11
+    L[n:, :n] = Bt.T
+    L[n:, n:] = C
+    X = torch.cat([gp.X, Xn])
+    Y = torch.cat([gp.Y, Yn])
+    return GP(gp.kernel, X, Y, gp.sigma, linalg.cho_solve(L, Y), L, route="extend")
+
+
+def _cholupdate(L: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """chol(L L^T + V V^T) for lower-triangular L (m, m) and V (m,) or (m, k),
+    what exact.py:582-608 computes by one column sweep per vector (Golub &
+    Van Loan 6.5.4).  Here the sum is formed by two products and factored
+    again by ``safe_cholesky``, so on the card it runs the factor routes'
+    kernels (K2-K4 or K5) in a few launches; a sweep would make O(m) small
+    launches and lose to a refit.  The Cholesky factor is unique, so both
+    agree up to rounding."""
+    V = (V[:, None] if V.ndim == 1 else V).to(L.dtype)
+    L = torch.tril(L)
+    return linalg.safe_cholesky(L @ L.mT + V @ V.mT)[0]
+
+
+def shrink(gp: GP, k: int = 1) -> GP:
+    """Drop the oldest k samples in O(n^2 k) (exact.py:611-635), the sliding
+    window's companion of :func:`extend`: with the factor split at k,
+    A[k:, k:] = L22 L22^T + L21 L21^T, so the new factor is one rank-k
+    update of L22 by the k columns of L21.  Equal to ``fit`` on the remaining
+    data up to rounding."""
+    L = _factor_of(gp, "shrink")
+    if not 0 < k < gp.num_samples:
+        raise ValueError(f"shrink: k={k} outside (0, {gp.num_samples})")
+    L = _cholupdate(L[k:, k:], L[k:, :k])
+    X, Y = gp.X[k:], gp.Y[k:]
+    return GP(gp.kernel, X, Y, gp.sigma, linalg.cho_solve(L, Y), L, route="shrink")

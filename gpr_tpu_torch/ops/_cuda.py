@@ -103,12 +103,16 @@ class Kernel:
         self.symbol = symbol
         self.argtypes = list(argtypes) + [_P]  # the stream comes last
         self.launches = 0
+        self._fn = None  # (library, its C function), bound at the first launch
 
     def launch(self, device: torch.device, *args) -> None:
         lib = library()
-        fn = getattr(lib, self.symbol)
-        fn.argtypes = self.argtypes
-        fn.restype = _I
+        if self._fn is None or self._fn[0] is not lib:
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = _I
+            self._fn = (lib, fn)
+        fn = self._fn[1]
         with torch.cuda.device(device):
             rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if rc != 0:
@@ -139,9 +143,14 @@ CROUT_CHOL_WI = Kernel("crout_chol_wi", "gpr_crout_chol_wi",
                        [_P, _LL, _I, _P, _LL, _I, _P, _LL, _I, _I, _I])
 # (A, L, Y, X, W, B, n, panel, q)
 FLEET_FUSED = Kernel("fleet_fused", "gpr_fleet_fused", [_P, _P, _P, _P, _P, _I, _I, _I, _I])
+# (L, W, src, out, P, R, tickets, n, q, bs, i, forward): one block row of a sweep
+NARROW_SUBST = Kernel("narrow_subst", "gpr_narrow_subst",
+                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I])
+# (L, ld, W, nb, bs)
+DIAG_TRI_INV = Kernel("diag_tri_inv", "gpr_diag_tri_inv", [_P, _I, _P, _I, _I])
 
 KERNELS = (GRAM, PANEL_UPDATE, DIAG_FACTOR_INV, PANEL_SOLVE, SYRK_UPDATE, GRAM_BATCHED, CROUT_CHOL,
-           CROUT_CHOL_WI, FLEET_FUSED)
+           CROUT_CHOL_WI, FLEET_FUSED, NARROW_SUBST, DIAG_TRI_INV)
 
 
 def reset_launch_counts() -> None:

@@ -24,20 +24,38 @@ The factorization route follows the tensor:
 Every route reads only the lower triangle, and a failed factorization comes
 back NaN at its last diagonal entry, so success is one O(1) check.
 
+``GPR_CHOL_SCHEDULE`` is read at call time as JAX reads it at trace time
+(linalg.py:72-118): ``fused`` (default) as above; any other value skips
+``fused-matrix``, so ``recursive`` sends those matrices to ``blocked-syrk``;
+``inplace``, where JAX would take its in-place kernels (float32, n % 512 ==
+0; TPU kernel rows 16-18), raises ``NotImplementedError`` until they are
+ported.  ``GPR_CHOL_LEAF_INV=1`` selects JAX's leaf kernel with inverse (row
+9) inside ``cholesky_blocked`` (blocked.py:309-357), so it raises likewise
+where the route is ``blocked-syrk`` or ``blocked``; ``fused-matrix`` does
+not read it, as JAX's fused kernel does not.
+
 ``safe_cholesky`` is a ``torch.autograd.Function``: its forward is the host
 jitter loop over the route, its backward the Murray pullback from the
 returned (jittered) factor, exactly 0 where that factor is NaN
 (linalg.py:137-154, 166-290).
+
+``cho_solve`` takes the narrow solve (ops/solve.py, kernels K10 and K11)
+under ``GPR_SOLVE_SCHEDULE=narrow`` for a 2-D float32 factor with n >= 1024,
+n % 512 == 0 and at most 128 right-hand sides (linalg.py:322-348); its route
+is :func:`solve_route`.  Every other case, a wider right-hand side included,
+takes two triangular solves, as JAX falls back to its blocked solves.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
 
 from .blocked import cholesky_blocked
 from .fullchol import PANEL, cholesky_fused
+from .solve import cho_solve_narrow, solve_narrow_usable
 
 # log-space bounds of the reference's long-double determinant clamp
 # (include/Likelihood.h:180-188), as gpr_tpu/ops/linalg.py:36-47
@@ -57,12 +75,27 @@ def add_diagonal(A: torch.Tensor, value) -> torch.Tensor:
     return A + torch.where(eye, value, torch.zeros((), dtype=A.dtype, device=A.device))
 
 
+def _chol_schedule() -> str:
+    """``GPR_CHOL_SCHEDULE``, read at call time (linalg.py:72-81)."""
+    return os.environ.get("GPR_CHOL_SCHEDULE", "fused")
+
+
 def route_for(n: int, dtype: torch.dtype, device: torch.device, batched: bool = False) -> str:
     """The factorization route of an (n, n) matrix of this dtype and device."""
     if not batched and n >= BLOCKED_MIN_N:
-        if torch.device(device).type == "cuda" and dtype == torch.float32:
-            return "fused-matrix" if n % PANEL == 0 else "blocked-syrk"
-        return "blocked"
+        schedule = _chol_schedule()
+        cuda_f32 = torch.device(device).type == "cuda" and dtype == torch.float32
+        if cuda_f32 and n % PANEL == 0 and schedule == "fused":
+            return "fused-matrix"
+        if schedule == "inplace" and dtype == torch.float32 and n % 512 == 0:
+            raise NotImplementedError(
+                "GPR_CHOL_SCHEDULE=inplace selects the in-place Cholesky kernels, TPU kernel "
+                "rows 16-18 (ROADMAP.md section 2), which are not ported yet")
+        if os.environ.get("GPR_CHOL_LEAF_INV", "0") not in ("0", ""):
+            raise NotImplementedError(
+                "GPR_CHOL_LEAF_INV=1 selects the leaf Cholesky with inverse, TPU kernel row 9 "
+                "(ROADMAP.md section 2), which is not ported yet")
+        return "blocked-syrk" if cuda_f32 else "blocked"
     return "torch-cholesky"
 
 
@@ -165,13 +198,40 @@ def safe_cholesky(A: torch.Tensor, initial_jitter: float = 0.0,
     return _SafeCholesky.apply(A, float(initial_jitter), int(max_tries))
 
 
+def _solve_schedule() -> str:
+    """``GPR_SOLVE_SCHEDULE``, read at call time: 'blocked' (default) or
+    'narrow' (linalg.py:322-329)."""
+    return os.environ.get("GPR_SOLVE_SCHEDULE", "blocked")
+
+
+def solve_route(L: torch.Tensor, b: torch.Tensor) -> str:
+    """``"narrow"`` where :func:`cho_solve` takes the narrow solve for this
+    factor and right-hand side, else ``"triangular"``.  A factor under
+    ``torch.func.vmap`` (a fleet's per-member solve) stays triangular: the
+    kernels take whole tensors."""
+    if (L.ndim == 2 and L.shape[0] >= BLOCKED_MIN_N and _solve_schedule() == "narrow"
+            and not torch._C._functorch.is_batchedtensor(L)):
+        q = 1 if b.ndim == 1 else b.shape[-1]
+        if solve_narrow_usable(L.shape[0], q, L.dtype, L.device):
+            return "narrow"
+    return "triangular"
+
+
 def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve A x = b with A = L L^T."""
+    """Solve A x = b with A = L L^T (see :func:`solve_route`)."""
+    if solve_route(L, b) == "narrow":
+        return cho_solve_narrow(L, b.to(L.dtype))
     squeeze = b.ndim == L.ndim - 1
     B = b[..., None] if squeeze else b
     y = torch.linalg.solve_triangular(L, B, upper=False)
     x = torch.linalg.solve_triangular(L.mT, y, upper=True)
     return x[..., 0] if squeeze else x
+
+
+def _tri_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """L X = B for lower-triangular L (linalg.py:125-134 with trans=False,
+    the only form ``extend`` and ``loo_cv`` use)."""
+    return torch.linalg.solve_triangular(L, B, upper=False)
 
 
 def solve_psd(A: torch.Tensor, b: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:

@@ -214,3 +214,36 @@ def test_numpy_input_without_a_device_raises(monkeypatch):
     assert gp.route == "torch-cholesky" and gp.X.device.type == "cpu"
     assert tg.predict_batched(gp, X[:, :2]).shape == (2, 2, 2)
     assert math.isfinite(float(tg.mll_batched(k, X, Y, 0.1, device="cpu").sum()))
+
+
+def test_fleet_route_never_names_a_kernel_that_refuses_the_shape(monkeypatch):
+    # K9 takes n <= FUSED_MAX_N; a raised GPR_FLEET_FUSED_MAX_N must not send
+    # a larger fleet to it (factor_solve_fused raises there)
+    monkeypatch.setattr(tob, "_FLEET_FUSED_MAX_N", 4096)
+    f32 = torch.float32
+    assert tb.fleet_route(2176, f32, "cuda", use_crout=True) == "fleet-crout"
+    assert tb.fleet_route(2176, f32, "cuda") == "fleet-crout"
+    assert tb.fleet_route(tob.FUSED_MAX_N, f32, "cuda") == "fleet-fused"
+    monkeypatch.setattr(tob, "_FLEET_FUSED_MAX_N", 0)
+    assert tb.fleet_route(512, f32, "cuda") == "fleet-crout"
+
+
+def test_fleet_gram_switch(monkeypatch):
+    # GPR_FLEET_GRAM (batched.py:138-146), read at call time: pallas (default)
+    # builds K with K6, anything else with the vmapped torch Gram
+    from gpr_tpu_torch.ops import gram as tgram
+
+    X, Y = _fleet(B=3, n=64)
+    X32, Y32 = X.astype(np.float32), Y.astype(np.float32)
+    calls = []
+    orig = tgram.gram_batched
+    monkeypatch.setattr(tgram, "gram_batched", lambda *a, **kw: calls.append(1) or orig(*a, **kw))
+    k = tg.Gaussian(1.5, 1.0)
+    a = tb.fit_batched(k, X32, Y32, 0.3, device="cpu")
+    assert calls == [1]
+    monkeypatch.setenv("GPR_FLEET_GRAM", "xla")
+    b = tb.fit_batched(k, X32, Y32, 0.3, device="cpu")
+    assert calls == [1] and a.route == b.route
+    assert _rel(b.alpha.numpy(), a.alpha.numpy()) < 1e-4
+    jbgp = jb.fit_batched(jg.Gaussian(1.5, 1.0), X32, Y32, 0.3)  # JAX on the CPU: its XLA Gram
+    assert _rel(b.alpha.numpy(), np.asarray(jbgp.alpha)) < 1e-4

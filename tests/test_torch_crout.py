@@ -8,7 +8,7 @@ pallas_batched.py:119-173) where the plain version steps one column at a
 time, so they round differently: 1e-5 of the largest |L| entry.  A
 non-positive pivot leaves its tile's L[-1, -1] non-finite in both (-inf
 from 1 / max(piv, 0) = inf through the trailing updates); the kernel, whose
-pivot is rsqrt(piv), makes it NaN (tests/test_torch_cuda.py).  With W, both
+pivot scale is 1.0f / sqrtf(piv), makes it NaN (tests/test_torch_cuda.py).  With W, both
 step the same forward substitution in other groupings: W agrees to 1e-5 of
 its largest entry, and W L = I to 1e-5.
 """

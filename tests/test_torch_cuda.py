@@ -1,4 +1,4 @@
-"""The port's hand-written CUDA kernels (K1-K9) against their plain torch
+"""The port's hand-written CUDA kernels (K1-K11) against their plain torch
 versions, on the card, at small shapes.  Marked ``cuda``: skipped where
 torch.cuda.is_available() is False.  On a machine with a card and without
 JAX run it alone, without the suite's conftest (which imports JAX):
@@ -17,10 +17,14 @@ sqrt(k) terms (float32 sums in another order); a gradient of the marginal
 likelihood through the card's factorization gets 3x the error of the same
 float32 computation on the CPU, both against float64.  K6 takes K1's
 tolerances; a K7 factor gets 1e-5 of its largest entry (the kernel pivots
-with rsqrt and scaled columns, the plain version with 1 / piv and unscaled
-ones).  K8's W gets 1e-4 relative (the kernel substitutes after the sweep,
+with 1.0f / sqrtf(piv) and scaled columns, the plain version with 1 / piv
+and unscaled ones).  K8's W gets 1e-4 relative (the kernel substitutes after the sweep,
 the plain version inside it); K9's factor 1e-5 and its alpha 1e-4 relative,
-against the plain version and a float64 solve.
+against the plain version and a float64 solve.  K10's sweep gets 1e-5 of
+the largest entry against its plain version (both sum 128-term pieces in
+float32, in other orders), K11's inverse 1e-4 relative and W L = I to 1e-4;
+the narrow solve is held to a float64 solve at JAX's own 5e-6 relative
+(tests/test_ops.py:621-773) times 4 for the card's other summation order.
 """
 
 import numpy as np
@@ -30,7 +34,8 @@ import torch
 import gpr_tpu_torch as tg
 from gpr_tpu_torch.gp import likelihood as lk
 from gpr_tpu_torch.gp import batched as fleet
-from gpr_tpu_torch.ops import _cuda, blocked, crout, fullchol, linalg, syrk
+from gpr_tpu_torch.gp import exact
+from gpr_tpu_torch.ops import _cuda, blocked, crout, fullchol, linalg, solve, syrk
 from gpr_tpu_torch.ops import batched as fleet_ops
 from gpr_tpu_torch.ops import gram as gop
 
@@ -457,3 +462,140 @@ def test_cho_solve_without_inverses_launches_k8_once(dev):
     X = fleet_ops.cho_solve_batched(L, Y)
     assert _cuda.launch_counts()["crout_chol_wi"] == 1
     assert _relerr(X.double(), torch.linalg.solve(A.double(), Y.double())) <= 1e-4
+
+
+def _narrow_system(rng, n, q, junk=True):
+    # JAX's narrow-solve test system (tests/test_ops.py:630-634)
+    X = rng.standard_normal((n, 64)).astype(np.float32)
+    A = X @ X.T / 64 + 4.0 * np.eye(n, dtype=np.float32)
+    Lh = np.linalg.cholesky(A).astype(np.float32)
+    up = np.triu(rng.standard_normal((n, n)).astype(np.float32), 1) if junk else 0.0
+    return Lh, Lh + up, rng.standard_normal((n, q)).astype(np.float32)
+
+
+@pytest.mark.parametrize("n,q,bs", [(1024, 1, 512), (2048, 8, 512), (2048, 20, 512),
+                                    (1024, 128, 512), (2048, 8, 1024), (1024, 3, 256)])
+def test_narrow_subst_kernel(dev, n, q, bs):
+    rng = np.random.default_rng(30)
+    Lh, Lj, B = _narrow_system(rng, n, q)
+    L, B = _t(Lj, dev), _t(B, dev)
+    W = solve.diag_block_inverses(L, bs, "xla")
+    _cuda.reset_launch_counts()
+    Y = solve.subst_pass(L, W, B, True)
+    X = solve.subst_pass(L, W, Y, False)
+    assert _cuda.launch_counts()["narrow_subst"] == 2 * (n // bs)
+    Yr = solve.subst_pass_reference(L, W, B, True)
+    Xr = solve.subst_pass_reference(L, W, Y, False)
+    assert _relerr(Y, Yr) <= 1e-5 and _relerr(X, Xr) <= 1e-5
+    truth = torch.cholesky_solve(B.double(), torch.tensor(Lh, dtype=torch.float64, device=dev))
+    assert _relerr(X.double(), truth) <= 2e-5
+
+
+@pytest.mark.parametrize("n,bs", [(1024, 256), (2048, 512), (512, 64)])
+def test_diag_tri_inv_kernel(dev, n, bs):
+    rng = np.random.default_rng(31)
+    Lh, Lj, _ = _narrow_system(rng, n, 1)
+    _cuda.reset_launch_counts()
+    W = solve.diag_tri_inv(_t(Lj, dev), bs)  # reads the lower triangle only
+    assert _cuda.launch_counts()["diag_tri_inv"] == 1
+    R = solve.diag_tri_inv_reference(_t(Lh, dev), bs)
+    assert _relerr(W, R) <= 1e-4 and torch.all(torch.triu(W, 1) == 0)
+    D = solve._diag_tiles(_t(Lh, dev), bs)
+    assert float((W @ D - torch.eye(bs, device=dev)).abs().max()) <= 1e-4
+    bad = Lh.copy()
+    bad[bs + 7, bs + 7] = float("nan")
+    Wb = solve.diag_tri_inv(_t(bad, dev), bs)
+    assert not bool(torch.isfinite(Wb[1]).all()) and bool(torch.isfinite(Wb[0]).all())
+
+
+@pytest.mark.parametrize("diag_inv", ["xla", "pallas"])
+@pytest.mark.parametrize("n,q,bs", [(2048, 8, 512), (3072, 8, 1024), (1024, 1, 256)])
+def test_cho_solve_narrow_on_the_card(dev, diag_inv, n, q, bs):
+    rng = np.random.default_rng(32)
+    Lh, Lj, B = _narrow_system(rng, n, q)
+    _cuda.reset_launch_counts()
+    b = _t(B[:, 0], dev) if q == 1 else _t(B, dev)
+    X = solve.cho_solve_narrow(_t(Lj, dev), b, bs=bs, diag_inv=diag_inv)
+    counts = _cuda.launch_counts()
+    assert counts["narrow_subst"] == 2 * (n // bs)
+    assert counts["diag_tri_inv"] == (1 if diag_inv == "pallas" else 0)
+    assert X.shape == b.shape
+    truth = torch.cholesky_solve(torch.tensor(B, dtype=torch.float64, device=dev),
+                                 torch.tensor(Lh, dtype=torch.float64, device=dev))
+    assert _relerr(X.double().reshape(truth.shape), truth) <= 2e-5
+    bad = Lj.copy()
+    bad[n - 3, 5] = float("nan")  # strictly lower: read by the sweeps
+    assert not bool(torch.isfinite(solve.cho_solve_narrow(_t(bad, dev), b, bs=bs,
+                                                          diag_inv=diag_inv)).all())
+
+
+def test_narrow_routes_reach_the_kernels(dev, monkeypatch):
+    monkeypatch.setenv("GPR_SOLVE_SCHEDULE", "narrow")
+    monkeypatch.setenv("GPR_SOLVE_DIAGINV", "pallas")
+    rng = np.random.default_rng(33)
+    n = 1024
+    X = rng.standard_normal((n, 3))
+    Y = np.sin(X.sum(1, keepdims=True)) + 0.1 * rng.standard_normal((n, 2))
+    k = tg.Gaussian(1.5, 1.0)
+    _cuda.reset_launch_counts()
+    gp = tg.fit(k, _t(X, dev), _t(Y, dev), 0.1)
+    assert gp.route == "fused-matrix" and linalg.solve_route(gp.L, gp.Y) == "narrow"
+    counts = _cuda.launch_counts()
+    assert counts["narrow_subst"] == 2 * n // 512 and counts["diag_tri_inv"] == 1
+    truth = tg.fit(k, X, Y, float(np.float32(0.1)), device="cpu")
+    cpu32 = tg.fit(k, X.astype(np.float32), Y.astype(np.float32), 0.1, device="cpu")
+    assert _relerr(gp.alpha.cpu().double(), truth.alpha) <= 3 * _relerr(cpu32.alpha.double(), truth.alpha)
+    _, g64 = lk.mll_value_and_grad(k, X, Y, 0.1, device="cpu")
+    monkeypatch.setenv("GPR_SOLVE_SCHEDULE", "blocked")
+    _, g32 = lk.mll_value_and_grad(k, X.astype(np.float32), Y.astype(np.float32), 0.1, device="cpu")
+    monkeypatch.setenv("GPR_SOLVE_SCHEDULE", "narrow")
+    _cuda.reset_launch_counts()
+    _, g = lk.mll_value_and_grad(k, _t(X, dev), _t(Y, dev), 0.1)
+    counts = _cuda.launch_counts()
+    # one narrow solve forward, one in its backward
+    assert counts["narrow_subst"] == 2 * 2 * n // 512 and counts["diag_tri_inv"] == 2
+    assert _relerr(g.cpu(), g64) <= 3 * _relerr(g32, g64) + 1e-6
+
+
+def test_sliding_window_on_the_card(dev, monkeypatch):
+    monkeypatch.setenv("GPR_SOLVE_SCHEDULE", "narrow")
+    rng = np.random.default_rng(34)
+    n, k = 1024, 512
+    X = rng.standard_normal((n + k, 5))
+    Y = np.sin(X[:, :3]) + 0.1 * rng.standard_normal((n + k, 3))
+    kern = tg.Gaussian(2.0, 1.0)
+    _cuda.reset_launch_counts()
+    gp = tg.fit(kern, _t(X[:n], dev), _t(Y[:n], dev), 0.1)
+    gp = tg.extend(gp, _t(X[n:], dev), _t(Y[n:], dev))
+    gp = tg.shrink(gp, k)
+    mean, var, lpd = exact.loo_cv(gp)
+    assert _cuda.launch_counts()["narrow_subst"] == 2 * (2 + 3 + 2)
+    ref = tg.fit(kern, X[k:], Y[k:], float(np.float32(0.1)), device="cpu")
+    cpu32 = tg.fit(kern, X[k:].astype(np.float32), Y[k:].astype(np.float32), 0.1, device="cpu")
+    assert _relerr(gp.alpha.cpu().double(), ref.alpha) <= 3 * _relerr(cpu32.alpha.double(), ref.alpha)
+    m64, _, _ = exact.loo_cv(ref)
+    m32, _, _ = exact.loo_cv(cpu32)
+    assert _relerr(mean.cpu().double(), m64) <= 3 * _relerr(m32.double(), m64)
+    assert bool(torch.isfinite(var).all()) and bool(torch.isfinite(lpd))
+
+
+@pytest.mark.parametrize("route", ["fleet-crout", "fleet-fused"])
+def test_fleet_gradient_at_two_panels_on_the_card(dev, monkeypatch, route):
+    # chip_tools/fused_backward_accuracy.py's B=4, n=256 fleet: fleet-crout
+    # takes two panels of 128, fleet-fused four of 64
+    monkeypatch.setattr(fleet_ops, "_FLEET_FUSED_MAX_N", 1024 if route == "fleet-fused" else 0)
+    rng = np.random.default_rng(22)
+    X = rng.standard_normal((4, 256, 3))
+    Y = np.sin(X.sum(-1, keepdims=True)) + 0.1 * rng.standard_normal((4, 256, 2))
+
+    def grad(Xa, Ya, **kw):
+        p = torch.tensor([[1.2, 1.5, 2.0, 1.1], [0.9, 1.0, 1.1, 1.2]], dtype=torch.float64,
+                         requires_grad=True)
+        v = fleet.mll_batched(tg.Gaussian(p[0], p[1]), Xa, Ya, 0.1, batched_kernel=True, **kw)
+        return torch.autograd.grad(v.sum(), p)[0].cpu()
+
+    g64 = grad(X, Y, device="cpu", use_crout=False)
+    g32 = grad(X.astype(np.float32), Y.astype(np.float32), device="cpu", use_crout=False)
+    assert fleet.fleet_route(256, torch.float32, dev) == route
+    g = grad(_t(X, dev), _t(Y, dev))
+    assert _relerr(g, g64) <= 3 * _relerr(g32, g64) + 1e-6

@@ -136,3 +136,15 @@ def test_gaussian_rejects_non_positive():
         tg.Gaussian(0.0)
     with pytest.raises(ValueError):
         tg.Gaussian(1.0, float("nan"))
+
+
+def test_general_kernel_matches_jax(rng):
+    params = [1.1, 2.0, 0.7, 1.3, 0.9, 1.7, 2.1, 0.8, 1.5, 2.5, 0.6, 1.9, 0.05]
+    kj, kt = jg.get_general_kernel(params), tg.get_general_kernel(params)
+    assert kt.to_string() == kj.to_string()
+    X = rng.standard_normal((30, 3))
+    np.testing.assert_allclose(tg.gram(kt, torch.tensor(X)).numpy(), np.asarray(jg.gram(kj, X)),
+                               rtol=TOL, atol=TOL)
+    assert kt.num_params == 13
+    with pytest.raises(ValueError, match="Wrong number"):
+        tg.get_general_kernel(params[:12])

@@ -142,3 +142,47 @@ def test_inverse_pinv_symmetrize_match_jax():
                                np.asarray(jl.pinv(B, 1e-8)), rtol=1e-9, atol=1e-12)
     np.testing.assert_array_equal(tl.symmetrize(torch.tensor(B)).numpy(),
                                   np.asarray(jl.symmetrize(B)))
+
+
+def test_chol_schedule_switches(monkeypatch):
+    # GPR_CHOL_SCHEDULE read at call time (linalg.py:72-118): recursive skips
+    # the fused factor; inplace and GPR_CHOL_LEAF_INV=1 select kernels the port
+    # has not ported yet (rows 16-18 and 9) and raise rather than fall through
+    f32 = torch.float32
+    assert tl.route_for(2048, f32, "cuda") == "fused-matrix"
+    monkeypatch.setenv("GPR_CHOL_SCHEDULE", "recursive")
+    assert tl.route_for(2048, f32, "cuda") == "blocked-syrk"
+    assert tl.cholesky_route(torch.eye(2048)) == "blocked"
+    monkeypatch.setenv("GPR_CHOL_SCHEDULE", "inplace")
+    with pytest.raises(NotImplementedError, match="16-18"):
+        tl.route_for(2048, f32, "cuda")
+    with pytest.raises(NotImplementedError, match="16-18"):
+        tl.safe_cholesky(torch.eye(1024))
+    assert tl.route_for(1100, f32, "cuda") == "blocked-syrk"  # JAX's inplace gate: n % 512
+    assert tl.route_for(2048, torch.float64, "cpu") == "blocked"
+    monkeypatch.delenv("GPR_CHOL_SCHEDULE")
+    monkeypatch.setenv("GPR_CHOL_LEAF_INV", "1")
+    with pytest.raises(NotImplementedError, match="row 9"):
+        tl.cholesky_route(torch.eye(1100))
+    assert tl.cholesky_route(torch.eye(512)) == "torch-cholesky"
+    monkeypatch.setenv("GPR_CHOL_LEAF_INV", "0")
+    assert tl.cholesky_route(torch.eye(1100)) == "blocked"
+
+
+def test_leaf_inv_switch_leaves_the_fused_route(monkeypatch):
+    # JAX reads GPR_CHOL_LEAF_INV only inside cholesky_blocked (blocked.py:
+    # 309-357); its fused kernel, taken first, ignores it
+    monkeypatch.setenv("GPR_CHOL_LEAF_INV", "1")
+    f32 = torch.float32
+    assert tl.route_for(2048, f32, "cuda") == "fused-matrix"
+    for n, device in ((2100, "cuda"), (2048, "cpu")):
+        with pytest.raises(NotImplementedError, match="row 9"):
+            tl.route_for(n, f32, device)
+
+
+def test_tri_solve_matches_jax():
+    A = _spd(1100, 7)
+    L = np.linalg.cholesky(A)
+    B = np.random.default_rng(8).standard_normal((1100, 3))
+    np.testing.assert_allclose(tl._tri_solve(torch.tensor(L), torch.tensor(B)).numpy(),
+                               np.asarray(jl._tri_solve(L, B, trans=False)), rtol=1e-9, atol=1e-12)
