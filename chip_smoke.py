@@ -8,7 +8,8 @@ process per source, in parallel), then:
 
   1. holds each kernel (K1 gram_tile, K2 panel_update, K3 diag_factor_inv,
      K4 panel_solve, K5 syrk_update, K6 gram_batched, K7 crout_chol, K8
-     crout_chol_wi, K9 fleet_fused) against its plain torch version on the
+     crout_chol_wi, K9 fleet_fused; K10-K14 in phases 14 and 18) against its
+     plain torch version on the
      card: small ragged shapes, the contracts of the fused factorization, each
      kernel at the shapes the n=16384 fit gives it, K5 (lower triangle) at a
      ragged shape and at the top-level trailing updates of n=3773 and
@@ -79,21 +80,35 @@ process per source, in parallel), then:
  17. times K10 per solve at n=16384 (q=8) against its bound, its plain
      version, torch.cholesky_solve and the port's cho_solve_panels, K11
      against its plain version and the batched triangular solve, and the
-     narrow fit and MLL against the default triangular solves.
+     narrow fit and MLL against the default triangular solves;
+ 18. holds K12 leaf_chol, K13 leaf_chol_wi and K14 tri_inv_leaf (csrc/leaf.cu)
+     against their plain versions at n = 256, 512, 768 and 1024, each on a
+     strided view with NaN above the diagonal (and K13 in place), and a leaf
+     that is not positive definite;
+ 19. under GPR_CHOL_LEAF_INV=1 trains at the breathing shape (phase 6's
+     steps, route "blocked-syrk-leaf": two K13 launches per factorization),
+     fits and predicts with the learned kernel; then, with
+     GPR_CHOL_SCHEDULE=recursive as well, fits the bench model (route
+     "gram-kernel", 16 K13 launches) with a 128-point credible interval and
+     runs the MLL value + gradient at n=16384 and 16383 (16 and 15 launches);
+ 20. times K12-K14 per 1024-leaf against their plain versions and
+     torch.linalg.cholesky_ex (+ solve_triangular against I), the n=16384
+     blocked factorization with and without the switch against
+     torch.linalg.cholesky, and the bench fit and MLL with and without it.
 
 Phase 4's fit and phase 6's training steps are the standing check at the
 breathing-fixture shape: their gates go to chip_smoke_out/breathing_check.json
 (gitignored), summed up on one line.
 
-Phases 2-4, 6, 8 and 12 hold the port's mean and credible interval against a
+Phases 2-4, 6, 8, 12 and 19 hold the port's mean and credible interval against a
 float64 torch reference and pass when the port's error is at most 3x that
 of the plain float32 torch route (torch Gram, torch.linalg.cholesky,
 cholesky_solve; for fleets also variance and alpha).  Phases 6, 7, 9 and 12
 hold each value and gradient of the marginal likelihood (at each training
 step's parameters; phase 15 too) against a float64 plain torch MLL (torch.linalg.cholesky
 + autograd) with the same 3x gate against the plain float32 MLL.  The launch
-counters are reset before each path (phases 2-5, 6, 7, 8-9, and each of
-phase 12's four) and read after
+counters are reset before each path (phases 2-5, 6, 7, 8-9, each of
+phase 12's four, 15's two, 16, and 19's four) and read after
 it: each kernel of the path must have been launched there.  Any failure
 raises.  The last lines are the kernels' JSON, the card's name and power
 limit, then one JSON object with the device.  Exits non-zero, printing no result, where there is no CUDA device.
@@ -178,6 +193,7 @@ def main() -> int:
     from gpr_tpu_torch.ops import _cuda, blocked, fullchol, syrk
     from gpr_tpu_torch.ops import batched as fbatched
     from gpr_tpu_torch.ops import crout as fcrout
+    from gpr_tpu_torch.ops import leaf as tleaf
     from gpr_tpu_torch.ops import gram as gop
     from gpr_tpu_torch.gp import exact as texact
     from gpr_tpu_torch.ops import linalg as tlin
@@ -191,7 +207,7 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)} | {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
 
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     lib = _cuda.build()
     _cuda.library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib.name}")
@@ -1518,13 +1534,202 @@ def main() -> int:
     check(counts["narrow_subst"] > 0 and counts["diag_tri_inv"] > 0,
           "a kernel of the narrow-solve paths was never launched")
 
+    # --------------------------------------------------------------- 18 ----
+    # K12-K14 against their plain versions at n = 256, 512, 768 and 1024, each
+    # on a strided view (row stride n + 200) inside a buffer that holds NaN
+    # above the leaf's diagonal and all around it, then K13 in place; a leaf
+    # that is not positive definite.  1e-5 relative against the plain version
+    # (the same 64-block algorithm, float32 sums in another order) and
+    # |W L - I| < 1e-4, as tests/test_ops.py:457-499 holds JAX's leaf kernels.
+    print("phase 18 K12 leaf_chol, K13 leaf_chol_wi and K14 tri_inv_leaf against their plain versions")
+    g18 = torch.Generator(device=dev).manual_seed(18)
+    nan = float("nan")
+
+    def leaf_spd(n_):
+        G = torch.randn((n_, n_), generator=g18, device=dev)
+        A_ = G @ G.T / n_
+        A_.diagonal().add_(1.0)
+        return A_
+
+    worst18 = {}
+    for n_ in (256, 512, 768, 1024):
+        A_ = leaf_spd(n_)
+        up = torch.triu(torch.full_like(A_, nan), 1)
+        buf = torch.full((n_ + 64, n_ + 200), nan, device=dev)
+        view = buf[32:32 + n_, 100:100 + n_]
+        view.copy_(torch.tril(A_) + up)
+        Lr, Wr = tleaf.leaf_cholesky_wi_reference(A_)
+        L12 = tleaf.leaf_cholesky(view)
+        L13, W13 = tleaf.leaf_cholesky_wi(view)
+        W14 = tleaf.tri_inv_leaf(L13 + up)
+        W14r = tleaf.tri_inv_leaf_reference(L13)
+        eye = torch.eye(n_, device=dev)
+        errs = {"leaf_chol": relerr(L12, Lr), "leaf_chol_wi": max(relerr(L13, Lr), relerr(W13, Wr)),
+                "tri_inv_leaf": relerr(W14, W14r)}
+        res = max(float((W13 @ L13 - eye).abs().max()), float((W14 @ L13 - eye).abs().max()))
+        check(all(e <= 1e-5 for e in errs.values()) and res < 1e-4, f"K12-K14 n={n_}: {errs}, |WL-I| {res}")
+        check(all(bool(torch.all(torch.triu(M, 1) == 0)) for M in (L12, L13, W13, W14)),
+              f"K12-K14 n={n_}: strict upper not 0")
+        check(bool(torch.isnan(buf[:32]).all() and torch.isnan(buf[:, :100]).all()),
+              f"K12-K14 n={n_}: wrote outside the leaf")
+        Lv, Wv = tleaf.leaf_cholesky_wi(view, out=view)
+        check(Lv.data_ptr() == view.data_ptr() and relerr(view, Lr) <= 1e-5 and relerr(Wv, Wr) <= 1e-5,
+              f"K13 n={n_} in place")
+        worst18[n_] = (errs, res)
+        if n_ == 1024:
+            kstats["leaf_chol"] = {"max_abs_err": float((L12 - Lr).abs().max())}
+            kstats["leaf_chol_wi"] = {"max_abs_err": max(float((L13 - Lr).abs().max()),
+                                                         float((W13 - Wr).abs().max()))}
+            kstats["tri_inv_leaf"] = {"max_abs_err": float((W14 - W14r).abs().max())}
+    bad = leaf_spd(1024)
+    bad[600, 600] = -1.0
+    Lb, Wb = tleaf.leaf_cholesky_wi(bad)
+    check(bool(torch.isnan(Lb[-1, -1])) and not bool(torch.isfinite(Wb).all())
+          and bool(torch.isnan(tleaf.leaf_cholesky(bad)[-1, -1]))
+          and not bool(torch.isfinite(tleaf.tri_inv_leaf(Lb)).all()), "a failed leaf is not poisoned")
+    del A_, buf, view, Lr, Wr, L12, L13, W13, W14, W14r, bad, Lb, Wb
+    torch.cuda.synchronize()
+    for n_, (errs, res) in worst18.items():
+        print(f"  n={n_} (strided, NaN upper): rel err vs plain " + ", ".join(
+            f"{k} {e:.3g}" for k, e in errs.items()) + f"; |WL-I| {res:.3g}; in place ok")
+    print("  a leaf that is not positive definite: L[-1,-1] NaN, W non-finite ok")
+
+    # --------------------------------------------------------------- 19 ----
+    leaf_env = {"GPR_CHOL_LEAF_INV": "1"}
+    rec_leaf_env = {"GPR_CHOL_LEAF_INV": "1", "GPR_CHOL_SCHEDULE": "recursive"}
+    print("phase 19 the leaf kernel on the blocked route (GPR_CHOL_LEAF_INV=1): breathing training, "
+          "then with GPR_CHOL_SCHEDULE=recursive the bench fit and the MLL at n=16384 and 16383")
+
+    def phase19_train():
+        _cuda.reset_launch_counts()
+        k_mle19, r_mle19 = tg.fit_mle(k0, X4, Y4, 0.1, iterations=5)
+        k_map19, r_map19 = tg.fit_map(k0, X4, Y4, 0.1, prior, iterations=3)
+        gp19 = tg.fit(k_mle19, X4, Y4, sigma=0.1)
+        torch.cuda.synchronize()
+        c_ = _cuda.launch_counts()
+        check(r_mle19.route == "blocked-syrk-leaf" and r_map19.route == "blocked-syrk-leaf"
+              and gp19.route == "blocked-syrk-leaf",
+              f"leaf training routes {r_mle19.route}, {r_map19.route}, {gp19.route}")
+        # every factorization at n=3773: 3 trailing updates (K5), 2 aligned leaves (K13)
+        check(c_["syrk_update"] % 3 == 0 and c_["leaf_chol_wi"] == 2 * (c_["syrk_update"] // 3) > 0,
+              f"leaf training launches {c_}")
+        print(f"  launches on the leaf training path ({c_['syrk_update'] // 3} factorizations): {c_}")
+        sg19, sc19 = (float(v) for v in k_mle19.params)
+        print(f"  fit_mle trace {[round(float(v), 3) for v in r_mle19.trace]} -> Gaussian({sg19:.5g}, "
+              f"{sc19:.5g}) (phase 6: Gaussian({sg:.5g}, {sc:.5g})); fit_map trace "
+              f"{[round(float(v), 3) for v in r_map19.trace]}")
+        check(abs(sg19 - sg) <= 1e-3 * abs(sg) and abs(sc19 - sc) <= 1e-3 * abs(sc),
+              "the leaf route learned other hyperparameters than the default route")
+        judge("learned Gaussian, n=3773, leaf route", gp19, X4, Y4, Xs4,
+              lambda A, B: gaussian64(A, B, sg19, sc19), sc19 * sc19, sig, with_alpha=True)
+        for name, kern in (("start", k0), ("learned", k_mle19)):
+            v_, g_ = lk.mll_value_and_grad(kern, X4, Y4, 0.1)
+            hold_mll(f"leaf MLL n=3773 at the {name} kernel", [float(p) for p in kern.params],
+                     X4, Y4, v_, g_, sig)
+        return c_
+
+    def phase19_bench():
+        _cuda.reset_launch_counts()
+        gp_ = tg.fit(bench_k, Xb, Yb, sigma=0.1, use_pallas_gram=True)
+        gp_.credible_interval(Xt[:128])
+        torch.cuda.synchronize()
+        c_ = _cuda.launch_counts()
+        check(gp_.route == "gram-kernel" and tlin.cholesky_route(gp_.L) == "blocked-syrk-leaf",
+              f"leaf bench fit routes {gp_.route}")
+        check(c_["leaf_chol_wi"] == 16 and c_["gram_tile"] > 0 and c_["syrk_update"] > 0,
+              f"leaf bench fit launches {c_}")
+        print(f"  launches on the leaf bench fit (n=16384: 16 leaves): {c_}")
+        judge("leaf bench fit n=16384", gp_, Xb, Yb, Xt[:128], bench64, 1.0, sig, with_alpha=True)
+        return c_
+
+    def phase19_mll():
+        out = {}
+        for X_, Y_, leaves in ((Xb, Yb, 16), (X163, Y163, 15)):
+            _cuda.reset_launch_counts()
+            v_, g_ = lk.mll_value_and_grad(bench_k, X_, Y_, 0.1)
+            torch.cuda.synchronize()
+            c_ = _cuda.launch_counts()
+            check(lk.factor_route(X_) == "blocked-syrk-leaf" and c_["leaf_chol_wi"] == leaves,
+                  f"leaf MLL n={X_.shape[0]} launches {c_}")
+            print(f"  launches on the leaf MLL n={X_.shape[0]} ({leaves} leaves): {c_}")
+            hold_mll(f"leaf MLL n={X_.shape[0]}", [8.0, 1.0], X_, Y_, v_, g_, sig)
+            torch.cuda.empty_cache()
+            out = {k: out.get(k, 0) + v for k, v in c_.items()}
+        return out
+
+    path_counts.extend([with_env(leaf_env, phase19_train), with_env(rec_leaf_env, phase19_bench),
+                        with_env(rec_leaf_env, phase19_mll)])
+    for c in path_counts[-3:]:
+        for name, v in c.items():
+            counts[name] += v
+    check(counts["leaf_chol_wi"] > 0, "K13 was never launched on the leaf paths")
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 20 ----
+    A20 = leaf_spd(1024)
+    L20 = torch.linalg.cholesky(A20).contiguous()  # cuSOLVER returns a column-major factor
+    I20 = torch.eye(1024, device=dev)
+    t12 = rotate({"kernel": lambda: tleaf.leaf_cholesky(A20),
+                  "plain": lambda: tleaf.leaf_cholesky_reference(A20),
+                  "library": lambda: torch.linalg.cholesky_ex(A20)}, 10)
+    t13 = rotate({"kernel": lambda: tleaf.leaf_cholesky_wi(A20),
+                  "plain": lambda: tleaf.leaf_cholesky_wi_reference(A20),
+                  "library": lambda: torch.linalg.solve_triangular(torch.linalg.cholesky_ex(A20)[0], I20,
+                                                                   upper=False)}, 10)
+    t14 = rotate({"kernel": lambda: tleaf.tri_inv_leaf(L20),
+                  "plain": lambda: tleaf.tri_inv_leaf_reference(L20),
+                  "library": lambda: torch.linalg.solve_triangular(L20, I20, upper=False)}, 10)
+    # what one of K12's 16 diagonal steps costs alone: K8 on one 64-tile is
+    # the same load, sweep, inverse and stores on one block
+    diag_ms = median_ms(lambda: fcrout.crout_chol_wi(A20[:64, :64][None]), 20)
+    s20 = 1024
+    tri, sq = 4.0 * s20 * (s20 + 1) / 2, 4.0 * s20 * s20
+    for name, t_, flop, nbytes in (("leaf_chol", t12, s20 ** 3 / 3.0, tri + sq),
+                                   ("leaf_chol_wi", t13, 2.0 * s20 ** 3 / 3.0, tri + 2 * sq),
+                                   ("tri_inv_leaf", t14, s20 ** 3 / 3.0, tri + sq)):
+        kstats[name].update(ms=t_["kernel"][0], plain_ms=t_["plain"][0], library_ms=t_["library"][0],
+                            **bound(flop, nbytes))
+    del A20, L20, I20
+    K20 = gaussian64(Xb, Xb, 8.0, 1.0)
+    K20.diagonal().add_(sig * sig)
+    fact20 = rotate({"blocked-syrk-leaf": lambda: blocked.cholesky_blocked(K20, leaf_inverse=True),
+                     "blocked-syrk": lambda: blocked.cholesky_blocked(K20, leaf_inverse=False),
+                     "torch.linalg.cholesky": lambda: torch.linalg.cholesky(K20)}, 4)
+    del K20
+    torch.cuda.empty_cache()
+    rec_env = {"GPR_CHOL_SCHEDULE": "recursive", "GPR_CHOL_LEAF_INV": "0"}
+    fit20 = rotate({"leaf": lambda: with_env(rec_leaf_env, lambda: tg.fit(bench_k, Xb, Yb, sigma=0.1,
+                                                                         use_pallas_gram=True)),
+                    "no leaf": lambda: with_env(rec_env, lambda: tg.fit(bench_k, Xb, Yb, sigma=0.1,
+                                                                       use_pallas_gram=True))}, 4)
+    mll20 = rotate({"leaf": lambda: with_env(rec_leaf_env, lambda: lk.mll_value_and_grad(bench_k, Xb, Yb, 0.1)),
+                    "no leaf": lambda: with_env(rec_env, lambda: lk.mll_value_and_grad(bench_k, Xb, Yb, 0.1))},
+                   4)
+    print(f"phase 20 leaf timings ({smi}), CUDA events, medians:")
+    for label, name, t_ in (("K12 leaf_chol", "leaf_chol", t12), ("K13 leaf_chol_wi", "leaf_chol_wi", t13),
+                            ("K14 tri_inv_leaf", "tri_inv_leaf", t14)):
+        print(f"  {label} per 1024-leaf: " + "; ".join(
+            f"{k} {m:.4f} ms (runs {runs_text(r)})" for k, (m, r) in t_.items())
+            + f"; bound {kstats[name]['bound_ms']:.4f} ms ({kstats[name]['bound_by']})")
+    print(f"  one 64-wide diagonal step alone (K8 crout_chol_wi on one 64x64 tile, a launch): {diag_ms:.4f} ms")
+    print("  factorization n=16384 (bench K): " + "; ".join(
+        f"{k} {m:.2f} ms (runs {runs_text(r)})" for k, (m, r) in fact20.items()))
+    print("  fit n=16384 d=128 q=8 under GPR_CHOL_SCHEDULE=recursive (gram-kernel): " + "; ".join(
+        f"{k} {m:.2f} ms (runs {runs_text(r)})" for k, (m, r) in fit20.items()))
+    print("  MLL value + gradient n=16384 under GPR_CHOL_SCHEDULE=recursive: " + "; ".join(
+        f"{k} {m:.2f} ms (runs {runs_text(r)})" for k, (m, r) in mll20.items()))
+    print(f"wall time: {time.perf_counter() - t_start:.1f} s")
+
     sources = {"gram_tile": "gpr_tpu_torch/csrc/gram.cu", "syrk_update": "gpr_tpu_torch/csrc/syrk.cu",
                "gram_batched": "gpr_tpu_torch/csrc/gram.cu",
                "crout_chol": "gpr_tpu_torch/csrc/crout.cu",
                "crout_chol_wi": "gpr_tpu_torch/csrc/crout.cu",
                "fleet_fused": "gpr_tpu_torch/csrc/fleet.cu",
                "narrow_subst": "gpr_tpu_torch/csrc/solve.cu",
-               "diag_tri_inv": "gpr_tpu_torch/csrc/solve.cu"}
+               "diag_tri_inv": "gpr_tpu_torch/csrc/solve.cu",
+               "leaf_chol": "gpr_tpu_torch/csrc/leaf.cu",
+               "leaf_chol_wi": "gpr_tpu_torch/csrc/leaf.cu",
+               "tri_inv_leaf": "gpr_tpu_torch/csrc/leaf.cu"}
     replaces = {"gram_tile": "gpr_tpu/ops/pallas_gram.py:38",
                 "syrk_update": "gpr_tpu/ops/pallas_syrk.py:73",
                 "gram_batched": "gpr_tpu/ops/pallas_gram.py:142",
@@ -1532,7 +1737,10 @@ def main() -> int:
                 "crout_chol_wi": "gpr_tpu/ops/pallas_batched.py:199",
                 "fleet_fused": "gpr_tpu/ops/pallas_batched.py:560",
                 "narrow_subst": "gpr_tpu/ops/pallas_solve.py:52",
-                "diag_tri_inv": "gpr_tpu/ops/pallas_solve.py:173"}
+                "diag_tri_inv": "gpr_tpu/ops/pallas_solve.py:173",
+                "leaf_chol": "gpr_tpu/ops/pallas_leaf.py:47",
+                "leaf_chol_wi": "gpr_tpu/ops/pallas_leaf.py:118",
+                "tri_inv_leaf": "gpr_tpu/ops/pallas_leaf.py:239"}
     kernels = []
     for k in _cuda.KERNELS:
         kernels.append({

@@ -7,8 +7,11 @@ likelihood with its gradient, the prior densities, MLE / MAP training and
 fleets of small GPs (fit, predict, likelihood and MLE of B GPs at once).
 On a CUDA tensor the fit, the likelihood and the fleet run through
 hand-written CUDA kernels (ops/gram.py, ops/fullchol.py, ops/syrk.py,
-ops/crout.py, ops/solve.py; sources in csrc/); on a CPU tensor through their plain torch
-versions.  The entry points run on the card unless given ``device="cpu"``
+ops/crout.py, ops/solve.py, ops/leaf.py; sources in csrc/); on a CPU tensor through their
+plain torch versions.  The whole-leaf Cholesky kernels (``leaf_cholesky``,
+``leaf_cholesky_wi``, ``tri_inv_leaf``) are exported as gpr_tpu/ops/pallas_leaf.py
+defines them; the blocked route reaches ``leaf_cholesky_wi`` under
+``GPR_CHOL_LEAF_INV=1``.  The entry points run on the card unless given ``device="cpu"``
 or CPU tensors.  This package imports torch and numpy only, never JAX.
 """
 
@@ -38,6 +41,7 @@ from .gp.exact import GP, extend, fit, load, shrink  # noqa: F401
 from .gp.batched import fit_batched, mll_batched, predict_batched  # noqa: F401
 from .gp import likelihood  # noqa: F401
 from .inference.optimize import fit_map, fit_mle  # noqa: F401
+from .ops.leaf import leaf_cholesky, leaf_cholesky_wi, tri_inv_leaf  # noqa: F401
 from .utils import config  # noqa: F401
 
 __version__ = "0.1.0"

@@ -1,7 +1,9 @@
 """Carry a kernel or a trained GP from the JAX package into the port.
 
 The input is plain numpy (or a kernel string), so this module imports no JAX:
-the caller extracts the state from a ``gpr_tpu`` object.
+the caller extracts the state from a ``gpr_tpu`` object.  Factorizations
+(the fused, blocked and whole-leaf Cholesky kernels) carry no parameters, so
+nothing here concerns them: a factor travels as the ``L`` of a GP state.
 
   kernel tree   the kernel's ``kernel_to_string()`` (its ``.17g`` numbers
                 round-trip exactly), or a nested ``(class_name, args)``

@@ -20,7 +20,8 @@ records the route it took in ``GP.route``:
                      n >= 1024), then ``safe_cholesky``.
   otherwise          the torch Gram, then ``safe_cholesky``, whose route
                      (``linalg.cholesky_route``) is recorded: ``"fused-matrix"``,
-                     ``"blocked-syrk"``, ``"blocked"`` or ``"torch-cholesky"``.
+                     ``"blocked-syrk"``, ``"blocked"``, their ``-leaf`` forms
+                     under ``GPR_CHOL_LEAF_INV=1``, or ``"torch-cholesky"``.
 
 ``fit_route`` names the route without fitting.  The switches are read at
 call time, as JAX reads them at trace time: ``GPR_FIT_SCHEDULE=twopass`` or

@@ -149,8 +149,16 @@ NARROW_SUBST = Kernel("narrow_subst", "gpr_narrow_subst",
 # (L, ld, W, nb, bs)
 DIAG_TRI_INV = Kernel("diag_tri_inv", "gpr_diag_tri_inv", [_P, _I, _P, _I, _I])
 
+# (A, lda, L, ldl, V, s, barrier): V a (64, 64) scratch, barrier two zeroed ints
+LEAF_CHOL = Kernel("leaf_chol", "gpr_leaf_chol", [_P, _I, _P, _I, _P, _I, _P])
+# (A, lda, L, ldl, W, ldw, s, barrier)
+LEAF_CHOL_WI = Kernel("leaf_chol_wi", "gpr_leaf_chol_wi", [_P, _I, _P, _I, _P, _I, _I, _P])
+# (L, ldl, W, ldw, s, barrier)
+TRI_INV_LEAF = Kernel("tri_inv_leaf", "gpr_tri_inv_leaf", [_P, _I, _P, _I, _I, _P])
+
 KERNELS = (GRAM, PANEL_UPDATE, DIAG_FACTOR_INV, PANEL_SOLVE, SYRK_UPDATE, GRAM_BATCHED, CROUT_CHOL,
-           CROUT_CHOL_WI, FLEET_FUSED, NARROW_SUBST, DIAG_TRI_INV)
+           CROUT_CHOL_WI, FLEET_FUSED, NARROW_SUBST, DIAG_TRI_INV, LEAF_CHOL, LEAF_CHOL_WI,
+           TRI_INV_LEAF)
 
 
 def reset_launch_counts() -> None:

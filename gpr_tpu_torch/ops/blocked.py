@@ -28,12 +28,27 @@ one n x n buffer in place: the leaves, L21 and the Schur complements are
 written over the copy of A, so K5 updates A22 where it lies.  Its strict
 upper still holds A's upper triangle and K5's undefined tiles until the
 last step zeroes it.
+
+With leaf inverses on (``leaf_inverse=True``, or ``GPR_CHOL_LEAF_INV=1`` read
+at call time as blocked.py:309-313 reads it), every leaf that
+:func:`ops.leaf.leaf_usable` admits (n % 256 == 0, n <= 1024; float32 on the
+card, any dtype on the CPU) is factored in place by ``leaf_cholesky_wi``
+(K13 on the card, its plain version on the CPU; blocked.py:208-223), and its
+W = L^-1 is kept by the leaf's offset.  The column solves L21 = A21 L11^-T
+then recurse as JAX's ``_solve_rt`` does (blocked.py:115-143): at a leaf with
+W the solve is one ``torch.matmul`` B W^T, a plain product that JAX also
+computes outside Pallas; at a leaf without W (a float64 leaf on the card, an
+unaligned leaf) a triangular solve.
 """
 
 from __future__ import annotations
 
+import os
+from typing import Dict, Optional
+
 import torch
 
+from .leaf import leaf_cholesky_wi, leaf_usable
 from .syrk import syrk_update
 
 LEAF = 1024
@@ -52,29 +67,64 @@ def _leaf_cholesky(S: torch.Tensor) -> torch.Tensor:
     return torch.where(info != 0, torch.nan, L)
 
 
-def _chol_rec(W: torch.Tensor, leaf: int) -> None:
-    """Factor the (s, s) view W of the buffer in place (lower triangle)."""
-    s = W.shape[0]
+def _leaf_inverse_default() -> bool:
+    """``GPR_CHOL_LEAF_INV``, read at call time (blocked.py:309-313)."""
+    return os.environ.get("GPR_CHOL_LEAF_INV", "0") not in ("0", "")
+
+
+def _solve_rt(L: torch.Tensor, B: torch.Tensor, leaf: int, i0: int,
+              invs: Dict[int, torch.Tensor]) -> None:
+    """B <- X with X L^T = B, in place, for the lower triangle of L (s, s)
+    at offset i0 of the factorization (blocked.py:115-143)."""
+    s = L.shape[0]
     if s <= leaf:
-        W.copy_(_leaf_cholesky(W))
+        W = invs.get(i0)
+        if W is not None:
+            B.copy_(torch.matmul(B, W.mT))
+        else:
+            B.copy_(torch.linalg.solve_triangular(L.mT, B, upper=True, left=False))
         return
     m = _round_split(s)
-    _chol_rec(W[:m, :m], leaf)
+    _solve_rt(L[:m, :m], B[:, :m], leaf, i0, invs)
+    B[:, m:] -= torch.matmul(B[:, :m], L[m:, :m].mT)
+    _solve_rt(L[m:, m:], B[:, m:], leaf, i0 + m, invs)
+
+
+def _chol_rec(W: torch.Tensor, leaf: int, i0: int,
+              invs: Optional[Dict[int, torch.Tensor]]) -> None:
+    """Factor the (s, s) view W of the buffer, at offset i0, in place (lower
+    triangle); with ``invs``, keep each kernel leaf's inverse by its offset."""
+    s = W.shape[0]
+    if s <= leaf:
+        if invs is not None and leaf_usable(s, W.dtype, W.device):
+            _, invs[i0] = leaf_cholesky_wi(W, out=W)
+        else:
+            W.copy_(_leaf_cholesky(W))
+        return
+    m = _round_split(s)
+    _chol_rec(W[:m, :m], leaf, i0, invs)
     # L21 L11^T = A21
-    W[m:, :m] = torch.linalg.solve_triangular(W[:m, :m].mT, W[m:, :m], upper=True, left=False)
+    if invs is None:
+        W[m:, :m] = torch.linalg.solve_triangular(W[:m, :m].mT, W[m:, :m], upper=True, left=False)
+    else:
+        _solve_rt(W[:m, :m], W[m:, :m], leaf, i0, invs)
     A22, L21 = W[m:, m:], W[m:, :m]
     if W.dtype == torch.float32:
         syrk_update(A22, L21, out=A22)
     else:
         A22.sub_(torch.matmul(L21, L21.mT))
-    _chol_rec(A22, leaf)
+    _chol_rec(A22, leaf, i0 + m, invs)
 
 
-def cholesky_blocked(A: torch.Tensor, *, leaf: int = LEAF) -> torch.Tensor:
+def cholesky_blocked(A: torch.Tensor, *, leaf: int = LEAF,
+                     leaf_inverse: Optional[bool] = None) -> torch.Tensor:
     """Lower Cholesky factor of SPD ``A`` (n, n) by the recursion above;
-    reads only the lower triangle of A and leaves A unchanged."""
+    reads only the lower triangle of A and leaves A unchanged.
+    ``leaf_inverse`` None reads ``GPR_CHOL_LEAF_INV`` now."""
     if A.ndim != 2 or A.shape[0] != A.shape[1] or A.shape[0] == 0:
         raise ValueError(f"cholesky_blocked: shape {tuple(A.shape)} must be (n, n)")
+    if leaf_inverse is None:
+        leaf_inverse = _leaf_inverse_default()
     W = A.clone(memory_format=torch.contiguous_format)
-    _chol_rec(W, leaf)
+    _chol_rec(W, leaf, 0, {} if leaf_inverse else None)
     return W.tril_()

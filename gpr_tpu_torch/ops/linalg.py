@@ -18,6 +18,13 @@ The factorization route follows the tensor:
   ``"blocked"``         float64, or a CPU tensor, n >= 1024: the same
                         recursion with a ``torch.matmul`` update in float64
                         and K5's plain version in float32.
+  ``"blocked-syrk-leaf"``, ``"blocked-leaf"``
+                        the two above under ``GPR_CHOL_LEAF_INV=1``: every
+                        leaf with n % 256 == 0 factored with its inverse by
+                        ``leaf_cholesky_wi`` (K13 on the card, its plain
+                        version on the CPU; a float64 leaf on the card by
+                        ``cholesky_ex``), the column solves by products with
+                        the leaves' inverses (ops/blocked.py).
   ``"torch-cholesky"``  n < 1024 (and batches): ``torch.linalg.cholesky``, as
                         JAX uses ``jnp.linalg.cholesky`` there.
 
@@ -29,10 +36,10 @@ back NaN at its last diagonal entry, so success is one O(1) check.
 ``fused-matrix``, so ``recursive`` sends those matrices to ``blocked-syrk``;
 ``inplace``, where JAX would take its in-place kernels (float32, n % 512 ==
 0; TPU kernel rows 16-18), raises ``NotImplementedError`` until they are
-ported.  ``GPR_CHOL_LEAF_INV=1`` selects JAX's leaf kernel with inverse (row
-9) inside ``cholesky_blocked`` (blocked.py:309-357), so it raises likewise
-where the route is ``blocked-syrk`` or ``blocked``; ``fused-matrix`` does
-not read it, as JAX's fused kernel does not.
+ported.  ``GPR_CHOL_LEAF_INV=1``, also read at call time, turns the blocked
+routes into their ``-leaf`` forms, as JAX reads it inside
+``cholesky_blocked`` (blocked.py:309-357); ``fused-matrix`` does not read
+it, as JAX's fused kernel does not.
 
 ``safe_cholesky`` is a ``torch.autograd.Function``: its forward is the host
 jitter loop over the route, its backward the Murray pullback from the
@@ -48,12 +55,13 @@ takes two triangular solves, as JAX falls back to its blocked solves.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Optional, Tuple
 
 import torch
 
-from .blocked import cholesky_blocked
+from .blocked import _leaf_inverse_default, cholesky_blocked
 from .fullchol import PANEL, cholesky_fused
 from .solve import cho_solve_narrow, solve_narrow_usable
 
@@ -91,11 +99,8 @@ def route_for(n: int, dtype: torch.dtype, device: torch.device, batched: bool = 
             raise NotImplementedError(
                 "GPR_CHOL_SCHEDULE=inplace selects the in-place Cholesky kernels, TPU kernel "
                 "rows 16-18 (ROADMAP.md section 2), which are not ported yet")
-        if os.environ.get("GPR_CHOL_LEAF_INV", "0") not in ("0", ""):
-            raise NotImplementedError(
-                "GPR_CHOL_LEAF_INV=1 selects the leaf Cholesky with inverse, TPU kernel row 9 "
-                "(ROADMAP.md section 2), which is not ported yet")
-        return "blocked-syrk" if cuda_f32 else "blocked"
+        route = "blocked-syrk" if cuda_f32 else "blocked"
+        return route + "-leaf" if _leaf_inverse_default() else route
     return "torch-cholesky"
 
 
@@ -112,8 +117,10 @@ def _torch_cholesky(A: torch.Tensor) -> torch.Tensor:
 
 _FACTOR = {
     "fused-matrix": cholesky_fused,
-    "blocked-syrk": cholesky_blocked,
-    "blocked": cholesky_blocked,
+    "blocked-syrk": functools.partial(cholesky_blocked, leaf_inverse=False),
+    "blocked": functools.partial(cholesky_blocked, leaf_inverse=False),
+    "blocked-syrk-leaf": functools.partial(cholesky_blocked, leaf_inverse=True),
+    "blocked-leaf": functools.partial(cholesky_blocked, leaf_inverse=True),
     "torch-cholesky": _torch_cholesky,
 }
 

@@ -1,4 +1,4 @@
-"""The port's hand-written CUDA kernels (K1-K11) against their plain torch
+"""The port's hand-written CUDA kernels (K1-K14) against their plain torch
 versions, on the card, at small shapes.  Marked ``cuda``: skipped where
 torch.cuda.is_available() is False.  On a machine with a card and without
 JAX run it alone, without the suite's conftest (which imports JAX):
@@ -25,6 +25,9 @@ the largest entry against its plain version (both sum 128-term pieces in
 float32, in other orders), K11's inverse 1e-4 relative and W L = I to 1e-4;
 the narrow solve is held to a float64 solve at JAX's own 5e-6 relative
 (tests/test_ops.py:621-773) times 4 for the card's other summation order.
+K12-K14's factor and inverse get 1e-5 relative against their plain versions
+(the same 64-block algorithm, float32 sums in another order) and |W L - I|
+< 1e-4, as tests/test_ops.py:457-499 holds JAX's leaf kernels.
 """
 
 import numpy as np
@@ -35,7 +38,7 @@ import gpr_tpu_torch as tg
 from gpr_tpu_torch.gp import likelihood as lk
 from gpr_tpu_torch.gp import batched as fleet
 from gpr_tpu_torch.gp import exact
-from gpr_tpu_torch.ops import _cuda, blocked, crout, fullchol, linalg, solve, syrk
+from gpr_tpu_torch.ops import _cuda, blocked, crout, fullchol, leaf, linalg, solve, syrk
 from gpr_tpu_torch.ops import batched as fleet_ops
 from gpr_tpu_torch.ops import gram as gop
 
@@ -599,3 +602,59 @@ def test_fleet_gradient_at_two_panels_on_the_card(dev, monkeypatch, route):
     assert fleet.fleet_route(256, torch.float32, dev) == route
     g = grad(_t(X, dev), _t(Y, dev))
     assert _relerr(g, g64) <= 3 * _relerr(g32, g64) + 1e-6
+
+
+def _leaf_spd(n, dev, seed):
+    M = np.random.default_rng(seed).standard_normal((n, n))
+    return _t(M @ M.T / n + np.eye(n), dev)
+
+
+@pytest.mark.parametrize("n", [256, 768, 1024])
+def test_leaf_kernels(dev, n):
+    A = _leaf_spd(n, dev, seed=n)
+    # a strided view with NaN above the diagonal: only the lower triangle is read
+    buf = torch.full((n + 64, n + 200), float("nan"), device=dev)
+    view = buf[32:32 + n, 100:100 + n]
+    view.copy_(torch.tril(A) + torch.triu(torch.full_like(A, float("nan")), 1))
+    Lr, Wr = leaf.leaf_cholesky_wi_reference(A)
+    _cuda.reset_launch_counts()
+    L = leaf.leaf_cholesky(view)
+    Lw, W = leaf.leaf_cholesky_wi(view)
+    Wt = leaf.tri_inv_leaf(Lw + torch.triu(torch.full_like(A, float("nan")), 1))
+    torch.cuda.synchronize()
+    c = _cuda.launch_counts()
+    assert c["leaf_chol"] == 1 and c["leaf_chol_wi"] == 1 and c["tri_inv_leaf"] == 1
+    eye = torch.eye(n, device=dev)
+    for M, R in ((L, Lr), (Lw, Lr), (W, Wr), (Wt, leaf.tri_inv_leaf_reference(Lw))):
+        assert bool(torch.all(torch.triu(M, 1) == 0)) and _relerr(M, R) <= 1e-5
+    assert float((W @ Lw - eye).abs().max()) < 1e-4 and float((Wt @ Lw - eye).abs().max()) < 1e-4
+    assert bool(torch.isnan(buf[:32]).all())  # the out-of-place calls leave the input alone
+    Lv, Wv = leaf.leaf_cholesky_wi(view, out=view)  # in place, as the recursion factors
+    assert Lv.data_ptr() == view.data_ptr() and _relerr(view, Lr) <= 1e-5 and _relerr(Wv, Wr) <= 1e-5
+
+
+def test_leaf_kernels_poison_a_failed_leaf(dev):
+    A = _leaf_spd(1024, dev, seed=3)
+    A[600, 600] = -1.0
+    L, W = leaf.leaf_cholesky_wi(A)
+    assert bool(torch.isnan(L[-1, -1])) and not bool(torch.isfinite(W).all())
+    assert bool(torch.isnan(leaf.leaf_cholesky(A)[-1, -1]))
+    assert bool(torch.all(torch.triu(L, 1) == 0)) and bool(torch.all(torch.triu(W, 1) == 0))
+
+
+@pytest.mark.parametrize("n,leaves", [(2048, 2), (3773, 2)])
+def test_blocked_leaf_route_launches_k13(dev, monkeypatch, n, leaves):
+    monkeypatch.setenv("GPR_CHOL_SCHEDULE", "recursive")
+    monkeypatch.setenv("GPR_CHOL_LEAF_INV", "1")
+    A = _leaf_spd(n, dev, seed=n)
+    assert linalg.cholesky_route(A) == "blocked-syrk-leaf"
+    _cuda.reset_launch_counts()
+    L, jit = linalg.safe_cholesky(A)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()["leaf_chol_wi"] == leaves and float(jit) == 0.0
+    ref = torch.linalg.cholesky(A.double())
+    assert _relerr(L.double(), ref) <= 1e-4 and bool(torch.all(torch.triu(L, 1) == 0))
+    monkeypatch.setenv("GPR_CHOL_LEAF_INV", "0")
+    _cuda.reset_launch_counts()
+    L0, _ = linalg.safe_cholesky(A)
+    assert _cuda.launch_counts()["leaf_chol_wi"] == 0 and _relerr(L, L0) <= 1e-4

@@ -146,8 +146,9 @@ def test_inverse_pinv_symmetrize_match_jax():
 
 def test_chol_schedule_switches(monkeypatch):
     # GPR_CHOL_SCHEDULE read at call time (linalg.py:72-118): recursive skips
-    # the fused factor; inplace and GPR_CHOL_LEAF_INV=1 select kernels the port
-    # has not ported yet (rows 16-18 and 9) and raise rather than fall through
+    # the fused factor; inplace selects kernels the port has not ported yet
+    # (rows 16-18) and raises rather than fall through; GPR_CHOL_LEAF_INV=1
+    # turns the blocked routes into their leaf-kernel forms (row 9)
     f32 = torch.float32
     assert tl.route_for(2048, f32, "cuda") == "fused-matrix"
     monkeypatch.setenv("GPR_CHOL_SCHEDULE", "recursive")
@@ -162,9 +163,14 @@ def test_chol_schedule_switches(monkeypatch):
     assert tl.route_for(2048, torch.float64, "cpu") == "blocked"
     monkeypatch.delenv("GPR_CHOL_SCHEDULE")
     monkeypatch.setenv("GPR_CHOL_LEAF_INV", "1")
-    with pytest.raises(NotImplementedError, match="row 9"):
-        tl.cholesky_route(torch.eye(1100))
+    assert tl.cholesky_route(torch.eye(1100)) == "blocked-leaf"
+    assert tl.route_for(1100, f32, "cuda") == "blocked-syrk-leaf"
+    assert tl.route_for(1100, torch.float64, "cuda") == "blocked-leaf"
     assert tl.cholesky_route(torch.eye(512)) == "torch-cholesky"
+    monkeypatch.setenv("GPR_CHOL_SCHEDULE", "inplace")
+    with pytest.raises(NotImplementedError, match="16-18"):
+        tl.route_for(2048, f32, "cuda")
+    monkeypatch.delenv("GPR_CHOL_SCHEDULE")
     monkeypatch.setenv("GPR_CHOL_LEAF_INV", "0")
     assert tl.cholesky_route(torch.eye(1100)) == "blocked"
 
@@ -175,9 +181,8 @@ def test_leaf_inv_switch_leaves_the_fused_route(monkeypatch):
     monkeypatch.setenv("GPR_CHOL_LEAF_INV", "1")
     f32 = torch.float32
     assert tl.route_for(2048, f32, "cuda") == "fused-matrix"
-    for n, device in ((2100, "cuda"), (2048, "cpu")):
-        with pytest.raises(NotImplementedError, match="row 9"):
-            tl.route_for(n, f32, device)
+    for n, device, route in ((2100, "cuda", "blocked-syrk-leaf"), (2048, "cpu", "blocked-leaf")):
+        assert tl.route_for(n, f32, device) == route
 
 
 def test_tri_solve_matches_jax():
