@@ -8,7 +8,7 @@ process per source, in parallel), then:
 
   1. holds each kernel (K1 gram_tile, K2 panel_update, K3 diag_factor_inv,
      K4 panel_solve, K5 syrk_update, K6 gram_batched, K7 crout_chol, K8
-     crout_chol_wi, K9 fleet_fused; K10-K14 in phases 14 and 18) against its
+     crout_chol_wi, K9 fleet_fused; K10-K14 in phases 14 and 18, K15-K18 in 21) against its
      plain torch version on the
      card: small ragged shapes, the contracts of the fused factorization, each
      kernel at the shapes the n=16384 fit gives it, K5 (lower triangle) at a
@@ -94,21 +94,43 @@ process per source, in parallel), then:
  20. times K12-K14 per 1024-leaf against their plain versions and
      torch.linalg.cholesky_ex (+ solve_triangular against I), the n=16384
      blocked factorization with and without the switch against
-     torch.linalg.cholesky, and the bench fit and MLL with and without it.
+     torch.linalg.cholesky, and the bench fit and MLL with and without it;
+ 21. holds K15 panel_factor (csrc/panel.cu), K16 rank_update_tiles, K17
+     panel_inplace and K18 zero_upper (csrc/inplace.cu) against their plain
+     versions: K16 on JAX's tile lists and on the schedule's narrow and wide
+     lists at n=4096, K17 at tile columns 0 and 8 with NaN above its diagonal
+     tile, K18 bit-exact against torch.tril at n = 2048, 4096, 4608 and
+     16384, K15 at (1024, 256) and (8192, 256); the whole
+     in-place schedule at n = 1024, 2048, 4096 with NaN and 1234.0 above the
+     diagonal (bit-identical factors), a failed pivot, the jitter escalation;
+ 22. under GPR_CHOL_SCHEDULE=inplace fits the bench model (route
+     "gram-kernel" -> "inplace": 64 K17, 63 K16, 1 K18 launches) with a
+     128-point credible interval, runs the MLL value + gradient at n=16384
+     ("inplace") and 16383 ("blocked-syrk"), trains at the window's shape
+     (n=4096, d=5, q=3: 5 fit_mle + 3 fit_map steps, 16 / 15 / 1 launches a
+     factorization), fits and predicts with the learned kernel, then extend
+     by 512, shrink by 512 and a refit of the 4608 window (18 / 17 / 1);
+ 23. factors the bench K at n=8192 by cholesky_panels and
+     cholesky_left_panels (32 K15 launches each) against float64;
+ 24. times K16-K18 per n=16384 factorization and K15 per left-looking n=8192
+     factorization against their plain versions and library calls, the
+     n=16384 factorization on "inplace" against "blocked-syrk",
+     "fused-matrix" and torch.linalg.cholesky, and the bench fit and MLL on
+     "inplace" against the default routes.
 
 Phase 4's fit and phase 6's training steps are the standing check at the
 breathing-fixture shape: their gates go to chip_smoke_out/breathing_check.json
 (gitignored), summed up on one line.
 
-Phases 2-4, 6, 8, 12 and 19 hold the port's mean and credible interval against a
+Phases 2-4, 6, 8, 12, 19 and 22 hold the port's mean and credible interval against a
 float64 torch reference and pass when the port's error is at most 3x that
 of the plain float32 torch route (torch Gram, torch.linalg.cholesky,
-cholesky_solve; for fleets also variance and alpha).  Phases 6, 7, 9 and 12
+cholesky_solve; for fleets also variance and alpha).  Phases 6, 7, 9, 12 and 22
 hold each value and gradient of the marginal likelihood (at each training
 step's parameters; phase 15 too) against a float64 plain torch MLL (torch.linalg.cholesky
 + autograd) with the same 3x gate against the plain float32 MLL.  The launch
 counters are reset before each path (phases 2-5, 6, 7, 8-9, each of
-phase 12's four, 15's two, 16, and 19's four) and read after
+phase 12's four, 15's two, 16, 19's four, 22's seven and 23's two) and read after
 it: each kernel of the path must have been launched there.  Any failure
 raises.  The last lines are the kernels' JSON, the card's name and power
 limit, then one JSON object with the device.  Exits non-zero, printing no result, where there is no CUDA device.
@@ -198,6 +220,8 @@ def main() -> int:
     from gpr_tpu_torch.gp import exact as texact
     from gpr_tpu_torch.ops import linalg as tlin
     from gpr_tpu_torch.ops import solve as nsolve
+    from gpr_tpu_torch.ops import inplace_chol as tinp
+    from gpr_tpu_torch.ops import panel as tpanel
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -1718,6 +1742,382 @@ def main() -> int:
         f"{k} {m:.2f} ms (runs {runs_text(r)})" for k, (m, r) in fit20.items()))
     print("  MLL value + gradient n=16384 under GPR_CHOL_SCHEDULE=recursive: " + "; ".join(
         f"{k} {m:.2f} ms (runs {runs_text(r)})" for k, (m, r) in mll20.items()))
+    # --------------------------------------------------------------- 21 ----
+    # K15-K18 against their plain versions: K16 on JAX's lists (tests/test_ops.py:
+    # 805-823) and on the schedule's first narrow and wide lists at n=4096, K17 at
+    # tile columns 0 and 8 with NaN above its diagonal tile, K18 bit-exact on NaN
+    # above the diagonal at n = 2048 and the main path's 4096, 4608 and 16384,
+    # K15 at (1024, 256) and (8192, 256).  1e-5 relative to
+    # the largest entry (float32 sums in other orders; the kernels' panels by
+    # 64-blocks and products with W, the plain versions by cholesky_ex and a
+    # triangular solve).  Then the whole schedule at n = 1024, 2048, 4096 with
+    # NaN and 1234.0 above the diagonal: bit-identical factors, an exact-zero
+    # upper, 1e-5 relative to float64; a matrix that is not positive definite.
+    print("phase 21 K15 panel_factor, K16 rank_update_tiles, K17 panel_inplace and K18 zero_upper "
+          "against their plain versions")
+    g21 = torch.Generator(device=dev).manual_seed(21)
+
+    def spd21(n_):
+        G = torch.randn((n_, n_), generator=g21, device=dev)
+        A_ = G @ G.T / n_
+        A_.diagonal().add_(1.0)
+        return A_
+
+    def tile_mask(S, rows, cols, bm):
+        m = torch.zeros_like(S, dtype=torch.bool)
+        for i, j in zip(rows, cols):
+            m[i * bm:(i + 1) * bm, j * bm:(j + 1) * bm] = True
+        return m
+
+    errs21 = {}
+    S0 = torch.randn((1024, 1024), generator=g21, device=dev)
+    upd4096 = [s_ for s_ in tinp.schedule(4096, 512, 256, dev) if s_[0] == "update"]
+    lists = [("JAX's lists", S0, [2, 3, 3], [2, 2, 3], [0, 1], 256)]
+    S4 = torch.randn((4096, 4096), generator=g21, device=dev)
+    for label, st in (("narrow n=4096", upd4096[0]), ("wide n=4096", upd4096[1])):
+        lists.append((label, S4, st[1].tolist(), st[2].tolist(), st[3].tolist(), st[4]))
+    for label, S_, rows, cols, kcols, bm in lists:
+        K_, R_ = S_.clone(), S_.clone()
+        tinp.rank_update_inplace(K_, rows, cols, kcols, bm=bm, bk=bm)
+        tinp.rank_update_reference(R_, rows, cols, kcols, bm=bm, bk=bm)
+        m = tile_mask(S_, rows, cols, bm)
+        e = float((K_ - R_).abs().max()) / float(R_.abs().max())
+        check(e <= 1e-5 and torch.equal(K_[~m], S_[~m]), f"K16 {label}: {e}")
+        errs21[f"K16 {label}"] = e
+        kstats["rank_update_tiles"] = {"max_abs_err": float((K_ - R_).abs().max())}
+    A4 = spd21(4096)
+    nan_tile = torch.triu(torch.full((256, 256), float("nan"), device=dev), 1)
+    for c0t in (0, 8):
+        e_ = (c0t + 1) * 256
+        S_ = A4.clone()
+        S_[c0t * 256:e_, c0t * 256:e_] += nan_tile
+        R_ = tinp.panel_inplace_reference(A4.clone(), c0t)
+        tinp.panel_inplace(S_, c0t)
+        pan = (slice(c0t * 256, None), slice(c0t * 256, e_))
+        m = torch.zeros_like(S_, dtype=torch.bool)
+        m[pan] = True
+        e = relerr(S_[pan], R_[pan])
+        check(e <= 1e-5 and bool(torch.all(torch.triu(S_[c0t * 256:e_, c0t * 256:e_], 1) == 0))
+              and torch.equal(S_[~m], A4[~m]), f"K17 c0t={c0t}: {e}")
+        errs21[f"K17 c0t={c0t}"] = e
+        if c0t == 8:
+            kstats["panel_inplace"] = {"max_abs_err": float((S_[pan] - R_[pan]).abs().max())}
+    # K18 at n=2048 and at the main path's buffers (4096, 4608, 16384)
+    for n_ in (2048, 4096, 4608, 16384):
+        S_ = torch.randn((n_, n_), generator=g21, device=dev)
+        S_ += torch.triu(torch.full_like(S_, float("nan")), 1)
+        R_ = torch.tril(S_)
+        tinp.zero_upper_inplace(S_)
+        check(torch.equal(S_, R_), f"K18 n={n_}: not bit-exact")
+        del S_, R_
+    kstats["zero_upper"] = {"max_abs_err": 0.0}
+    A8 = spd21(8192)
+    for n_ in (1024, 8192):
+        P_ = A8[:n_, :256]
+        e = relerr(tpanel.panel_factor(P_), tpanel.panel_factor_reference(P_))
+        check(e <= 1e-5, f"K15 ({n_}, 256): {e}")
+        errs21[f"K15 ({n_}, 256)"] = e
+    kstats["panel_factor"] = {"max_abs_err": float((tpanel.panel_factor(A8[:, :256])
+                                                    - tpanel.panel_factor_reference(A8[:, :256])).abs().max())}
+    try:
+        tpanel.panel_factor(A8[:1000, :256])
+        check(False, "K15 took a panel of 1000 rows")
+    except ValueError:
+        pass
+    del S0, S4, A8, K_
+    for n_ in (1024, 2048, 4096):
+        A_ = A4[:n_, :n_]
+        L_ = tinp.cholesky_inplace(A_)
+        e = relerr(L_, torch.linalg.cholesky(A_.double()))
+        same = all(torch.equal(tinp.cholesky_inplace(torch.tril(A_) + torch.triu(torch.full_like(A_, j), 1)), L_)
+                   for j in (float("nan"), 1234.0))
+        check(e <= 1e-5 and same and bool(torch.all(torch.triu(L_, 1) == 0)),
+              f"cholesky_inplace n={n_}: err {e}, junk-independent {same}")
+        errs21[f"cholesky_inplace n={n_} vs f64"] = e
+    bad = A4[:2048, :2048].clone()
+    bad[1500, 1500] = -1.0
+    check(bool(torch.isnan(tinp.cholesky_inplace(bad)[-1, -1])), "a failed pivot did not reach L[-1, -1]")
+    Lz, jz = with_env({"GPR_CHOL_SCHEDULE": "inplace"},
+                      lambda: tlin.safe_cholesky(torch.zeros((1024, 1024), device=dev)))
+    check(float(jz) > 0.0 and bool(torch.isfinite(Lz).all()), "inplace jitter escalation")
+    del A4, bad, L_, Lz
+    torch.cuda.synchronize()
+    print("  rel err vs plain: " + ", ".join(f"{k} {v:.3g}" for k, v in errs21.items()))
+    print(f"  K18 bit-exact at n = 2048, 4096, 4608, 16384; junk above the diagonal (NaN, 1234.0) leaves the factor bit-identical; a failed "
+          f"pivot gives L[-1,-1] NaN; safe_cholesky on 0 escalates to jitter {float(jz):.3g}: ok")
+
+    # --------------------------------------------------------------- 22 ----
+    inplace_env = {"GPR_CHOL_SCHEDULE": "inplace"}
+    other_factors = ("panel_update", "diag_factor_inv", "panel_solve", "syrk_update", "leaf_chol_wi")
+
+    def inplace_launches(c_, n_, label):
+        """Exact launches per factorization on the in-place route: n/256 K17,
+        n/256 - 1 K16, one K18, and no other factorization kernel."""
+        f = c_["zero_upper"]
+        check(f > 0 and c_["panel_inplace"] == n_ // 256 * f and c_["rank_update_tiles"] == (n_ // 256 - 1) * f
+              and all(c_[k] == 0 for k in other_factors), f"{label} launches {c_}")
+        return f
+
+    print("phase 22 the in-place route at full width (GPR_CHOL_SCHEDULE=inplace): bench fit n=16384, MLL at "
+          "n=16384 and 16383, training and the sliding window at n=4096")
+
+    def phase22_bench():
+        _cuda.reset_launch_counts()
+        gp_ = tg.fit(bench_k, Xb, Yb, sigma=0.1, use_pallas_gram=True)
+        gp_.credible_interval(Xt[:128])
+        torch.cuda.synchronize()
+        c_ = _cuda.launch_counts()
+        check(gp_.route == "gram-kernel" and tlin.cholesky_route(gp_.L) == "inplace", "inplace bench fit routes")
+        check(inplace_launches(c_, n, "inplace bench fit") == 1 and c_["gram_tile"] > 0,
+              f"inplace bench fit launches {c_}")
+        print(f"  launches on the inplace bench fit (n=16384: 64 / 63 / 1): {c_}")
+        judge("inplace bench fit n=16384", gp_, Xb, Yb, Xt[:128], bench64, 1.0, sig, with_alpha=True)
+        return c_
+
+    def phase22_mll():
+        out = {}
+        for X_, Y_, route in ((Xb, Yb, "inplace"), (X163, Y163, "blocked-syrk")):
+            _cuda.reset_launch_counts()
+            v_, g_ = lk.mll_value_and_grad(bench_k, X_, Y_, 0.1)
+            torch.cuda.synchronize()
+            c_ = _cuda.launch_counts()
+            check(lk.factor_route(X_) == route, f"inplace MLL n={X_.shape[0]} route {lk.factor_route(X_)}")
+            if route == "inplace":
+                check(inplace_launches(c_, n, "inplace MLL") == 1, f"inplace MLL launches {c_}")
+            else:  # n % 512 != 0 falls through to the blocked route, as in JAX
+                check(c_["syrk_update"] > 0 and c_["panel_inplace"] == c_["rank_update_tiles"]
+                      == c_["zero_upper"] == 0, f"MLL n=16383 launches {c_}")
+            print(f"  launches on the MLL n={X_.shape[0]} ({route}): {c_}")
+            hold_mll(f"MLL n={X_.shape[0]} under inplace ({route})", [8.0, 1.0], X_, Y_, v_, g_, sig)
+            torch.cuda.empty_cache()
+            out = {k: out.get(k, 0) + v for k, v in c_.items()}
+        return out
+
+    def phase22_window():
+        Xn, Yn = Xw[:nw], Yw[:nw]
+        _cuda.reset_launch_counts()
+        k_mle22, r_mle22 = tg.fit_mle(k0, Xn, Yn, 0.1, iterations=5)
+        k_map22, r_map22 = tg.fit_map(k0, Xn, Yn, 0.1, prior, iterations=3)
+        gw = tg.fit(k_mle22, Xn, Yn, sigma=0.1)
+        torch.cuda.synchronize()
+        c_ = _cuda.launch_counts()
+        check(r_mle22.route == r_map22.route == gw.route == "inplace",
+              f"inplace training routes {r_mle22.route}, {r_map22.route}, {gw.route}")
+        f = inplace_launches(c_, nw, "inplace training")
+        print(f"  launches on the inplace training at n={nw} ({f} factorizations: 16 / 15 / 1 each): {c_}")
+        sg22, sc22 = (float(v) for v in k_mle22.params)
+        print(f"  fit_mle trace {[round(float(v), 3) for v in r_mle22.trace]} -> Gaussian({sg22:.5g}, {sc22:.5g});"
+              f" fit_map trace {[round(float(v), 3) for v in r_map22.trace]}")
+        kl = lambda A, B: gaussian64(A, B, sg22, sc22)  # noqa: E731
+        judge(f"learned Gaussian, n={nw}, inplace", gw, Xn, Yn, Xs16, kl, sc22 * sc22, sig, with_alpha=True)
+        for name, kern in (("start", k0), ("learned", k_mle22)):
+            v_, g_ = lk.mll_value_and_grad(kern, Xn, Yn, 0.1)
+            hold_mll(f"inplace MLL n={nw} at the {name} kernel", [float(p) for p in kern.params],
+                     Xn, Yn, v_, g_, sig)
+        total = dict(c_)
+        # extend factors only its 512-row block (torch-cholesky); shrink
+        # refactors the 4096 window; a refit of the 4608 window takes 18 / 17 / 1
+        for label, step, n_, expect in (
+                ("extend by 512", lambda: tg.extend(gw, Xw[nw:], Yw[nw:]), None, 0),
+                ("shrink by 512", lambda: tg.shrink(ge, kw), nw, 1),
+                ("refit n=4608", lambda: tg.fit(k_mle22, Xw, Yw, sigma=0.1), nw + kw, 1)):
+            _cuda.reset_launch_counts()
+            g_ = step()
+            torch.cuda.synchronize()
+            c_ = _cuda.launch_counts()
+            if expect:
+                check(inplace_launches(c_, n_, label) == 1, f"{label} launches {c_}")
+            else:
+                check(c_["panel_inplace"] == c_["rank_update_tiles"] == c_["zero_upper"] == 0, f"{label} {c_}")
+            print(f"  launches on {label}: {c_}")
+            if label == "extend by 512":
+                ge = g_
+                judge(f"extended n={nw + kw}", ge, Xw, Yw, Xs16, kl, sc22 * sc22, sig, with_alpha=True)
+            elif label == "shrink by 512":
+                check(tlin.cholesky_route(g_.L) == "inplace", "shrink route")
+                judge(f"shrunk n={nw}", g_, Xw[kw:], Yw[kw:], Xs16, kl, sc22 * sc22, sig, with_alpha=True)
+            else:
+                check(g_.route == "inplace", f"refit route {g_.route}")
+                judge(f"refit n={nw + kw}", g_, Xw, Yw, Xs16, kl, sc22 * sc22, sig, with_alpha=True)
+            total = {k: total[k] + v for k, v in c_.items()}
+        return total
+
+    counts22 = [with_env(inplace_env, fn) for fn in (phase22_bench, phase22_mll, phase22_window)]
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 23 ----
+    print("phase 23 row 13's path: cholesky_panels and cholesky_left_panels at n=8192 (K15 once per panel)")
+    n23 = 8192
+    K23 = gaussian64(Xb[:n23], Xb[:n23], 8.0, 1.0)
+    K23.diagonal().add_(sig * sig)
+    ref23 = torch.linalg.cholesky(K23.double())
+    plain23 = torch.linalg.cholesky(K23)
+    for fn in (tpanel.cholesky_panels, tpanel.cholesky_left_panels):
+        _cuda.reset_launch_counts()
+        L23 = fn(K23)
+        torch.cuda.synchronize()
+        c_ = _cuda.launch_counts()
+        g23 = gate(L23, plain23, ref23)
+        check(c_["panel_factor"] == n23 // 256 and g23["ok"] and bool(torch.all(torch.triu(L23, 1) == 0)),
+              f"{fn.__name__}: launches {c_['panel_factor']}, {g23}")
+        print(f"  {fn.__name__}: {c_['panel_factor']} K15 launches; rel err vs f64 {g23['err']:.3g} "
+              f"(torch.linalg.cholesky f32 {g23['plain_f32_err']:.3g})")
+        counts22.append(c_)
+    del L23, ref23, plain23
+    for c in counts22:
+        for name, v in c.items():
+            counts[name] += v
+    check(all(counts[k] > 0 for k in ("panel_factor", "rank_update_tiles", "panel_inplace", "zero_upper")),
+          "a kernel of the in-place or panel paths was never launched")
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 24 ----
+    # per n=16384 factorization (the bench K): each K16-K18 call of the
+    # schedule timed alone by CUDA events, in walks with the kernels, their
+    # plain versions and the library calls (K16: one torch.baddbmm over the
+    # list's tiles, gathered beforehand; K17: cholesky_ex + solve_triangular of
+    # the panel; K18: Tensor.tril_), each walk on a fresh copy, in turns
+    K24 = gaussian64(Xb, Xb, 8.0, 1.0)
+    K24.diagonal().add_(sig * sig)
+
+    def library_update(S, rows, cols, kcols, bm):
+        ri, ci = rows.tolist(), cols.tolist()
+        k0_, k1_ = int(kcols[0]) * bm, (int(kcols[-1]) + 1) * bm
+        src = S[:, k0_:k1_]
+        A_ = torch.stack([src[i * bm:(i + 1) * bm] for i in ri])
+        B_ = torch.stack([src[j * bm:(j + 1) * bm] for j in ci])
+        C_ = torch.stack([S[i * bm:(i + 1) * bm, j * bm:(j + 1) * bm] for i, j in zip(ri, ci)])
+        t_ = timed(lambda: C_.baddbmm_(A_, B_.mT, alpha=-1))
+        for t, (i, j) in enumerate(zip(ri, ci)):
+            S[i * bm:(i + 1) * bm, j * bm:(j + 1) * bm] = C_[t]
+        return t_
+
+    def library_panel(S, c):
+        c0_, e_ = c * 256, (c + 1) * 256
+        low = torch.tril(S[c0_:e_, c0_:e_])
+        D_ = low + torch.tril(low, -1).mT
+        R_ = S[e_:, c0_:e_]
+        box = []
+        t_ = timed(lambda: box.append(torch.linalg.cholesky_ex(D_)[0]))
+        S[c0_:e_, c0_:e_] = box[0]
+        if e_ < S.shape[0]:
+            t_ += timed(lambda: box.append(torch.linalg.solve_triangular(box[0].mT, R_, upper=True, left=False)))
+            S[e_:, c0_:e_] = box[1]
+        return t_
+
+    def inplace_walk(mode):
+        S = K24.clone()
+        tot = {"rank_update_tiles": 0.0, "panel_inplace": 0.0, "zero_upper": 0.0}
+        for st in tinp.schedule(n, 512, 256, dev):
+            if st[0] == "panel":
+                if mode == "library":
+                    tot["panel_inplace"] += library_panel(S, st[1])
+                else:
+                    fn = tinp.panel_inplace if mode == "kernel" else tinp.panel_inplace_reference
+                    tot["panel_inplace"] += timed(lambda: fn(S, st[1]))
+            else:
+                _, rows, cols, kcols, bm = st
+                if mode == "library":
+                    tot["rank_update_tiles"] += library_update(S, rows, cols, kcols, bm)
+                elif mode == "kernel":  # as cholesky_inplace launches it, on the cached lists
+                    tot["rank_update_tiles"] += timed(lambda: tinp._rank_update_tiles(S, rows, cols, kcols, bm, bm))
+                else:
+                    tot["rank_update_tiles"] += timed(
+                        lambda: tinp.rank_update_reference(S, rows, cols, kcols, bm=bm, bk=bm))
+        zu = tinp.zero_upper_inplace if mode == "kernel" else torch.Tensor.tril_
+        tot["zero_upper"] = timed(lambda: zu(S))
+        check(bool(torch.isfinite(S[-1, -1])), f"timed in-place walk ({mode}) failed")
+        return tot
+
+    walks = {m: [] for m in ("kernel", "plain", "library")}
+    for order in (("kernel", "plain", "library"), ("library", "plain", "kernel")):
+        for m in order:
+            walks[m].append(inplace_walk(m))
+            torch.cuda.empty_cache()
+    for name in ("rank_update_tiles", "panel_inplace", "zero_upper"):
+        kstats[name].update({f"{m}_ms" if m != "kernel" else "ms": float(np.median([w[name] for w in walks[m]]))
+                             for m in walks})
+    # bounds: K16 2 bm^2 (ks bk) FLOP a target tile, its tiles read and
+    # written, the source rows read once; K17 b^3/3 + rows b^2 FLOP, the panel
+    # read and written; K18 the strict upper written, n(n-1)/2 floats (masking
+    # a diagonal tile needs no read of it)
+    parts16, parts17 = [], []
+    for st in tinp.schedule(n, 512, 256, dev):
+        if st[0] == "panel":
+            rows_ = n - st[1] * 256
+            parts17.append((256 ** 3 / 3.0 + (rows_ - 256) * 256.0 ** 2, 2 * 4.0 * rows_ * 256))
+        else:
+            _, rows, cols, kcols, bm = st
+            T_, ks_ = rows.numel(), kcols.numel()
+            src_rows = len(set(rows.tolist()) | set(cols.tolist())) * bm
+            parts16.append((2.0 * T_ * bm * bm * ks_ * bm, 4.0 * (2 * T_ * bm * bm + src_rows * ks_ * bm)))
+    kstats["rank_update_tiles"].update(sum_bounds(parts16))
+    kstats["panel_inplace"].update(sum_bounds(parts17))
+    kstats["zero_upper"].update(bound(0.0, 4.0 * n * (n - 1) / 2))
+    torch.cuda.empty_cache()
+
+    # K15 per cholesky_left_panels at n=8192: each panel timed with the kernel,
+    # the plain version and cholesky_ex + solve_triangular, in turns
+    t15 = {"kernel": 0.0, "plain": 0.0, "library": 0.0}
+    L24 = torch.zeros_like(K23)
+    parts15 = []
+    for k in range(n23 // 256):
+        j0 = k * 256
+        P_ = K23[j0:, j0:j0 + 256]
+        if k > 0:
+            P_ = P_ - L24[j0:, :j0] @ L24[j0:j0 + 256, :j0].mT
+        box = {}
+
+        def lib15():
+            Lk = torch.linalg.cholesky_ex(P_[:256])[0]
+            return torch.linalg.solve_triangular(Lk.mT, P_[256:], upper=True, left=False)
+
+        fns = {"kernel": lambda: box.setdefault("L", tpanel.panel_factor(P_)),
+               "plain": lambda: tpanel.panel_factor_reference(P_), "library": lib15}
+        for m in (list(fns) if k % 2 == 0 else list(fns)[::-1]):
+            t15[m] += timed(fns[m])
+        L24[j0:, j0:j0 + 256] = box["L"]
+        rows_ = n23 - j0
+        parts15.append((256 ** 3 / 3.0 + (rows_ - 256) * 256.0 ** 2, 2 * 4.0 * rows_ * 256))
+    check(bool(torch.isfinite(L24[-1, -1])), "timed left-looking panels failed")
+    kstats["panel_factor"].update(ms=t15["kernel"], plain_ms=t15["plain"], library_ms=t15["library"],
+                                  **sum_bounds(parts15))
+    panels24 = rotate({"cholesky_left_panels": lambda: tpanel.cholesky_left_panels(K23),
+                       "cholesky_panels": lambda: tpanel.cholesky_panels(K23),
+                       "torch.linalg.cholesky": lambda: torch.linalg.cholesky(K23)}, 4)
+    del K23, L24
+    torch.cuda.empty_cache()
+    fact24 = rotate({"inplace": lambda: tinp.cholesky_inplace(K24),
+                     "blocked-syrk": lambda: blocked.cholesky_blocked(K24, leaf_inverse=False),
+                     "fused-matrix": lambda: fullchol.cholesky_fused(K24),
+                     "torch.linalg.cholesky": lambda: torch.linalg.cholesky(K24)}, 4)
+    del K24
+    torch.cuda.empty_cache()
+    fit24 = rotate({"inplace": lambda: with_env(inplace_env, lambda: tg.fit(bench_k, Xb, Yb, sigma=0.1,
+                                                                            use_pallas_gram=True)),
+                    "default": lambda: tg.fit(bench_k, Xb, Yb, sigma=0.1, use_pallas_gram=True)}, 4)
+    mll24 = rotate({"inplace": lambda: with_env(inplace_env, lambda: lk.mll_value_and_grad(bench_k, Xb, Yb, 0.1)),
+                    "default": lambda: lk.mll_value_and_grad(bench_k, Xb, Yb, 0.1)}, 4)
+    print(f"phase 24 in-place and panel timings ({smi}), CUDA events, medians:")
+    for label, name in (("K16 rank_update_tiles (63 calls)", "rank_update_tiles"),
+                        ("K17 panel_inplace (64 calls)", "panel_inplace"), ("K18 zero_upper (1 call)", "zero_upper")):
+        s_ = kstats[name]
+        print(f"  {label} per n=16384 factorization: kernel {s_['ms']:.4f} ms (runs "
+              f"{runs_text([w[name] for w in walks['kernel']])}); plain {s_['plain_ms']:.4f}; library "
+              f"{s_['library_ms']:.4f}; bound {s_['bound_ms']:.4f} ms ({s_['bound_by']})")
+    s_ = kstats["panel_factor"]
+    print(f"  K15 panel_factor per cholesky_left_panels at n=8192 (32 calls): kernel {s_['ms']:.4f} ms; plain "
+          f"{s_['plain_ms']:.4f}; cholesky_ex + solve_triangular {s_['library_ms']:.4f}; bound "
+          f"{s_['bound_ms']:.4f} ms ({s_['bound_by']})")
+    print("  factorization n=8192 (bench K): " + "; ".join(
+        f"{k} {m:.2f} ms (runs {runs_text(r)})" for k, (m, r) in panels24.items()))
+    print("  factorization n=16384 (bench K): " + "; ".join(
+        f"{k} {m:.2f} ms (runs {runs_text(r)})" for k, (m, r) in fact24.items()))
+    print("  fit n=16384 d=128 q=8 (use_pallas_gram; inplace: gram-kernel -> inplace; default: fused-gram): "
+          + "; ".join(f"{k} {m:.2f} ms (runs {runs_text(r)})" for k, (m, r) in fit24.items()))
+    print("  MLL value + gradient n=16384 (inplace; default: fused-matrix): " + "; ".join(
+        f"{k} {m:.2f} ms (runs {runs_text(r)})" for k, (m, r) in mll24.items()))
+
     print(f"wall time: {time.perf_counter() - t_start:.1f} s")
 
     sources = {"gram_tile": "gpr_tpu_torch/csrc/gram.cu", "syrk_update": "gpr_tpu_torch/csrc/syrk.cu",
@@ -1729,7 +2129,11 @@ def main() -> int:
                "diag_tri_inv": "gpr_tpu_torch/csrc/solve.cu",
                "leaf_chol": "gpr_tpu_torch/csrc/leaf.cu",
                "leaf_chol_wi": "gpr_tpu_torch/csrc/leaf.cu",
-               "tri_inv_leaf": "gpr_tpu_torch/csrc/leaf.cu"}
+               "tri_inv_leaf": "gpr_tpu_torch/csrc/leaf.cu",
+               "panel_factor": "gpr_tpu_torch/csrc/panel.cu",
+               "rank_update_tiles": "gpr_tpu_torch/csrc/inplace.cu",
+               "panel_inplace": "gpr_tpu_torch/csrc/inplace.cu",
+               "zero_upper": "gpr_tpu_torch/csrc/inplace.cu"}
     replaces = {"gram_tile": "gpr_tpu/ops/pallas_gram.py:38",
                 "syrk_update": "gpr_tpu/ops/pallas_syrk.py:73",
                 "gram_batched": "gpr_tpu/ops/pallas_gram.py:142",
@@ -1740,7 +2144,11 @@ def main() -> int:
                 "diag_tri_inv": "gpr_tpu/ops/pallas_solve.py:173",
                 "leaf_chol": "gpr_tpu/ops/pallas_leaf.py:47",
                 "leaf_chol_wi": "gpr_tpu/ops/pallas_leaf.py:118",
-                "tri_inv_leaf": "gpr_tpu/ops/pallas_leaf.py:239"}
+                "tri_inv_leaf": "gpr_tpu/ops/pallas_leaf.py:239",
+                "panel_factor": "gpr_tpu/ops/pallas_panel.py:143",
+                "rank_update_tiles": "gpr_tpu/ops/inplace_chol.py:53",
+                "panel_inplace": "gpr_tpu/ops/inplace_chol.py:135",
+                "zero_upper": "gpr_tpu/ops/inplace_chol.py:201"}
     kernels = []
     for k in _cuda.KERNELS:
         kernels.append({

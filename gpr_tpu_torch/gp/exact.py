@@ -21,13 +21,15 @@ records the route it took in ``GP.route``:
   otherwise          the torch Gram, then ``safe_cholesky``, whose route
                      (``linalg.cholesky_route``) is recorded: ``"fused-matrix"``,
                      ``"blocked-syrk"``, ``"blocked"``, their ``-leaf`` forms
-                     under ``GPR_CHOL_LEAF_INV=1``, or ``"torch-cholesky"``.
+                     under ``GPR_CHOL_LEAF_INV=1``, ``"inplace"`` under
+                     ``GPR_CHOL_SCHEDULE=inplace``, or ``"torch-cholesky"``.
 
 ``fit_route`` names the route without fitting.  The switches are read at
 call time, as JAX reads them at trace time: ``GPR_FIT_SCHEDULE=twopass`` or
 ``GPR_CHOL_SCHEDULE`` other than ``fused`` turn ``"fused-gram"`` into
 ``"gram-kernel"`` (exact.py:386-393); the factorization routes follow
-``linalg.route_for``.  Every ``linalg.cho_solve`` here (alpha, the covariance
+``linalg.route_for`` (``safe_cholesky`` on the Gram matrix, and in
+``extend`` / ``shrink`` on the matrices they refactor).  Every ``linalg.cho_solve`` here (alpha, the covariance
 solves, ``extend``, ``shrink``) takes the narrow solve under
 ``GPR_SOLVE_SCHEDULE=narrow`` where it applies (``linalg.solve_route``).
 

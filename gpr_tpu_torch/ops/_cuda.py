@@ -156,9 +156,19 @@ LEAF_CHOL_WI = Kernel("leaf_chol_wi", "gpr_leaf_chol_wi", [_P, _I, _P, _I, _P, _
 # (L, ldl, W, ldw, s, barrier)
 TRI_INV_LEAF = Kernel("tri_inv_leaf", "gpr_tri_inv_leaf", [_P, _I, _P, _I, _I, _P])
 
+# (P, ldp, out, W, n): two kernels in stream order, one launch
+PANEL_FACTOR = Kernel("panel_factor", "gpr_panel_factor", [_P, _I, _P, _P, _I])
+# (S, n, rows, cols, kcols, T, ks, bm, bk)
+RANK_UPDATE_TILES = Kernel("rank_update_tiles", "gpr_rank_update_tiles",
+                           [_P, _I, _P, _P, _P, _I, _I, _I, _I])
+# (S, n, c0t, W): two kernels in stream order, one launch
+PANEL_INPLACE = Kernel("panel_inplace", "gpr_panel_inplace", [_P, _I, _I, _P])
+# (S, n, ti, tj, dg, T, bm)
+ZERO_UPPER = Kernel("zero_upper", "gpr_zero_upper", [_P, _I, _P, _P, _P, _I, _I])
+
 KERNELS = (GRAM, PANEL_UPDATE, DIAG_FACTOR_INV, PANEL_SOLVE, SYRK_UPDATE, GRAM_BATCHED, CROUT_CHOL,
            CROUT_CHOL_WI, FLEET_FUSED, NARROW_SUBST, DIAG_TRI_INV, LEAF_CHOL, LEAF_CHOL_WI,
-           TRI_INV_LEAF)
+           TRI_INV_LEAF, PANEL_FACTOR, RANK_UPDATE_TILES, PANEL_INPLACE, ZERO_UPPER)
 
 
 def reset_launch_counts() -> None:

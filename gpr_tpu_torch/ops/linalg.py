@@ -25,6 +25,11 @@ The factorization route follows the tensor:
                         version on the CPU; a float64 leaf on the card by
                         ``cholesky_ex``), the column solves by products with
                         the leaves' inverses (ops/blocked.py).
+  ``"inplace"``         float32, n >= 1024, n % 512 == 0, under
+                        ``GPR_CHOL_SCHEDULE=inplace``: the in-place
+                        wide-panel schedule (ops/inplace_chol.py; K16-K18 on
+                        the card, their plain versions on the CPU), as JAX
+                        takes ``cholesky_inplace`` whatever its backend.
   ``"torch-cholesky"``  n < 1024 (and batches): ``torch.linalg.cholesky``, as
                         JAX uses ``jnp.linalg.cholesky`` there.
 
@@ -34,12 +39,12 @@ back NaN at its last diagonal entry, so success is one O(1) check.
 ``GPR_CHOL_SCHEDULE`` is read at call time as JAX reads it at trace time
 (linalg.py:72-118): ``fused`` (default) as above; any other value skips
 ``fused-matrix``, so ``recursive`` sends those matrices to ``blocked-syrk``;
-``inplace``, where JAX would take its in-place kernels (float32, n % 512 ==
-0; TPU kernel rows 16-18), raises ``NotImplementedError`` until they are
-ported.  ``GPR_CHOL_LEAF_INV=1``, also read at call time, turns the blocked
-routes into their ``-leaf`` forms, as JAX reads it inside
-``cholesky_blocked`` (blocked.py:309-357); ``fused-matrix`` does not read
-it, as JAX's fused kernel does not.
+``inplace`` sends float32 matrices with n % 512 == 0 to ``"inplace"`` and the
+rest (float64, other n) to the blocked routes (linalg.py:84-114, 183-188).
+``GPR_CHOL_LEAF_INV=1``, also read at call time, turns the blocked routes
+into their ``-leaf`` forms, as JAX reads it inside ``cholesky_blocked``
+(blocked.py:309-357); ``fused-matrix`` and ``inplace``, taken before the
+blocked routes, do not read it, as JAX's fused and in-place kernels do not.
 
 ``safe_cholesky`` is a ``torch.autograd.Function``: its forward is the host
 jitter loop over the route, its backward the Murray pullback from the
@@ -63,6 +68,7 @@ import torch
 
 from .blocked import _leaf_inverse_default, cholesky_blocked
 from .fullchol import PANEL, cholesky_fused
+from .inplace_chol import cholesky_inplace
 from .solve import cho_solve_narrow, solve_narrow_usable
 
 # log-space bounds of the reference's long-double determinant clamp
@@ -96,9 +102,7 @@ def route_for(n: int, dtype: torch.dtype, device: torch.device, batched: bool = 
         if cuda_f32 and n % PANEL == 0 and schedule == "fused":
             return "fused-matrix"
         if schedule == "inplace" and dtype == torch.float32 and n % 512 == 0:
-            raise NotImplementedError(
-                "GPR_CHOL_SCHEDULE=inplace selects the in-place Cholesky kernels, TPU kernel "
-                "rows 16-18 (ROADMAP.md section 2), which are not ported yet")
+            return "inplace"
         route = "blocked-syrk" if cuda_f32 else "blocked"
         return route + "-leaf" if _leaf_inverse_default() else route
     return "torch-cholesky"
@@ -121,6 +125,7 @@ _FACTOR = {
     "blocked": functools.partial(cholesky_blocked, leaf_inverse=False),
     "blocked-syrk-leaf": functools.partial(cholesky_blocked, leaf_inverse=True),
     "blocked-leaf": functools.partial(cholesky_blocked, leaf_inverse=True),
+    "inplace": cholesky_inplace,
     "torch-cholesky": _torch_cholesky,
 }
 

@@ -1,4 +1,4 @@
-"""The port's hand-written CUDA kernels (K1-K14) against their plain torch
+"""The port's hand-written CUDA kernels (K1-K18) against their plain torch
 versions, on the card, at small shapes.  Marked ``cuda``: skipped where
 torch.cuda.is_available() is False.  On a machine with a card and without
 JAX run it alone, without the suite's conftest (which imports JAX):
@@ -27,7 +27,10 @@ the narrow solve is held to a float64 solve at JAX's own 5e-6 relative
 (tests/test_ops.py:621-773) times 4 for the card's other summation order.
 K12-K14's factor and inverse get 1e-5 relative against their plain versions
 (the same 64-block algorithm, float32 sums in another order) and |W L - I|
-< 1e-4, as tests/test_ops.py:457-499 holds JAX's leaf kernels.
+< 1e-4, as tests/test_ops.py:457-499 holds JAX's leaf kernels.  K15 and K17
+(a panel factored by 64-blocks and products with W, against cholesky_ex and
+a triangular solve) and the in-place factorization get 1e-5 relative; K16's
+tiles 1e-5 of the largest entry (K5's bound); K18 is bit-exact.
 """
 
 import numpy as np
@@ -39,6 +42,7 @@ from gpr_tpu_torch.gp import likelihood as lk
 from gpr_tpu_torch.gp import batched as fleet
 from gpr_tpu_torch.gp import exact
 from gpr_tpu_torch.ops import _cuda, blocked, crout, fullchol, leaf, linalg, solve, syrk
+from gpr_tpu_torch.ops import inplace_chol, panel
 from gpr_tpu_torch.ops import batched as fleet_ops
 from gpr_tpu_torch.ops import gram as gop
 
@@ -658,3 +662,122 @@ def test_blocked_leaf_route_launches_k13(dev, monkeypatch, n, leaves):
     _cuda.reset_launch_counts()
     L0, _ = linalg.safe_cholesky(A)
     assert _cuda.launch_counts()["leaf_chol_wi"] == 0 and _relerr(L, L0) <= 1e-4
+
+
+def _spd_f32(n, dev, seed):
+    G = np.random.default_rng(seed).standard_normal((n, n))
+    return _t(G @ G.T + n * np.eye(n), dev)
+
+
+def test_rank_update_tiles_kernel(dev):
+    # JAX's lists (tests/test_ops.py:805-823), then the schedule's narrow and
+    # wide lists at n = 2048; the whole target tile, nothing else written
+    S0 = _t(np.random.default_rng(1).standard_normal((2048, 2048)), dev)
+    steps = [([2, 3, 3], [2, 2, 3], [0, 1], 256)]
+    steps += [(r.tolist(), c.tolist(), k.tolist(), bm)
+              for _, r, c, k, bm in (s_ for s_ in inplace_chol.schedule(2048, 512, 256, dev)
+                                     if s_[0] == "update")][:2]
+    assert [st[3] for st in steps] == [256, 256, 512]
+    for rows, cols, kcols, bm in steps:
+        S, R = S0.clone(), S0.clone()
+        _cuda.reset_launch_counts()
+        out = inplace_chol.rank_update_inplace(S, rows, cols, kcols, bm=bm, bk=bm)
+        torch.cuda.synchronize()
+        assert out is S and _cuda.launch_counts()["rank_update_tiles"] == 1
+        inplace_chol.rank_update_reference(R, rows, cols, kcols, bm=bm, bk=bm)
+        assert float((S - R).abs().max()) <= 1e-5 * float(R.abs().max())
+        mask = torch.ones_like(S, dtype=torch.bool)
+        for i, j in zip(rows, cols):
+            mask[i * bm:(i + 1) * bm, j * bm:(j + 1) * bm] = False
+        assert torch.equal(S[mask], S0[mask]) and not torch.equal(S[~mask], S0[~mask])
+
+
+def test_rank_update_checks_device_lists(dev):
+    # int32 lists already on the card are checked too: out of range or of
+    # two lengths raise before any launch, and S is left as it was
+    S = torch.ones((512, 512), device=dev)
+    for rows, cols, kcols in (([2], [0], [0]), ([1], [0], [2]), ([1, 1], [0], [0])):
+        args = [torch.tensor(a, dtype=torch.int32, device=dev) for a in (rows, cols, kcols)]
+        _cuda.reset_launch_counts()
+        with pytest.raises(ValueError, match="coordinates|one length"):
+            inplace_chol.rank_update_inplace(S, *args, bm=256, bk=256)
+        assert _cuda.launch_counts()["rank_update_tiles"] == 0
+    assert bool(torch.all(S == 1))
+
+
+@pytest.mark.parametrize("c0t", [0, 2, 3])
+def test_panel_inplace_kernel(dev, c0t):
+    A = _spd_f32(1024, dev, seed=c0t)
+    e = (c0t + 1) * 256
+    S = A.clone()
+    S[c0t * 256:e, c0t * 256:e] += torch.triu(torch.full((256, 256), float("nan"), device=dev), 1)
+    R = inplace_chol.panel_inplace_reference(A.clone(), c0t)
+    _cuda.reset_launch_counts()
+    inplace_chol.panel_inplace(S, c0t)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()["panel_inplace"] == 1
+    panel_ = (slice(c0t * 256, None), slice(c0t * 256, e))
+    assert _relerr(S[panel_], R[panel_]) <= 1e-5
+    assert bool(torch.all(torch.triu(S[c0t * 256:e, c0t * 256:e], 1) == 0))
+    mask = torch.ones_like(S, dtype=torch.bool)
+    mask[panel_] = False
+    assert torch.equal(S[mask], A[mask])  # only the panel is rewritten
+
+
+def test_zero_upper_kernel(dev):
+    S = _t(np.random.default_rng(2).standard_normal((1536, 1536)), dev)
+    S += torch.triu(torch.full_like(S, float("nan")), 1)
+    expect = torch.tril(S)
+    _cuda.reset_launch_counts()
+    inplace_chol.zero_upper_inplace(S)
+    assert _cuda.launch_counts()["zero_upper"] == 1 and torch.equal(S, expect)
+
+
+@pytest.mark.parametrize("n", [256, 1024])
+def test_panel_factor_kernel(dev, n):
+    A = _spd_f32(1024, dev, seed=n)
+    P = A[:n, :256]  # a strided view: row stride 1024
+    _cuda.reset_launch_counts()
+    L = panel.panel_factor(P)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()["panel_factor"] == 1 and L.shape == (n, 256)
+    assert _relerr(L, panel.panel_factor_reference(P)) <= 1e-5
+    assert bool(torch.all(torch.triu(L[:256], 1) == 0))
+    with pytest.raises(ValueError, match="must be"):
+        panel.panel_factor(A[:1000, :256])
+    ref = torch.linalg.cholesky(A.double())
+    for fn in (panel.cholesky_panels, panel.cholesky_left_panels):
+        assert _relerr(fn(A).double(), ref) <= 1e-5
+
+
+@pytest.mark.parametrize("n", [1024, 2048])
+def test_cholesky_inplace_kernels(dev, n):
+    A = _spd_f32(n, dev, seed=n)
+    _cuda.reset_launch_counts()
+    L = inplace_chol.cholesky_inplace(A)
+    torch.cuda.synchronize()
+    c = _cuda.launch_counts()
+    assert (c["panel_inplace"], c["rank_update_tiles"], c["zero_upper"]) == (n // 256, n // 256 - 1, 1)
+    assert _relerr(L.double(), torch.linalg.cholesky(A.double())) <= 1e-5
+    assert bool(torch.all(torch.triu(L, 1) == 0))
+    assert _relerr(L, inplace_chol.cholesky_inplace(A.cpu()).to(dev)) <= 1e-5
+    for junk in (float("nan"), 1234.0):  # reads the lower triangle only
+        J = torch.tril(A) + torch.triu(torch.full_like(A, junk), 1)
+        assert torch.equal(inplace_chol.cholesky_inplace(J), L)
+
+
+def test_inplace_route_on_the_card(dev, monkeypatch):
+    monkeypatch.setenv("GPR_CHOL_SCHEDULE", "inplace")
+    A = _spd_f32(1024, dev, seed=5)
+    assert linalg.cholesky_route(A) == "inplace"
+    _cuda.reset_launch_counts()
+    L, jit = linalg.safe_cholesky(A)
+    torch.cuda.synchronize()
+    c = _cuda.launch_counts()
+    assert float(jit) == 0.0 and (c["panel_inplace"], c["rank_update_tiles"], c["zero_upper"]) == (4, 3, 1)
+    assert c["panel_update"] == 0 and c["syrk_update"] == 0 and c["leaf_chol_wi"] == 0
+    bad = A.clone()
+    bad[700, 700] = -bad[700, 700]
+    assert bool(torch.isnan(inplace_chol.cholesky_inplace(bad)[-1, -1]))
+    Lb, jb = linalg.safe_cholesky(torch.zeros((1024, 1024), device=dev))
+    assert float(jb) > 0.0 and bool(torch.isfinite(Lb).all())

@@ -146,21 +146,24 @@ def test_inverse_pinv_symmetrize_match_jax():
 
 def test_chol_schedule_switches(monkeypatch):
     # GPR_CHOL_SCHEDULE read at call time (linalg.py:72-118): recursive skips
-    # the fused factor; inplace selects kernels the port has not ported yet
-    # (rows 16-18) and raises rather than fall through; GPR_CHOL_LEAF_INV=1
-    # turns the blocked routes into their leaf-kernel forms (row 9)
+    # the fused factor; inplace takes the in-place schedule (rows 16-18) for
+    # float32 n % 512 == 0 on any device, as JAX's gate has no backend in it,
+    # and sends the rest to the blocked routes; GPR_CHOL_LEAF_INV=1 turns the
+    # blocked routes into their leaf-kernel forms (row 9) and leaves inplace
     f32 = torch.float32
     assert tl.route_for(2048, f32, "cuda") == "fused-matrix"
     monkeypatch.setenv("GPR_CHOL_SCHEDULE", "recursive")
     assert tl.route_for(2048, f32, "cuda") == "blocked-syrk"
     assert tl.cholesky_route(torch.eye(2048)) == "blocked"
     monkeypatch.setenv("GPR_CHOL_SCHEDULE", "inplace")
-    with pytest.raises(NotImplementedError, match="16-18"):
-        tl.route_for(2048, f32, "cuda")
-    with pytest.raises(NotImplementedError, match="16-18"):
-        tl.safe_cholesky(torch.eye(1024))
+    assert tl.route_for(2048, f32, "cuda") == "inplace"
+    assert tl.cholesky_route(torch.eye(1024)) == "inplace"
+    L, jitter = tl.safe_cholesky(torch.eye(1024))
+    assert float(jitter) == 0.0 and torch.equal(L, torch.eye(1024))
     assert tl.route_for(1100, f32, "cuda") == "blocked-syrk"  # JAX's inplace gate: n % 512
+    assert tl.route_for(2048, torch.float64, "cuda") == "blocked"
     assert tl.route_for(2048, torch.float64, "cpu") == "blocked"
+    assert tl.route_for(512, f32, "cuda") == "torch-cholesky"
     monkeypatch.delenv("GPR_CHOL_SCHEDULE")
     monkeypatch.setenv("GPR_CHOL_LEAF_INV", "1")
     assert tl.cholesky_route(torch.eye(1100)) == "blocked-leaf"
@@ -168,8 +171,9 @@ def test_chol_schedule_switches(monkeypatch):
     assert tl.route_for(1100, torch.float64, "cuda") == "blocked-leaf"
     assert tl.cholesky_route(torch.eye(512)) == "torch-cholesky"
     monkeypatch.setenv("GPR_CHOL_SCHEDULE", "inplace")
-    with pytest.raises(NotImplementedError, match="16-18"):
-        tl.route_for(2048, f32, "cuda")
+    assert tl.route_for(2048, f32, "cuda") == "inplace"
+    assert tl.route_for(2048, f32, "cpu") == "inplace"
+    assert tl.route_for(1100, f32, "cuda") == "blocked-syrk-leaf"
     monkeypatch.delenv("GPR_CHOL_SCHEDULE")
     monkeypatch.setenv("GPR_CHOL_LEAF_INV", "0")
     assert tl.cholesky_route(torch.eye(1100)) == "blocked"
