@@ -8,10 +8,10 @@ process per source, in parallel), then:
 
   1. holds each kernel (K1 gram_tile, K2 panel_update, K3 diag_factor_inv,
      K4 panel_solve, K5 syrk_update, K6 gram_batched, K7 crout_chol, K8
-     crout_chol_wi, K9 fleet_fused; K10-K14 in phases 14 and 18, K15-K18 in 21) against its
-     plain torch version on the
-     card: small ragged shapes, the contracts of the fused factorization, each
-     kernel at the shapes the n=16384 fit gives it, K5 (lower triangle) at a
+     crout_chol_wi, K9 fleet_fused; K10-K14 in phases 14 and 18, K15-K18 in
+     21, K19-K20 in 25) against its plain torch version on the card: small
+     ragged shapes, the contracts of the fused factorization, each kernel at
+     the shapes the n=16384 fit gives it, K5 (lower triangle) at a
      ragged shape and at the top-level trailing updates of n=3773 and
      n=16383, K6 on all 7 forms with per-member parameters at B=3, n=200,
      d=37 and at the fleet's full width, K7 and K8 at b = 32, 64, 33 and 128
@@ -116,7 +116,15 @@ process per source, in parallel), then:
      factorization against their plain versions and library calls, the
      n=16384 factorization on "inplace" against "blocked-syrk",
      "fused-matrix" and torch.linalg.cholesky, and the bench fit and MLL on
-     "inplace" against the default routes.
+     "inplace" against the default routes;
+ 25. holds K19 tile_chol and K20 tile_chol_strips (csrc/chol.cu) against
+     their plain versions at n = 1, 32, 64, 128, 200 (K19 only), 256 and 512,
+     K20 at sw 8 and 16: NaN below the diagonal (bit-identical factors), an
+     exact-zero upper, ||L L^T - A|| / ||A||, a failed pivot, n % sw; then the
+     leaf dispatcher leaf_cholesky (one K19 launch at n=512 float32, none at
+     513, on float64 or on the CPU);
+ 26. times K19 and K20 (sw 8 and 16) at n=256 and 512 against their plain
+     versions and torch.linalg.cholesky_ex, beside their bounds.
 
 Phase 4's fit and phase 6's training steps are the standing check at the
 breathing-fixture shape: their gates go to chip_smoke_out/breathing_check.json
@@ -130,9 +138,9 @@ hold each value and gradient of the marginal likelihood (at each training
 step's parameters; phase 15 too) against a float64 plain torch MLL (torch.linalg.cholesky
 + autograd) with the same 3x gate against the plain float32 MLL.  The launch
 counters are reset before each path (phases 2-5, 6, 7, 8-9, each of
-phase 12's four, 15's two, 16, 19's four, 22's seven and 23's two) and read after
-it: each kernel of the path must have been launched there.  Any failure
-raises.  The last lines are the kernels' JSON, the card's name and power
+phase 12's four, 15's two, 16, 19's four, 22's seven, 23's two and 25's
+dispatcher) and read after it: each kernel of the path must have been
+launched there.  Any failure raises.  The last lines are the kernels' JSON, the card's name and power
 limit, then one JSON object with the device.  Exits non-zero, printing no result, where there is no CUDA device.
 """
 
@@ -222,6 +230,7 @@ def main() -> int:
     from gpr_tpu_torch.ops import solve as nsolve
     from gpr_tpu_torch.ops import inplace_chol as tinp
     from gpr_tpu_torch.ops import panel as tpanel
+    from gpr_tpu_torch.ops import chol as tchol
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -2118,43 +2127,126 @@ def main() -> int:
     print("  MLL value + gradient n=16384 (inplace; default: fused-matrix): " + "; ".join(
         f"{k} {m:.2f} ms (runs {runs_text(r)})" for k, (m, r) in mll24.items()))
 
+    # --------------------------------------------------------------- 25 ----
+    # K19 tile_chol and K20 tile_chol_strips against their plain versions at n
+    # = 1, 32, 64, 128, 200 (K19 only, unaligned), 256 and 512, K20 at sw 8 and
+    # 16: 1e-5 of the plain factor's largest entry (the gate tests/test_ops.py:
+    # 318 puts on JAX's kernel; float32 sums in another order) and ||L L^T - A||
+    # / ||A|| < 1e-5 (Frobenius, in float64 on the float32 factor).  NaN below
+    # the diagonal leaves both factors bit-identical (only the upper triangle
+    # is read); the strict upper is exactly 0; a failed pivot poisons the rows
+    # from it on; n % sw raises.  Then this slice's path, the leaf dispatcher.
+    print("phase 25 K19 tile_chol and K20 tile_chol_strips against their plain versions; the leaf dispatcher")
+    g25 = torch.Generator(device=dev).manual_seed(25)
+
+    def spd25(n_):
+        G = torch.randn((n_, n_), generator=g25, device=dev)
+        A_ = G @ G.T / n_
+        A_.diagonal().add_(1.0)
+        return A_
+
+    def recon(L_, A_):
+        L_, A_ = L_.double(), A_.double()
+        return float(torch.linalg.norm(L_ @ L_.mT - A_) / torch.linalg.norm(A_))
+
+    def tile_runs(n_):
+        runs_ = [("tile_chol", tchol.cholesky_tile, tchol.cholesky_tile_reference)]
+        for sw_ in (8, 16):
+            if n_ % sw_ == 0 and n_ != 200:
+                runs_.append((f"tile_chol_strips sw={sw_}",
+                              lambda M, sw_=sw_: tchol.cholesky_tile_v2(M, sw=sw_),
+                              lambda M, sw_=sw_: tchol.cholesky_tile_v2_reference(M, sw=sw_)))
+        return runs_
+
+    worst25 = {}
+    for n_ in (1, 32, 64, 128, 200, 256, 512):
+        A_ = spd25(n_)
+        A_nan = torch.triu(A_) + torch.tril(torch.full_like(A_, nan), -1)
+        for label, fn, ref in tile_runs(n_):
+            L_, Lr = fn(A_), ref(A_)
+            e_, rc_ = relerr(L_, Lr), recon(L_, A_)
+            check(torch.equal(fn(A_nan), L_), f"{label} n={n_}: NaN below the diagonal changed the factor")
+            check(bool(torch.all(torch.triu(L_, 1) == 0)), f"{label} n={n_}: strict upper not 0")
+            check(e_ <= 1e-5 and rc_ < 1e-5, f"{label} n={n_}: rel err vs plain {e_}, reconstruction {rc_}")
+            worst25[(label, n_)] = (e_, rc_)
+            if n_ == 512:
+                name = label.split()[0]
+                err_ = float((L_ - Lr).abs().max())
+                kstats[name] = {"max_abs_err": max(err_, kstats.get(name, {}).get("max_abs_err", 0.0))}
+    A_ = spd25(256)
+    A_[100, 100] = -1.0
+    for label, fn, _ in tile_runs(256):
+        L_ = fn(A_)
+        rows_ok = torch.isfinite(L_).all(dim=1)
+        check(bool(rows_ok[:100].all()) and not bool(rows_ok[100:].any()) and bool(torch.isnan(L_[-1, -1]))
+              and bool(torch.all(torch.triu(L_, 1) == 0)), f"{label}: a failed pivot at 100 is not poisoned")
+    for n_, sw_ in ((200, 16), (100, 8)):
+        try:
+            tchol.cholesky_tile_v2(spd25(n_), sw=sw_)
+        except ValueError:
+            pass
+        else:
+            check(False, f"cholesky_tile_v2 n={n_} sw={sw_} did not raise")
+    for (label, n_), (e_, rc_) in worst25.items():
+        print(f"  {label} n={n_}: rel err vs plain {e_:.3g}, ||LL^T - A|| / ||A|| {rc_:.3g}; NaN lower "
+              "bit-identical; strict upper 0")
+    print("  a failed pivot at 100 (n=256): rows 0-99 finite, 100-255 not, L[-1,-1] NaN ok; n % sw raises ok")
+
+    # the dispatcher (pallas_chol.py:72-76): K19 for a CUDA float32 tile with n <= 512
+    A512, A513 = spd25(512), spd25(513)
+    _cuda.reset_launch_counts()
+    L512 = tchol.leaf_cholesky(A512)
+    torch.cuda.synchronize()
+    c25 = _cuda.launch_counts()
+    check(c25["tile_chol"] == 1 and sum(c25.values()) == 1, f"leaf_cholesky n=512 float32 launches {c25}")
+    check(relerr(L512, tchol.cholesky_tile_reference(A512)) <= 1e-5 and recon(L512, A512) < 1e-5,
+          "leaf_cholesky n=512 float32")
+    for name, v in c25.items():
+        counts[name] += v
+    _cuda.reset_launch_counts()
+    for label, M in (("n=513", A513), ("float64", A512.double()), ("CPU", A512.cpu())):
+        L_ = tchol.leaf_cholesky(M)
+        check(recon(L_, M) < 1e-5, f"leaf_cholesky {label}: reconstruction {recon(L_, M)}")
+    torch.cuda.synchronize()
+    c_ = _cuda.launch_counts()
+    check(sum(c_.values()) == 0, f"leaf_cholesky launched {c_} at n=513, on float64 or on the CPU")
+    check(counts["tile_chol"] > 0, "K19 was never launched on the dispatcher's path")
+    print(f"  leaf_cholesky: n=512 float32 -> {c25['tile_chol']} K19 launch; n=513, float64, CPU -> "
+          "torch.linalg.cholesky_ex of (A + A^T) / 2, no launch ok")
+    del A_, A_nan, A512, A513, L512
+
+    # --------------------------------------------------------------- 26 ----
+    # K19 and K20 at n=256 (the leaf pallas_chol.py's docstring measures) and
+    # n=512 (the dispatcher's cap), each in turns with its plain version and
+    # torch.linalg.cholesky_ex on the same symmetric tile, median of 10.
+    # Bound: n^3 / 3 FLOP at 67 TFLOP/s against the upper triangle read and L
+    # written, 4 (n (n + 1) / 2 + n^2) bytes, at 3.35 TB/s.
+    t26 = {}
+    for n_ in (256, 512):
+        A_ = spd25(n_)
+        t26[n_] = rotate({"K19": lambda: tchol.cholesky_tile(A_),
+                          "K19 plain": lambda: tchol.cholesky_tile_reference(A_),
+                          "K20 sw=8": lambda: tchol.cholesky_tile_v2(A_, sw=8),
+                          "K20 sw=8 plain": lambda: tchol.cholesky_tile_v2_reference(A_, sw=8),
+                          "K20 sw=16": lambda: tchol.cholesky_tile_v2(A_, sw=16),
+                          "K20 sw=16 plain": lambda: tchol.cholesky_tile_v2_reference(A_, sw=16),
+                          "cholesky_ex": lambda: torch.linalg.cholesky_ex(A_)}, 10)
+    bounds26 = {n_: bound(n_ ** 3 / 3.0, 4.0 * (n_ * (n_ + 1) / 2 + n_ * n_)) for n_ in t26}
+    for name, key in (("tile_chol", "K19"), ("tile_chol_strips", "K20 sw=8")):
+        kstats[name].update(ms=t26[512][key][0], plain_ms=t26[512][f"{key} plain"][0],
+                            library_ms=t26[512]["cholesky_ex"][0], **bounds26[512])
+    del A_
+    print(f"phase 26 single-tile timings ({smi}), CUDA events, medians of 10:")
+    for n_, res in t26.items():
+        print(f"  n={n_} (bound {bounds26[n_]['bound_ms']:.6f} ms, {bounds26[n_]['bound_by']}): " + "; ".join(
+            f"{k} {m:.4f} ms (runs {runs_text(r)})" for k, (m, r) in res.items()))
+
     print(f"wall time: {time.perf_counter() - t_start:.1f} s")
 
-    sources = {"gram_tile": "gpr_tpu_torch/csrc/gram.cu", "syrk_update": "gpr_tpu_torch/csrc/syrk.cu",
-               "gram_batched": "gpr_tpu_torch/csrc/gram.cu",
-               "crout_chol": "gpr_tpu_torch/csrc/crout.cu",
-               "crout_chol_wi": "gpr_tpu_torch/csrc/crout.cu",
-               "fleet_fused": "gpr_tpu_torch/csrc/fleet.cu",
-               "narrow_subst": "gpr_tpu_torch/csrc/solve.cu",
-               "diag_tri_inv": "gpr_tpu_torch/csrc/solve.cu",
-               "leaf_chol": "gpr_tpu_torch/csrc/leaf.cu",
-               "leaf_chol_wi": "gpr_tpu_torch/csrc/leaf.cu",
-               "tri_inv_leaf": "gpr_tpu_torch/csrc/leaf.cu",
-               "panel_factor": "gpr_tpu_torch/csrc/panel.cu",
-               "rank_update_tiles": "gpr_tpu_torch/csrc/inplace.cu",
-               "panel_inplace": "gpr_tpu_torch/csrc/inplace.cu",
-               "zero_upper": "gpr_tpu_torch/csrc/inplace.cu"}
-    replaces = {"gram_tile": "gpr_tpu/ops/pallas_gram.py:38",
-                "syrk_update": "gpr_tpu/ops/pallas_syrk.py:73",
-                "gram_batched": "gpr_tpu/ops/pallas_gram.py:142",
-                "crout_chol": "gpr_tpu/ops/pallas_batched.py:205",
-                "crout_chol_wi": "gpr_tpu/ops/pallas_batched.py:199",
-                "fleet_fused": "gpr_tpu/ops/pallas_batched.py:560",
-                "narrow_subst": "gpr_tpu/ops/pallas_solve.py:52",
-                "diag_tri_inv": "gpr_tpu/ops/pallas_solve.py:173",
-                "leaf_chol": "gpr_tpu/ops/pallas_leaf.py:47",
-                "leaf_chol_wi": "gpr_tpu/ops/pallas_leaf.py:118",
-                "tri_inv_leaf": "gpr_tpu/ops/pallas_leaf.py:239",
-                "panel_factor": "gpr_tpu/ops/pallas_panel.py:143",
-                "rank_update_tiles": "gpr_tpu/ops/inplace_chol.py:53",
-                "panel_inplace": "gpr_tpu/ops/inplace_chol.py:135",
-                "zero_upper": "gpr_tpu/ops/inplace_chol.py:201"}
     kernels = []
     for k in _cuda.KERNELS:
         kernels.append({
-            "name": k.name, "route": "cuda",
-            "source": sources.get(k.name, "gpr_tpu_torch/csrc/fullchol.cu"),
-            "replaces": replaces.get(k.name, "gpr_tpu/ops/pallas_fullchol.py:722"),
+            "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
             "launches": counts[k.name], **kstats[k.name],
         })
     print(json.dumps({"kernels": kernels}))

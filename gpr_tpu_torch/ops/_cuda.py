@@ -96,11 +96,16 @@ def library() -> ctypes.CDLL:
 
 
 class Kernel:
-    """One C entry point of the library and the count of its launches."""
+    """One C entry point of the library and the count of its launches, with
+    its provenance: ``source``, the file under ``csrc/`` that defines
+    ``symbol``, and ``replaces``, the TPU kernel's ``def`` line in the JAX
+    package (PERF.md section 6)."""
 
-    def __init__(self, name: str, symbol: str, argtypes):
+    def __init__(self, name: str, symbol: str, source: str, replaces: str, argtypes):
         self.name = name
         self.symbol = symbol
+        self.source = f"gpr_tpu_torch/csrc/{source}"
+        self.replaces = f"gpr_tpu/ops/{replaces}"
         self.argtypes = list(argtypes) + [_P]  # the stream comes last
         self.launches = 0
         self._fn = None  # (library, its C function), bound at the first launch
@@ -122,53 +127,73 @@ class Kernel:
 
 
 # (X, Y, K, n, m, d, form, sigma, scale, third, diag, tril)
-GRAM = Kernel("gram_tile", "gpr_gram", [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I])
+GRAM = Kernel("gram_tile", "gpr_gram", "gram.cu", "pallas_gram.py:38",
+              [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I])
 # (src, L, n_pad, n_true, d, j, form, sigma, scale, third, diag)
-PANEL_UPDATE = Kernel(
-    "panel_update", "gpr_panel_update", [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F]
-)
+PANEL_UPDATE = Kernel("panel_update", "gpr_panel_update", "fullchol.cu", "pallas_fullchol.py:722",
+                      [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F])
 # (L, W, n_pad, j)
-DIAG_FACTOR_INV = Kernel("diag_factor_inv", "gpr_diag_factor_inv", [_P, _P, _I, _I])
+DIAG_FACTOR_INV = Kernel("diag_factor_inv", "gpr_diag_factor_inv", "fullchol.cu",
+                         "pallas_fullchol.py:722", [_P, _P, _I, _I])
 # (L, W, n_pad, j)
-PANEL_SOLVE = Kernel("panel_solve", "gpr_panel_solve", [_P, _P, _I, _I])
+PANEL_SOLVE = Kernel("panel_solve", "gpr_panel_solve", "fullchol.cu", "pallas_fullchol.py:722",
+                     [_P, _P, _I, _I])
 # (A22, lda, L21, ldl, out, ldo, m, k)
-SYRK_UPDATE = Kernel("syrk_update", "gpr_syrk_update", [_P, _I, _P, _I, _P, _I, _I, _I])
+SYRK_UPDATE = Kernel("syrk_update", "gpr_syrk_update", "syrk.cu", "pallas_syrk.py:73",
+                     [_P, _I, _P, _I, _P, _I, _I, _I])
 
 # (X, P, K, B, n, d, form)
-GRAM_BATCHED = Kernel("gram_batched", "gpr_gram_batched", [_P, _P, _P, _I, _I, _I, _I])
+GRAM_BATCHED = Kernel("gram_batched", "gpr_gram_batched", "gram.cu", "pallas_gram.py:142",
+                      [_P, _P, _P, _I, _I, _I, _I])
 # (A, a_batch_stride, a_ld, L, l_batch_stride, l_ld, B, b)
-CROUT_CHOL = Kernel("crout_chol", "gpr_crout_chol", [_P, _LL, _I, _P, _LL, _I, _I, _I])
+CROUT_CHOL = Kernel("crout_chol", "gpr_crout_chol", "crout.cu", "pallas_batched.py:205",
+                    [_P, _LL, _I, _P, _LL, _I, _I, _I])
 # (A, a_batch_stride, a_ld, L, l_batch_stride, l_ld, W, w_batch_stride, w_ld, B, b)
-CROUT_CHOL_WI = Kernel("crout_chol_wi", "gpr_crout_chol_wi",
+CROUT_CHOL_WI = Kernel("crout_chol_wi", "gpr_crout_chol_wi", "crout.cu", "pallas_batched.py:199",
                        [_P, _LL, _I, _P, _LL, _I, _P, _LL, _I, _I, _I])
 # (A, L, Y, X, W, B, n, panel, q)
-FLEET_FUSED = Kernel("fleet_fused", "gpr_fleet_fused", [_P, _P, _P, _P, _P, _I, _I, _I, _I])
+FLEET_FUSED = Kernel("fleet_fused", "gpr_fleet_fused", "fleet.cu", "pallas_batched.py:560",
+                     [_P, _P, _P, _P, _P, _I, _I, _I, _I])
 # (L, W, src, out, P, R, tickets, n, q, bs, i, forward): one block row of a sweep
-NARROW_SUBST = Kernel("narrow_subst", "gpr_narrow_subst",
+NARROW_SUBST = Kernel("narrow_subst", "gpr_narrow_subst", "solve.cu", "pallas_solve.py:52",
                       [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I])
 # (L, ld, W, nb, bs)
-DIAG_TRI_INV = Kernel("diag_tri_inv", "gpr_diag_tri_inv", [_P, _I, _P, _I, _I])
+DIAG_TRI_INV = Kernel("diag_tri_inv", "gpr_diag_tri_inv", "solve.cu", "pallas_solve.py:173",
+                      [_P, _I, _P, _I, _I])
 
 # (A, lda, L, ldl, V, s, barrier): V a (64, 64) scratch, barrier two zeroed ints
-LEAF_CHOL = Kernel("leaf_chol", "gpr_leaf_chol", [_P, _I, _P, _I, _P, _I, _P])
+LEAF_CHOL = Kernel("leaf_chol", "gpr_leaf_chol", "leaf.cu", "pallas_leaf.py:47",
+                   [_P, _I, _P, _I, _P, _I, _P])
 # (A, lda, L, ldl, W, ldw, s, barrier)
-LEAF_CHOL_WI = Kernel("leaf_chol_wi", "gpr_leaf_chol_wi", [_P, _I, _P, _I, _P, _I, _I, _P])
+LEAF_CHOL_WI = Kernel("leaf_chol_wi", "gpr_leaf_chol_wi", "leaf.cu", "pallas_leaf.py:118",
+                      [_P, _I, _P, _I, _P, _I, _I, _P])
 # (L, ldl, W, ldw, s, barrier)
-TRI_INV_LEAF = Kernel("tri_inv_leaf", "gpr_tri_inv_leaf", [_P, _I, _P, _I, _I, _P])
+TRI_INV_LEAF = Kernel("tri_inv_leaf", "gpr_tri_inv_leaf", "leaf.cu", "pallas_leaf.py:239",
+                      [_P, _I, _P, _I, _I, _P])
 
 # (P, ldp, out, W, n): two kernels in stream order, one launch
-PANEL_FACTOR = Kernel("panel_factor", "gpr_panel_factor", [_P, _I, _P, _P, _I])
+PANEL_FACTOR = Kernel("panel_factor", "gpr_panel_factor", "panel.cu", "pallas_panel.py:143",
+                      [_P, _I, _P, _P, _I])
 # (S, n, rows, cols, kcols, T, ks, bm, bk)
-RANK_UPDATE_TILES = Kernel("rank_update_tiles", "gpr_rank_update_tiles",
-                           [_P, _I, _P, _P, _P, _I, _I, _I, _I])
+RANK_UPDATE_TILES = Kernel("rank_update_tiles", "gpr_rank_update_tiles", "inplace.cu",
+                           "inplace_chol.py:53", [_P, _I, _P, _P, _P, _I, _I, _I, _I])
 # (S, n, c0t, W): two kernels in stream order, one launch
-PANEL_INPLACE = Kernel("panel_inplace", "gpr_panel_inplace", [_P, _I, _I, _P])
+PANEL_INPLACE = Kernel("panel_inplace", "gpr_panel_inplace", "inplace.cu", "inplace_chol.py:135",
+                       [_P, _I, _I, _P])
 # (S, n, ti, tj, dg, T, bm)
-ZERO_UPPER = Kernel("zero_upper", "gpr_zero_upper", [_P, _I, _P, _P, _P, _I, _I])
+ZERO_UPPER = Kernel("zero_upper", "gpr_zero_upper", "inplace.cu", "inplace_chol.py:201",
+                    [_P, _I, _P, _P, _P, _I, _I])
+
+# (A, L, n)
+TILE_CHOL = Kernel("tile_chol", "gpr_tile_chol", "chol.cu", "pallas_chol.py:29", [_P, _P, _I])
+# (A, L, n, sw)
+TILE_CHOL_STRIPS = Kernel("tile_chol_strips", "gpr_tile_chol_strips", "chol.cu", "pallas_chol.py:83",
+                          [_P, _P, _I, _I])
 
 KERNELS = (GRAM, PANEL_UPDATE, DIAG_FACTOR_INV, PANEL_SOLVE, SYRK_UPDATE, GRAM_BATCHED, CROUT_CHOL,
            CROUT_CHOL_WI, FLEET_FUSED, NARROW_SUBST, DIAG_TRI_INV, LEAF_CHOL, LEAF_CHOL_WI,
-           TRI_INV_LEAF, PANEL_FACTOR, RANK_UPDATE_TILES, PANEL_INPLACE, ZERO_UPPER)
+           TRI_INV_LEAF, PANEL_FACTOR, RANK_UPDATE_TILES, PANEL_INPLACE, ZERO_UPPER, TILE_CHOL,
+           TILE_CHOL_STRIPS)
 
 
 def reset_launch_counts() -> None:

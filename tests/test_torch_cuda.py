@@ -1,4 +1,4 @@
-"""The port's hand-written CUDA kernels (K1-K18) against their plain torch
+"""The port's hand-written CUDA kernels (K1-K20) against their plain torch
 versions, on the card, at small shapes.  Marked ``cuda``: skipped where
 torch.cuda.is_available() is False.  On a machine with a card and without
 JAX run it alone, without the suite's conftest (which imports JAX):
@@ -30,7 +30,10 @@ K12-K14's factor and inverse get 1e-5 relative against their plain versions
 < 1e-4, as tests/test_ops.py:457-499 holds JAX's leaf kernels.  K15 and K17
 (a panel factored by 64-blocks and products with W, against cholesky_ex and
 a triangular solve) and the in-place factorization get 1e-5 relative; K16's
-tiles 1e-5 of the largest entry (K5's bound); K18 is bit-exact.
+tiles 1e-5 of the largest entry (K5's bound); K18 is bit-exact.  K19 and K20
+get 1e-5 of the largest entry against their plain versions (the gate
+tests/test_ops.py:318 puts on JAX's kernel) and ||L L^T - A|| / ||A|| < 1e-5
+(Frobenius, float64 arithmetic on the float32 factor).
 """
 
 import numpy as np
@@ -41,7 +44,7 @@ import gpr_tpu_torch as tg
 from gpr_tpu_torch.gp import likelihood as lk
 from gpr_tpu_torch.gp import batched as fleet
 from gpr_tpu_torch.gp import exact
-from gpr_tpu_torch.ops import _cuda, blocked, crout, fullchol, leaf, linalg, solve, syrk
+from gpr_tpu_torch.ops import _cuda, blocked, chol, crout, fullchol, leaf, linalg, solve, syrk
 from gpr_tpu_torch.ops import inplace_chol, panel
 from gpr_tpu_torch.ops import batched as fleet_ops
 from gpr_tpu_torch.ops import gram as gop
@@ -781,3 +784,60 @@ def test_inplace_route_on_the_card(dev, monkeypatch):
     assert bool(torch.isnan(inplace_chol.cholesky_inplace(bad)[-1, -1]))
     Lb, jb = linalg.safe_cholesky(torch.zeros((1024, 1024), device=dev))
     assert float(jb) > 0.0 and bool(torch.isfinite(Lb).all())
+
+
+def _recon(L, A):
+    L, A = L.double(), A.double()
+    return float(torch.linalg.norm(L @ L.mT - A) / torch.linalg.norm(A))
+
+
+@pytest.mark.parametrize("n", [64, 256, 512])
+def test_tile_chol_kernels(dev, n):
+    A = _leaf_spd(n, dev, seed=n)
+    A_nan = torch.triu(A) + torch.tril(torch.full_like(A, float("nan")), -1)
+    _cuda.reset_launch_counts()
+    runs = [(chol.cholesky_tile, chol.cholesky_tile_reference, {})]
+    runs += [(chol.cholesky_tile_v2, chol.cholesky_tile_v2_reference, {"sw": sw}) for sw in (8, 16)]
+    for fn, ref, kw in runs:
+        L = fn(A, **kw)
+        assert torch.equal(fn(A_nan, **kw), L)  # only the upper triangle is read
+        assert bool(torch.all(torch.triu(L, 1) == 0))
+        assert _relerr(L, ref(A, **kw)) <= 1e-5 and _recon(L, A) < 1e-5
+    torch.cuda.synchronize()
+    c = _cuda.launch_counts()
+    assert c["tile_chol"] == 2 and c["tile_chol_strips"] == 4
+
+
+@pytest.mark.parametrize("where", [3, 200])
+def test_tile_chol_failed_pivot(dev, where):
+    A = _leaf_spd(256, dev, seed=4)
+    A[where, where] = -1.0
+    for L in (chol.cholesky_tile(A), chol.cholesky_tile_v2(A, sw=8), chol.cholesky_tile_v2(A, sw=16)):
+        rows_ok = torch.isfinite(L).all(dim=1)
+        assert bool(rows_ok[:where].all()) and not bool(rows_ok[where:].any())
+        assert bool(torch.isnan(L[-1, -1])) and bool(torch.all(torch.triu(L, 1) == 0))
+
+
+def test_leaf_cholesky_dispatch(dev):
+    A = _leaf_spd(513, dev, seed=5)
+    _cuda.reset_launch_counts()
+    L = chol.leaf_cholesky(A[:512, :512])
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()["tile_chol"] == 1
+    assert torch.equal(L, chol.cholesky_tile(A[:512, :512]))
+    _cuda.reset_launch_counts()
+    for M in (A, A[:512, :512].double(), A[:512, :512].cpu()):
+        R = chol.leaf_cholesky(M)
+        assert _relerr(R.to(dev).float(), torch.linalg.cholesky(M.double()).to(dev)) <= 1e-4
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts() == {k.name: 0 for k in _cuda.KERNELS}
+
+
+def test_tile_chol_refuses_what_the_kernel_does_not_take(dev):
+    A = _leaf_spd(200, dev, seed=6)
+    for call in (lambda: chol.cholesky_tile_v2(A, sw=16),  # 16 does not divide 200
+                 lambda: chol.cholesky_tile_v2(A, sw=4),  # no 4-wide strips on the card
+                 lambda: chol.cholesky_tile(A.double()),
+                 lambda: chol.cholesky_tile(_leaf_spd(513, dev, seed=7))):
+        with pytest.raises(ValueError):
+            call()

@@ -12,7 +12,7 @@ import torch
 
 import gpr_tpu_torch as tg
 from gpr_tpu_torch.gp import likelihood as lk
-from gpr_tpu_torch.ops import _cuda, blocked, fullchol, syrk
+from gpr_tpu_torch.ops import _cuda, blocked, chol, fullchol, syrk
 from gpr_tpu_torch.ops import gram as gop
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -60,6 +60,11 @@ def test_cpu_tensors_launch_no_kernel(rng):
     blocked.cholesky_blocked(torch.eye(1100) * 2.0)
     syrk.syrk_update(torch.eye(70), torch.ones((70, 3)))
     lk.mll_value_and_grad(tg.Gaussian(2.0), X[:100], Y[:100], 0.1)
+    tile = torch.eye(32) * 2.0
+    chol.cholesky_tile(tile)
+    chol.cholesky_tile_v2(tile, sw=16)
+    chol.leaf_cholesky(tile)
+    chol.leaf_cholesky(tile.double())
     assert _cuda.launch_counts() == {k.name: 0 for k in _cuda.KERNELS}
 
 
@@ -88,6 +93,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         fullchol.panel_update(L, 0, torch.zeros((100, 3)), form="gaussian")  # X does not pad to 256
     with pytest.raises(ValueError):
         gop.gram(X.to("meta"), X.to("meta"))  # neither CPU nor CUDA
+    with pytest.raises(ValueError):
+        chol.cholesky_tile(torch.eye(4, device="meta"))
+    with pytest.raises(ValueError):
+        chol.cholesky_tile(torch.zeros((3, 4)))  # not square
 
 
 def test_library_path_follows_the_sources():
@@ -116,3 +125,21 @@ def test_gp_is_a_module_with_buffers(rng):
     assert isinstance(gp, torch.nn.Module) and isinstance(gp.kernel, torch.nn.Module)
     np.testing.assert_allclose(gp.to(torch.device("cpu")).predict(X).numpy(),
                                gp.predict(X).numpy())
+
+
+def test_every_kernel_names_its_source_and_the_tpu_kernel_it_replaces():
+    symbol = re.compile(r'extern "C" [\w\s\*]*?\b(gpr_\w+)\(')
+    for k in _cuda.KERNELS:
+        src = ROOT / k.source
+        assert src.parent == _cuda.CSRC and src.is_file(), k.name
+        assert k.symbol in symbol.findall(src.read_text()), (k.name, k.source)
+        path, line = k.replaces.rsplit(":", 1)
+        assert path.startswith("gpr_tpu/ops/"), k.name
+        lines = (ROOT / path).read_text().splitlines()  # read as text, never imported
+        assert re.match(r"def \w+\(", lines[int(line) - 1]), (k.name, k.replaces)
+    assert len({k.name for k in _cuda.KERNELS}) == len(_cuda.KERNELS)
+    # every JAX module with a TPU kernel has a counterpart in the port
+    pallas = {f"gpr_tpu/ops/{f.name}" for f in (ROOT / "gpr_tpu" / "ops").glob("*.py")
+              if "pl.pallas_call" in f.read_text()}
+    assert len(pallas) >= 9
+    assert pallas <= {k.replaces.rsplit(":", 1)[0] for k in _cuda.KERNELS}
