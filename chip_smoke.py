@@ -149,6 +149,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -244,9 +245,14 @@ def main() -> int:
     lib = _cuda.build()
     _cuda.library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib.name}")
+    entry = "?"
     for line in lib.with_suffix(".ptxas.txt").read_text().splitlines():
-        if "registers" in line or "spill" in line and " 0 bytes spill" not in line:
-            print("  ptxas:", line.strip())
+        if "Compiling entry function" in line:  # '_ZN3gpr<len><name>...': the kernel's name
+            mangled = line.split("'")[1]
+            m = re.match(r"_ZN3gpr(\d+)", mangled)
+            entry = mangled[m.end():m.end() + int(m.group(1))] if m else mangled
+        elif "registers" in line or "spill" in line and " 0 bytes spill" not in line:
+            print(f"  ptxas {entry}:", line.strip().removeprefix("ptxas info    : "))
 
     def t32(a):
         return torch.tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)
@@ -339,6 +345,20 @@ def main() -> int:
     fullchol.panel_solve(L, W, j0)
     fullchol.panel_solve_reference(Lref, W, j0)
     kstats["panel_solve"] = {"max_abs_err": float((L[:, cols] - Lref[:, cols]).abs().max())}
+    # K2 at a late panel (k = 15872): few row tiles, the k range dealt out to the SMs
+    j1 = nc - 4
+    for j in range(j0 + 1, j1):
+        fullchol.panel_update(L, j, Xb, *gram_args)
+        fullchol.diag_factor_inv(L, W, j)
+        fullchol.panel_solve(L, W, j)
+    cols1 = slice(j1 * 128, (j1 + 1) * 128)
+    Lref.copy_(L)
+    fullchol.panel_update(L, j1, Xb, *gram_args)
+    fullchol.panel_update_reference(Lref, j1, Xb, *gram_args)
+    kstats["panel_update"]["max_abs_err"] = max(kstats["panel_update"]["max_abs_err"], float(
+        (L[:, cols1] - Lref[:, cols1]).abs().max()))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks1c = {j: fullchol._split_plan(n, j, sms) for j in (j0, j1)}
     Xg = Xb[:384].contiguous()
     K1 = gop.gram(Xg, Xg, 8.0, 1.0, 1.0, gram_args[4])
     kstats["gram_tile"] = {"max_abs_err": float(
@@ -349,8 +369,10 @@ def main() -> int:
                       ("panel_solve", 1e-4)):
         e = kstats[name]["max_abs_err"]
         check(e <= tol, f"{name} at the n=16384 shapes: max abs err {e} > {tol}")
-    print("phase 1c each kernel at the n=16384 fit's shapes (panel j=%d): %s" % (
-        j0, ", ".join(f"{k} {v['max_abs_err']:.3g}" for k, v in kstats.items())))
+    print("phase 1c each kernel at the n=16384 fit's shapes (panel j=%d; K2 also at j=%d): %s; "
+          "K2 product blocks %s" % (
+              j0, j1, ", ".join(f"{k} {v['max_abs_err']:.3g}" for k, v in kstats.items()),
+              ", ".join(f"j={j}: {b}" for j, b in blocks1c.items())))
 
     # K5 on the lower triangle: a ragged shape and the top-level trailing
     # updates of n=3773 (1853 x 1920) and n=16383 (8191 x 8192).  float32
@@ -838,8 +860,13 @@ def main() -> int:
     def ev():
         return torch.cuda.Event(enable_timing=True)
 
-    def timed(fn):
+    def timed(fn, queued=False):
+        """CUDA events around fn; with ``queued`` the device first sleeps
+        while the host enqueues the events and fn's launches, so that a
+        short kernel is timed and not the host's time to launch it."""
         a, b = ev(), ev()
+        if queued:
+            torch.cuda._sleep(300_000)
         a.record()
         fn()
         b.record()
@@ -871,18 +898,51 @@ def main() -> int:
         L = torch.empty((n, n), dtype=torch.float32, device=dev)
         W = torch.empty((nc, 128, 128), dtype=torch.float32, device=dev)
         for j in range(nc):
-            tot[0] += timed(lambda: update(L, j, Xb, *gram_args))
-            tot[1] += timed(lambda: factor_inv(L, W, j))
+            tot[0] += timed(lambda: update(L, j, Xb, *gram_args), True)
+            tot[1] += timed(lambda: factor_inv(L, W, j), True)
             if j + 1 < nc:
-                tot[2] += timed(lambda: solve(L, W, j))
+                tot[2] += timed(lambda: solve(L, W, j), True)
         check(bool(torch.isfinite(L[-1, -1])), "timed factorization failed")
-        return tot
+        return tot, L
 
-    ker = per_kernel((fullchol.panel_update, fullchol.diag_factor_inv, fullchol.panel_solve))
-    ref = per_kernel((fullchol.panel_update_reference, fullchol.diag_factor_inv_reference,
-                      fullchol.panel_solve_reference))
+    ker, L16 = per_kernel((fullchol.panel_update, fullchol.diag_factor_inv, fullchol.panel_solve))
+    ref, _ = per_kernel((fullchol.panel_update_reference, fullchol.diag_factor_inv_reference,
+                         fullchol.panel_solve_reference))
     for name, k_ms, p_ms in zip(("panel_update", "diag_factor_inv", "panel_solve"), ker, ref):
         kstats[name].update(ms=k_ms, plain_ms=p_ms)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = [fullchol._split_plan(n, j, sms) for j in range(nc)]
+    runs_b, j_ = [], 0
+    while j_ < nc:  # K2's product blocks per panel, in runs of equal counts
+        e_ = j_
+        while e_ + 1 < nc and blocks[e_ + 1] == blocks[j_]:
+            e_ += 1
+        runs_b.append(f"j={j_}{'' if e_ == j_ else f'-{e_}'}: {blocks[j_]}")
+        j_ = e_ + 1
+
+    # each kernel's library call, per panel on the same factor: K2 one
+    # torch.addmm(S, L21, L_j^T, alpha=-1) in matrix mode, K3 cholesky_ex +
+    # solve_triangular(L_jj, I) on the diagonal tile, K4 one matmul(P, W_j^T)
+    Kb16 = gaussian64(Xb, Xb, 8.0, 1.0)
+    Kb16.diagonal().add_(sig * sig)
+    W16 = torch.empty((nc, 128, 128), dtype=torch.float32, device=dev)
+    eye128 = torch.eye(128, dtype=torch.float32, device=dev)
+    lib = [0.0, 0.0, 0.0]
+    for j in range(nc):
+        jp, je = j * 128, (j + 1) * 128
+        S = Kb16[jp:, jp:je]
+        if j:
+            lib[0] += timed(lambda: torch.addmm(S, L16[jp:, :jp], L16[jp:je, :jp].T, alpha=-1), True)
+        Ljj = L16[jp:je, jp:je]
+        Pjj = Ljj @ Ljj.T
+        lib[1] += timed(lambda: torch.linalg.solve_triangular(
+            torch.linalg.cholesky_ex(Pjj)[0], eye128, upper=False), True)
+        W16[j] = torch.linalg.solve_triangular(Ljj, eye128, upper=False)
+        if j + 1 < nc:
+            P_ = L16[je:, jp:je] @ Ljj.T  # the panel before K4: P = L21 L_jj^T
+            lib[2] += timed(lambda: torch.matmul(P_, W16[j].T), True)
+    del Kb16, L16, W16
+    torch.cuda.empty_cache()
 
     def median_ms(fn, reps=20):
         fn()
@@ -897,10 +957,10 @@ def main() -> int:
     big_plain = median_ms(lambda: gop.gram_reference(Xb, Xb, 8.0, 1.0, 1.0, gram_args[4]), 5)
     Kb = gaussian64(Xb, Xb, 8.0, 1.0)
     Kb.diagonal().add_(sig * sig)
-    chol_ms = median_ms(lambda: torch.linalg.cholesky(Kb), 5)  # K2-K4's library call
+    chol_ms = median_ms(lambda: torch.linalg.cholesky(Kb), 5)  # K2-K4 together
     del Kb
-    for name in ("panel_update", "diag_factor_inv", "panel_solve"):
-        kstats[name]["library_ms"] = chol_ms
+    for name, ms_ in zip(("panel_update", "diag_factor_inv", "panel_solve"), lib):
+        kstats[name]["library_ms"] = ms_
 
     # value + gradient against the plain float32 route
     vg_times = {}
@@ -954,18 +1014,22 @@ def main() -> int:
     del K163
     torch.cuda.empty_cache()
 
-    # bounds: the larger of operations over the 67 TFLOP/s FP32 peak and bytes
-    # (each input read once, each output written once) over 3.35 TB/s
-    def bound(flop, nbytes):
-        t_op, t_mem = flop / 67e12 * 1e3, nbytes / 3.35e12 * 1e3
-        return {"bound_ms": max(t_op, t_mem), "bound_by": "operations" if t_op >= t_mem else "bytes"}
+    # bounds: the larger of operations over the peak of the tier the kernel
+    # computes on (the 67 TFLOP/s FP32 peak unless named) and bytes (each
+    # input read once, each output written once) over 3.35 TB/s
+    fp32 = (67e12, "FP32 67 TFLOP/s")
 
-    def sum_bounds(parts):
-        t_op = sum(f for f, _ in parts) / 67e12 * 1e3
+    def bound(flop, nbytes, tier=fp32):
+        t_op, t_mem = flop / tier[0] * 1e3, nbytes / 3.35e12 * 1e3
+        return {"bound_ms": max(t_op, t_mem), "bound_by": "operations" if t_op >= t_mem else "bytes",
+                "bound_tier": tier[1]}
+
+    def sum_bounds(parts, tier=fp32):
+        t_op = sum(f for f, _ in parts) / tier[0] * 1e3
         t_mem = sum(b for _, b in parts) / 3.35e12 * 1e3
         by = "operations" if t_op >= t_mem else "bytes"
-        return {"bound_ms": sum(max(f / 67e12, b / 3.35e12) * 1e3 for f, b in parts),
-                "bound_by": by}
+        return {"bound_ms": sum(max(f / tier[0], b / 3.35e12) * 1e3 for f, b in parts),
+                "bound_by": by, "bound_tier": tier[1]}
 
     ng, dg, P = Xg.shape[0], Xg.shape[1], fullchol.PANEL
     kstats["gram_tile"].update(bound(2.0 * ng * ng * dg, 4.0 * (2 * ng * dg + ng * ng)))
@@ -973,10 +1037,12 @@ def main() -> int:
     # K2 panel j: the strip's Gram cross term and update, 2 rows P (jp + d)
     # FLOP; it reads X's rows and L[rows, :jp] and writes the strip and the
     # zeros above it
-    kstats["panel_update"].update(sum_bounds([
-        (2.0 * (n - j * P) * P * (j * P + d),
-         4.0 * ((n - j * P) * (d + j * P + P) + j * P * P))
-        for j in range(nc)]))
+    k2_parts = [(2.0 * (n - j * P) * P * (j * P + d),
+                 4.0 * ((n - j * P) * (d + j * P + P) + j * P * P)) for j in range(nc)]
+    # K2 computes on the tensor cores' 3xTF32 tier: three TF32 products at
+    # 495 TFLOP/s for each FP32 one; its FP32 bound stands beside it
+    kstats["panel_update"].update(sum_bounds(k2_parts, (495e12 / 3, "3xTF32 495/3 = 165 TFLOP/s")),
+                                  bound_fp32_ms=sum_bounds(k2_parts)["bound_ms"])
     kstats["diag_factor_inv"].update(sum_bounds([(2.0 * P ** 3 / 3.0, 4.0 * 3 * P * P)] * nc))
     kstats["panel_solve"].update(sum_bounds([
         (2.0 * (n - (j + 1) * P) * P * P, 4.0 * (2 * (n - (j + 1) * P) * P + P * P))
@@ -988,10 +1054,14 @@ def main() -> int:
     print(f"  fit n=16384 d=128 q=8: hand-written route {med_port:.2f} ms "
           f"(runs {', '.join(f'{t:.1f}' for t in t_port)}); plain torch route {med_plain:.2f} ms "
           f"(runs {', '.join(f'{t:.1f}' for t in t_plain)})")
-    print(f"  per fit at n=16384: K2 panel_update {ker[0]:.2f} ms (plain {ref[0]:.2f}), "
-          f"K3 diag_factor_inv {ker[1]:.2f} ms (plain {ref[1]:.2f}), "
-          f"K4 panel_solve {ker[2]:.2f} ms (plain {ref[2]:.2f}); sum of per-launch events; "
+    print(f"  per fit at n=16384: K2 panel_update {ker[0]:.2f} ms (plain {ref[0]:.2f}, addmm "
+          f"{lib[0]:.2f}; bound {kstats['panel_update']['bound_ms']:.2f} 3xTF32, "
+          f"{kstats['panel_update']['bound_fp32_ms']:.2f} FP32), "
+          f"K3 diag_factor_inv {ker[1]:.2f} ms (plain {ref[1]:.2f}, cholesky_ex + solve_triangular "
+          f"{lib[1]:.2f}), K4 panel_solve {ker[2]:.2f} ms (plain {ref[2]:.2f}, matmul {lib[2]:.2f}); "
+          f"sums of per-launch events, each launch queued behind a device sleep; "
           f"torch.linalg.cholesky of K {chol_ms:.2f} ms")
+    print(f"  K2 product blocks per panel: {', '.join(runs_b)}")
     print(f"  K1 gram_tile n=384 d=128: {kstats['gram_tile']['ms']:.4f} ms "
           f"(plain {kstats['gram_tile']['plain_ms']:.4f}); n=16384 d=128 tril: {big_ms:.2f} ms "
           f"(plain full {big_plain:.2f})")

@@ -129,9 +129,10 @@ class Kernel:
 # (X, Y, K, n, m, d, form, sigma, scale, third, diag, tril)
 GRAM = Kernel("gram_tile", "gpr_gram", "gram.cu", "pallas_gram.py:38",
               [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I])
-# (src, L, n_pad, n_true, d, j, form, sigma, scale, third, diag)
+# (src, L, part, n_pad, n_true, d, j, blocks, form, sigma, scale, third, diag): two kernels in
+# stream order (the products on `blocks` blocks, then the strip), one launch
 PANEL_UPDATE = Kernel("panel_update", "gpr_panel_update", "fullchol.cu", "pallas_fullchol.py:722",
-                      [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F])
+                      [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F])
 # (L, W, n_pad, j)
 DIAG_FACTOR_INV = Kernel("diag_factor_inv", "gpr_diag_factor_inv", "fullchol.cu",
                          "pallas_fullchol.py:722", [_P, _P, _I, _I])

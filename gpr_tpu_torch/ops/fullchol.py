@@ -10,7 +10,10 @@ j, runs three steps on the current stream:
                            column block j of L, zeros above it.  S is built
                            from X (Gram mode, with the pad masking of
                            pallas_fullchol.py:788-804) or read from the lower
-                           triangle of A (matrix mode).
+                           triangle of A (matrix mode).  On the card the
+                           product's k range is split into pieces dealt out
+                           evenly to the SMs (:func:`_split_plan`), and the
+                           pieces are subtracted from S in a fixed order.
   :func:`diag_factor_inv`  (K3) L_jj = chol(P_jj), W_j = inv(L_jj).
   :func:`panel_solve`      (K4) L[r, panel] = P[r, :] W_j^T for r below.
 
@@ -26,6 +29,8 @@ mode pads n to a multiple of 128.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _cuda
@@ -39,13 +44,51 @@ def padded_size(n: int) -> int:
     return -(-n // PANEL) * PANEL
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _split_plan(n_pad: int, j: int, sms: int) -> int:
+    """How many blocks K2's products take for panel ``j`` on a card of
+    ``sms`` SMs: 0 for the first panel (no update), else one per 128-deep k
+    slice of each 128-row tile below the panel, up to one block an SM (a
+    block fills an SM).  The tiles' slices, j each, are dealt out to the
+    blocks in order, as evenly as whole slices allow (:func:`_split_pieces`),
+    so that every SM gets the same work."""
+    return min(j * ((n_pad - j * PANEL) // PANEL), sms)
+
+
+def _split_pieces(n_pad: int, j: int, blocks: int) -> list:
+    """For each 128-row tile t of panel ``j``, the pieces its k range is
+    split into, in the order K2 subtracts them: (slot, lo, hi), k in [lo, hi).
+    Block b takes slices [b U / blocks, (b + 1) U / blocks) of the U =
+    tiles * j in tile-major order and writes the piece it computes of tile t
+    to scratch slot b + t (csrc/fullchol.cu::panel_products_kernel)."""
+    tiles = (n_pad - j * PANEL) // PANEL
+    units = tiles * j
+    pieces = [[] for _ in range(tiles)]
+    for b in range(blocks):
+        u0, u1 = b * units // blocks, (b + 1) * units // blocks
+        for t in range(u0 // j, (u1 - 1) // j + 1):
+            lo, hi = max(u0, t * j) - t * j, min(u1, (t + 1) * j) - t * j
+            pieces[t].append((b + t, PANEL * lo, PANEL * hi))
+    return pieces
+
+
+def _scratch_tiles(n_pad: int, j: int, sms: int) -> int:
+    """128x128 partial tiles K2 needs for panel ``j`` (slots b + t): at most
+    sms + 127 (17 MB at n_pad = 16384 on 132 SMs)."""
+    return _split_plan(n_pad, j, sms) + (n_pad - j * PANEL) // PANEL - 1 if j else 0
+
+
 # ---------------------------------------------------------------------------
 # one panel step each: kernel wrapper + plain version
 # ---------------------------------------------------------------------------
 
 def panel_update_reference(L, j, src, form=None, sigma=1.0, scale=1.0, third=1.0,
                            diag=0.0) -> None:
-    """Plain torch version of K2 (in place on L)."""
+    """Plain torch version of K2 (in place on L), the update as one product."""
     n_pad = L.shape[0]
     jp, je = j * PANEL, (j + 1) * PANEL
     L[:jp, jp:je] = 0.0
@@ -72,16 +115,21 @@ def panel_update_reference(L, j, src, form=None, sigma=1.0, scale=1.0, third=1.0
 
 def panel_update(L, j, src, form=None, sigma=1.0, scale=1.0, third=1.0, diag=0.0) -> None:
     """K2 for panel ``j`` (in place on L).  ``form=None`` is matrix mode,
-    src = A (n_pad, n_pad); otherwise Gram mode, src = X (n_true, d)."""
+    src = A (n_pad, n_pad); otherwise Gram mode, src = X (n_true, d).  On the
+    card the split partials go to scratch from PyTorch's caching allocator."""
     n_pad = _check_factor(L, "panel_update")
     _check_src(src, n_pad, form)
     if L.device.type == "cpu":
         return panel_update_reference(L, j, src, form, sigma, scale, third, diag)
+    sms = _sm_count(L.device.index)
+    blocks = _split_plan(n_pad, j, sms)
+    scratch = torch.empty((max(_scratch_tiles(n_pad, j, sms), 1), PANEL, PANEL),
+                          dtype=torch.float32, device=L.device)
     d = src.shape[1]
     code = -1 if form is None else FORMS.index(form)
     _cuda.PANEL_UPDATE.launch(
-        L.device, src.data_ptr(), L.data_ptr(), n_pad, src.shape[0], d, j, code,
-        float(sigma), float(scale), float(third), float(diag),
+        L.device, src.data_ptr(), L.data_ptr(), scratch.data_ptr(), n_pad, src.shape[0], d, j,
+        blocks, code, float(sigma), float(scale), float(third), float(diag),
     )
 
 

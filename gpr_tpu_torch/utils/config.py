@@ -8,12 +8,15 @@ package:
 
 The policy sets defaults only; every function takes the dtype of its inputs.
 
-Matmul tier: IEEE float32.  The JAX package runs its f32 contractions at an
+Matmul tier: an f32 grade.  The JAX package runs its f32 contractions at an
 f32-grade tier (bf16x3 "high" on the TPU, config.py:75-99) and never at a
-single bf16 pass.  On the GPU the matching rule is: no TF32.  Importing this
-module turns TF32 off for PyTorch's matrix products and cuDNN, so every
-float32 product in the port runs in full float32; the hand-written kernels
-compute in plain FP32 FMA.  3xTF32 or wgmma tiers come with later kernels.
+single bf16 pass.  On the GPU the matching rule is: no single TF32 pass.
+Importing this module turns TF32 off for PyTorch's matrix products and
+cuDNN, so every float32 product in the port runs in full float32.  The
+hand-written kernels compute in plain FP32 FMA, except K2 (panel_update,
+csrc/fullchol.cu), whose update product runs on the tensor cores in 3xTF32:
+each operand split into a tf32 big and small half, small*big + big*small +
+big*big summed in FP32 (csrc/tc_tile.cuh).
 
 Device: the entry points (``fit``, ``load``, ``convert.gp_from_numpy``, the
 likelihood functions, ``fit_mle``, ``fit_map``) run on the card unless told

@@ -48,6 +48,7 @@ from gpr_tpu_torch.ops import _cuda, blocked, chol, crout, fullchol, leaf, linal
 from gpr_tpu_torch.ops import inplace_chol, panel
 from gpr_tpu_torch.ops import batched as fleet_ops
 from gpr_tpu_torch.ops import gram as gop
+from torch_split_order import panel_update_split
 
 pytestmark = pytest.mark.cuda
 
@@ -119,6 +120,100 @@ def test_failed_pivot_poisons_last_diagonal(dev, where):
     A[where, where] = -1e6
     L = fullchol.cholesky_fused(_t(A, dev))
     assert not torch.isfinite(L[-1, -1])
+
+
+def _factor_to(src, n_pad, j, gram=()):
+    """L and W with panels 0..j-1 factored by the kernels (panel j not yet)."""
+    L = torch.zeros((n_pad, n_pad), dtype=torch.float32, device=src.device)
+    W = torch.zeros((n_pad // 128, 128, 128), dtype=torch.float32, device=src.device)
+    for i in range(j):
+        fullchol.panel_update(L, i, src, *gram)
+        fullchol.diag_factor_inv(L, W, i)
+        fullchol.panel_solve(L, W, i)
+    return L, W
+
+
+@pytest.mark.parametrize("mode", ["matrix", "gram"])
+@pytest.mark.parametrize("j", [1, 16, 31])
+def test_panel_update_split_k(dev, mode, j):
+    # K2 on the tensor cores (3xTF32) with the k ranges split as planned,
+    # against its plain version summing in the same order and as one
+    # product: the factor's 1e-4
+    rng = np.random.default_rng(20 + j)
+    n = 4096
+    if mode == "matrix":
+        B = rng.standard_normal((n, 64))
+        src, gram = _t(B @ B.T / 64 + np.eye(n), dev), ()
+    else:
+        src, gram = _t(rng.standard_normal((n - 50, 8)), dev), ("gaussian", 2.0, 1.3, 1.0, 0.05)
+    L, _ = _factor_to(src, n, j, gram)
+    Lk, Lr, L1 = L.clone(), L.clone(), L.clone()
+    fullchol.panel_update(Lk, j, src, *gram)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = fullchol._split_plan(n, j, sms)
+    assert blocks == min(j * (32 - j), sms)
+    panel_update_split(Lr, j, src, *gram, blocks=blocks)
+    fullchol.panel_update_reference(L1, j, src, *gram)
+    cols = slice(j * 128, (j + 1) * 128)
+    assert _relerr(Lk[:, cols], Lr[:, cols]) < 1e-4
+    assert _relerr(Lk[:, cols], L1[:, cols]) < 1e-4
+    assert torch.all(Lk[:j * 128, cols] == 0)
+    assert torch.equal(Lk[:, :j * 128], L[:, :j * 128])  # nothing else written
+
+
+@pytest.mark.parametrize("mode", ["matrix", "gram"])
+def test_factorization_is_bit_identical(dev, mode):
+    # split-K partials are added in a fixed order without atomics
+    rng = np.random.default_rng(24)
+    n = 4096
+    if mode == "matrix":
+        B = rng.standard_normal((n, 64))
+        A = _t(B @ B.T / 64 + np.eye(n), dev)
+        L1, L2 = fullchol.cholesky_fused(A), fullchol.cholesky_fused(A)
+    else:
+        X = _t(rng.standard_normal((n, 8)), dev)
+        L1, L2 = (fullchol.gram_cholesky_fused(X, 2.0, 1.3, 1.0, 0.05) for _ in range(2))
+    assert torch.isfinite(L1[-1, -1])
+    assert torch.equal(L1, L2)
+
+
+def test_diag_factor_inv_kernel(dev):
+    # K3 reads the lower triangle of the diagonal block only and writes exact
+    # zeros above it, in L_jj and in W_j
+    rng = np.random.default_rng(25)
+    B = rng.standard_normal((128, 128))
+    P = _t(B @ B.T / 128 + np.eye(128), dev)
+    L = torch.zeros((256, 256), dtype=torch.float32, device=dev)
+    L[128:, 128:] = P
+    L[128:, 128:][torch.triu(torch.ones_like(P, dtype=torch.bool), 1)] = float("nan")
+    W = torch.zeros((2, 128, 128), dtype=torch.float32, device=dev)
+    Lr, Wr = L.clone(), W.clone()
+    fullchol.diag_factor_inv(L, W, 1)
+    fullchol.diag_factor_inv_reference(Lr, Wr, 1)
+    Ljj = L[128:, 128:]
+    assert _relerr(Ljj, Lr[128:, 128:]) < 1e-4 and _relerr(W[1], Wr[1]) < 1e-4
+    assert torch.all(torch.triu(Ljj, 1) == 0) and torch.all(torch.triu(W[1], 1) == 0)
+    assert float((W[1] @ Ljj - torch.eye(128, device=dev)).abs().max()) < 1e-4
+    assert torch.equal(L[:128], Lr[:128]) and torch.all(W[0] == 0)
+
+
+@pytest.mark.parametrize("where", [0, 31, 32, 127])  # the 32-block edges of K3
+def test_diag_factor_inv_failed_pivot(dev, where):
+    rng = np.random.default_rng(26)
+    n = 384
+    B = rng.standard_normal((n, n))
+    A = B @ B.T + n * np.eye(n)
+    A[128 + where, 128 + where] = -1e6  # panel 1
+    L, W = fullchol._factor(_t(A, dev), n, (), fullchol._KERNEL_STEPS)
+    assert not torch.isfinite(L[-1, -1])
+    eye = torch.eye(128, device=dev)
+    assert float((W[0] @ L[:128, :128] - eye).abs().max()) < 1e-4  # the panel before
+    p = where  # the failed panel's leading rows are factored
+    if p:
+        Ljj = L[128:128 + p, 128:128 + p]
+        assert float((W[1][:p, :p] @ Ljj - eye[:p, :p]).abs().max()) < 1e-4
+    assert not torch.isfinite(W[1][p:, :p + 1]).all()
+    assert torch.all(torch.triu(L, 1) == 0) and torch.all(torch.triu(W[1], 1) == 0)
 
 
 def test_fit_routes_reach_the_kernels(dev):

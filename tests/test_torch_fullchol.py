@@ -15,6 +15,7 @@ import torch
 
 from gpr_tpu.ops import pallas_fullchol as jfc
 from gpr_tpu_torch.ops import fullchol as tfc
+from torch_split_order import cholesky_split, panel_update_split
 
 F32 = np.float32
 TPU_KW = dict(panel=128, block=64, sw=16, interpret=True)  # test_fullchol.py's small config
@@ -185,3 +186,93 @@ class TestSafeWrapper:
         assert float(j) > 0.0
         K = _ref_gram(X, "gaussian", 1.3, 2.1, float(j))
         assert np.abs(L @ L.T - K).max() / np.abs(K).max() < 2e-3
+
+
+class TestSplitK:
+    """K2's split plan (ops/fullchol.py::_split_plan, _split_pieces) and the
+    plain version that sums in its order (tests/torch_split_order.py).  The split sums are float32
+    products of 128-deep slices added in another order than one product:
+    1e-5 of the factor's largest entry against the one-product reference,
+    and the file's 3e-3 against JAX's Pallas kernel."""
+
+    @staticmethod
+    def _block_of(u, units, blocks):  # csrc/fullchol.cu::panel_strip_kernel's formula
+        return ((u + 1) * blocks - 1) // units
+
+    @pytest.mark.parametrize("sms", [132, 114])  # H100 SXM, H100 PCIe
+    @pytest.mark.parametrize("n_pad", [128, 256, 384, 1024, 4096, 8192, 16384])
+    def test_plan_covers_every_k_once_in_whole_fold_slices(self, n_pad, sms):
+        for j in range(n_pad // tfc.PANEL):
+            blocks = tfc._split_plan(n_pad, j, sms)
+            tiles = (n_pad - j * tfc.PANEL) // tfc.PANEL
+            if j == 0:
+                assert blocks == 0 and tfc._scratch_tiles(n_pad, j, sms) == 0
+                continue
+            assert 1 <= blocks == min(j * tiles, sms)
+            pieces = tfc._split_pieces(n_pad, j, blocks)
+            slots, work = [], [0] * blocks
+            for t, ps in enumerate(pieces):
+                k = 0
+                for slot, lo, hi in ps:  # contiguous, in order: every k once
+                    assert lo == k and hi > lo and lo % tfc.PANEL == 0 and hi % tfc.PANEL == 0
+                    k = hi
+                    work[slot - t] += (hi - lo) // tfc.PANEL
+                assert k == j * tfc.PANEL
+                first = self._block_of(t * j, tiles * j, blocks)
+                last = self._block_of((t + 1) * j - 1, tiles * j, blocks)
+                assert [slot - t for slot, _, _ in ps] == list(range(first, last + 1))
+                slots += [slot for slot, _, _ in ps]
+            assert len(set(slots)) == len(slots)  # no two pieces share a slot
+            assert max(slots) < tfc._scratch_tiles(n_pad, j, sms)
+            assert max(work) - min(work) <= 1  # every block the same work, to one slice
+        most = max(tfc._scratch_tiles(n_pad, j, sms) for j in range(n_pad // tfc.PANEL))
+        assert (most == 0) == (n_pad == 128)  # one panel has no update
+
+    def test_scratch_is_bounded(self):
+        n_pad = 16384
+        most = max(tfc._scratch_tiles(n_pad, j, 132) for j in range(n_pad // tfc.PANEL))
+        assert most <= 132 + 127
+        assert most * tfc.PANEL * tfc.PANEL * 4 <= 17.4e6
+        for j in (64, 100, 120, 127):  # the late panels still fill the card
+            tiles = (n_pad - j * tfc.PANEL) // tfc.PANEL
+            assert tfc._split_plan(n_pad, j, 132) == min(j * tiles, 132)
+
+    def test_forced_block_counts_agree(self, rng):
+        A = torch.tensor(_spd(rng, 1024))
+        L, _ = tfc.fused_cholesky_reference(A)
+        j = 5
+        Lj = L.clone()
+        Lj[:, j * 128:] = 0.0
+        base = Lj.clone()
+        tfc.panel_update_reference(base, j, A)
+        for blocks in (1, 2, 3, 7, 15):
+            out = Lj.clone()
+            panel_update_split(out, j, A, blocks=blocks)
+            assert _relerr(out, base) < 1e-5, blocks
+
+    @pytest.mark.parametrize("n", [384, 1024])
+    def test_split_order_matrix_mode(self, rng, n):
+        A = _spd(rng, n)
+        L, W = cholesky_split(torch.tensor(A))
+        L1, W1 = tfc.fused_cholesky_reference(torch.tensor(A))
+        assert _relerr(L, L1) < 1e-5 and _relerr(W, W1) < 1e-5
+        assert torch.all(torch.triu(L, 1) == 0.0)
+        Lj = np.asarray(jfc.cholesky_fused(A, **TPU_KW))
+        assert np.abs(L.numpy() - Lj).max() / np.abs(Lj).max() < 3e-3
+
+    @pytest.mark.parametrize("n", [384, 1024])
+    def test_split_order_gram_mode(self, rng, n):
+        X = rng.standard_normal((n, 3)).astype(F32)
+        kw = dict(form="gaussian", sigma=1.3, scale=2.1, diag=1.0)
+        L, W = cholesky_split(torch.tensor(X), "gaussian", 1.3, 2.1, 1.0, 1.0)
+        L1, W1 = tfc.fused_cholesky_reference(torch.tensor(X), **kw)
+        assert _relerr(L, L1) < 1e-5 and _relerr(W, W1) < 1e-5
+        Lj, Wj = jfc.gram_cholesky_fused(X, 1.3, 2.1, 1.0, 1.0, form="gaussian",
+                                         return_winv=True, **TPU_KW)
+        Lj, Wj = np.asarray(Lj), np.asarray(Wj)
+        assert np.abs(L.numpy() - Lj).max() / np.abs(Lj).max() < 3e-3
+        assert np.abs(W.numpy() - Wj).max() / np.abs(Wj).max() < 3e-3
+
+
+def _relerr(a, b):
+    return float((a - b).abs().max() / b.abs().max())
