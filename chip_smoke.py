@@ -11,9 +11,9 @@ process per source, in parallel), then:
      crout_chol_wi, K9 fleet_fused; K10-K14 in phases 14 and 18, K15-K18 in
      21, K19-K20 in 25) against its plain torch version on the card: small
      ragged shapes, the contracts of the fused factorization, each kernel at
-     the shapes the n=16384 fit gives it, K5 (lower triangle) at a
-     ragged shape and at the top-level trailing updates of n=3773 and
-     n=16383, K6 on all 7 forms with per-member parameters at B=3, n=200,
+     the shapes the n=16384 fit gives it, K5 (lower triangle, in place on
+     views of row stride 16383) at a ragged shape and at the top-level
+     trailing updates of n=3773 and n=16383, K6 on all 7 forms with per-member parameters at B=3, n=200,
      d=37 and at the fleet's full width, K7 and K8 at b = 32, 64, 33 and 128
      with NaN above the diagonal and one member that is not positive definite
      (K8 strided, in place), on the fleet's first diagonal block, and K8 on
@@ -46,7 +46,12 @@ process per source, in parallel), then:
      total per fit against its plain version's, value + gradient at the
      three training shapes against the plain float32 route, K5's total per
      n=16383 factorization against its plain version and torch.addmm, and
-     the blocked-syrk factorization against torch.linalg.cholesky;
+     the blocked-syrk factorization against torch.linalg.cholesky; the
+     fused-gram factorization whole (its lookahead overlaps K3 and K4 with
+     the next panel's products, which per-launch events cannot time), and a
+     torch.profiler trace of one bench fit: device time by kernel, the
+     card's idle share, the factorization's and cho_solve_panels' spans and
+     busy time, and how much of each K3 launch ran under the products;
  11. times the fleet fit at both sizes and the fleet value + gradient
      against the plain float32 route, K6 and K7 per fit against their plain
      versions (K7 also against torch.linalg.cholesky_ex on the same tiles),
@@ -374,22 +379,28 @@ def main() -> int:
               j0, j1, ", ".join(f"{k} {v['max_abs_err']:.3g}" for k, v in kstats.items()),
               ", ".join(f"j={j}: {b}" for j, b in blocks1c.items())))
 
-    # K5 on the lower triangle: a ragged shape and the top-level trailing
-    # updates of n=3773 (1853 x 1920) and n=16383 (8191 x 8192).  float32
-    # sums of k terms in another order than cuBLAS's: the error relative to
-    # the largest |S| grows like sqrt(k) eps, so the gate is 1e-5 sqrt(k).
+    # K5 on the lower triangle, in place on views of one buffer with the
+    # n=16383 recursion's row stride (rows not 16-byte aligned): a ragged
+    # shape and the top-level trailing updates of n=3773 (1853 x 1920) and
+    # n=16383 (8191 x 8192).  float32 sums of k terms in another order than
+    # cuBLAS's: the error relative to the largest |S| grows like sqrt(k) eps,
+    # so the gate is 1e-5 sqrt(k).
     g5 = torch.Generator(device=dev).manual_seed(5)
+    buf5 = torch.empty((16383, 16383), dtype=torch.float32, device=dev)
     for m, k in ((200, 130), (1853, 1920), (8191, 8192)):
-        A22 = torch.randn((m, m), generator=g5, device=dev)
-        L21 = torch.randn((m, k), generator=g5, device=dev) / math.sqrt(k)
-        S = syrk.syrk_update(A22, L21)
+        A22, L21 = buf5[k:k + m, k:k + m], buf5[k:k + m, :k]
+        A22.copy_(torch.randn((m, m), generator=g5, device=dev))
+        L21.copy_(torch.randn((m, k), generator=g5, device=dev) / math.sqrt(k))
         R = syrk.syrk_update_reference(A22, L21)
+        S = syrk.syrk_update(A22, L21, out=A22)
         low = torch.ones((m, m), dtype=torch.bool, device=dev).tril_()
         err = float((S - R)[low].abs().max())
         scale = float(R[low].abs().max())
         check(err <= 1e-5 * math.sqrt(k) * scale, f"K5 at m={m} k={k}: {err} of {scale}")
-        print(f"phase 1d K5 syrk_update m={m} k={k}: max abs err {err:.3g} (largest |S| {scale:.3g})")
+        print(f"phase 1d K5 syrk_update m={m} k={k} (row stride 16383, in place): max abs err "
+              f"{err:.3g} (largest |S| {scale:.3g})")
         del A22, L21, S, R, low
+    del buf5
     kstats["syrk_update"] = {"max_abs_err": err}  # at the n=16383 top level
     torch.cuda.empty_cache()
 
@@ -948,6 +959,54 @@ def main() -> int:
         fn()
         return float(np.median([timed(fn) for _ in range(reps)]))
 
+    # the factorization whole: the lookahead overlaps K3 and K4 with the next
+    # panel's products, which per-launch events cannot see
+    fact16 = [timed(lambda: fullchol.gram_cholesky_fused(Xb, *gram_args[1:], form="gaussian"))
+              for _ in range(6)][1:]
+
+    # where one bench fit's device time goes: a torch.profiler trace; kernels
+    # on two streams overlap, so busy time is the union of their intervals
+    from torch.profiler import ProfilerActivity, profile
+
+    def busy_ms(spans):
+        tot, end = 0.0, -math.inf
+        for a, b in sorted(spans):
+            if b > end:
+                tot += b - max(a, end)
+                end = b
+        return tot / 1e3
+
+    fact_names = ("panel_products", "panel_last", "panel_strip", "panel_solve", "diag_factor_inv")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tg.fit(bench_k, Xb, Yb, sigma=0.1, use_pallas_gram=True)
+        torch.cuda.synchronize()
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > e.time_range.start]
+    check(len(spans) > 0, "the profiler saw no device time in the bench fit")
+    by_k16 = {}
+    for name, a, b in spans:
+        key = name.split("(")[0].split("<")[0].replace("void ", "").replace("gpr::", "")[:48]
+        t_, c_ = by_k16.get(key, (0.0, 0))
+        by_k16[key] = (t_ + (b - a) / 1e3, c_ + 1)
+    in_fact = [sp for sp in spans if any(f in sp[0] for f in fact_names)]
+    f_end = max(b for _, _, b in in_fact)
+    after = [(a, b) for name, a, b in spans if a >= f_end]
+    t0_, t1_ = min(a for _, a, _ in spans), max(b for _, _, b in spans)
+    trace16 = {
+        "span_ms": (t1_ - t0_) / 1e3,
+        "busy_ms": busy_ms([(a, b) for _, a, b in spans]),
+        "factorization_span_ms": (f_end - min(a for _, a, _ in in_fact)) / 1e3,
+        "factorization_busy_ms": busy_ms([(a, b) for _, a, b in in_fact]),
+        "after_span_ms": (t1_ - f_end) / 1e3,  # cho_solve_panels and what follows it
+        "after_busy_ms": busy_ms(after),
+    }
+    trace16["idle_share"] = 1.0 - trace16["busy_ms"] / trace16["span_ms"]
+    # the lookahead's aim: each K3 launch under the next panel's products
+    prods = [(a, b) for name, a, b in spans if "panel_products" in name]
+    k3 = sorted((a, b) for name, a, b in spans if "diag_factor_inv" in name)
+    k3_hidden = [sum(max(0.0, min(b, d_) - max(a, c_)) for c_, d_ in prods) / (b - a) for a, b in k3]
+    k3_exposed = sum((b - a) * (1.0 - h) for (a, b), h in zip(k3, k3_hidden)) / 1e3
+
     kstats["gram_tile"].update(
         ms=median_ms(lambda: gop.gram(Xg, Xg, 8.0, 1.0, 1.0, gram_args[4])),
         plain_ms=median_ms(lambda: gop.gram_reference(Xg, Xg, 8.0, 1.0, 1.0, gram_args[4])),
@@ -1044,11 +1103,17 @@ def main() -> int:
     kstats["panel_update"].update(sum_bounds(k2_parts, (495e12 / 3, "3xTF32 495/3 = 165 TFLOP/s")),
                                   bound_fp32_ms=sum_bounds(k2_parts)["bound_ms"])
     kstats["diag_factor_inv"].update(sum_bounds([(2.0 * P ** 3 / 3.0, 4.0 * 3 * P * P)] * nc))
+    # K4 computes in FP32; W_j is lower triangular, so the product needs
+    # rows * 128 * 129 FLOP a panel; it reads P and W_j's lower triangle and
+    # writes P's place
     kstats["panel_solve"].update(sum_bounds([
-        (2.0 * (n - (j + 1) * P) * P * P, 4.0 * (2 * (n - (j + 1) * P) * P + P * P))
+        (1.0 * (n - (j + 1) * P) * P * (P + 1), 4.0 * (2 * (n - (j + 1) * P) * P + P * (P + 1) / 2))
         for j in range(nc - 1)]))
-    kstats["syrk_update"].update(sum_bounds([
-        (1.0 * m * (m + 1) * k, 4.0 * (m * (m + 1) + m * k)) for m, k in k5_shapes]))
+    # K5 computes on the 3xTF32 tier, as K2
+    tf32x3 = (495e12 / 3, "3xTF32 495/3 = 165 TFLOP/s")
+    k5_parts = [(1.0 * m * (m + 1) * k, 4.0 * (m * (m + 1) + m * k)) for m, k in k5_shapes]
+    kstats["syrk_update"].update(sum_bounds(k5_parts, tf32x3),
+                                 bound_fp32_ms=sum_bounds(k5_parts)["bound_ms"])
 
     print(f"phase 10 timings ({smi}), CUDA events, medians:")
     print(f"  fit n=16384 d=128 q=8: hand-written route {med_port:.2f} ms "
@@ -1058,10 +1123,23 @@ def main() -> int:
           f"{lib[0]:.2f}; bound {kstats['panel_update']['bound_ms']:.2f} 3xTF32, "
           f"{kstats['panel_update']['bound_fp32_ms']:.2f} FP32), "
           f"K3 diag_factor_inv {ker[1]:.2f} ms (plain {ref[1]:.2f}, cholesky_ex + solve_triangular "
-          f"{lib[1]:.2f}), K4 panel_solve {ker[2]:.2f} ms (plain {ref[2]:.2f}, matmul {lib[2]:.2f}); "
+          f"{lib[1]:.2f}), K4 panel_solve {ker[2]:.2f} ms (plain {ref[2]:.2f}, matmul {lib[2]:.2f}; "
+          f"bound {kstats['panel_solve']['bound_ms']:.3f} FP32); "
           f"sums of per-launch events, each launch queued behind a device sleep; "
           f"torch.linalg.cholesky of K {chol_ms:.2f} ms")
     print(f"  K2 product blocks per panel: {', '.join(runs_b)}")
+    print(f"  the fused-gram factorization whole (lookahead, two streams): median "
+          f"{float(np.median(fact16)):.2f} ms (runs {', '.join(f'{t:.2f}' for t in fact16)})")
+    print(f"  profiled bench fit: device span {trace16['span_ms']:.2f} ms, busy {trace16['busy_ms']:.2f} "
+          f"(idle share {100 * trace16['idle_share']:.1f} %); factorization span "
+          f"{trace16['factorization_span_ms']:.2f} busy {trace16['factorization_busy_ms']:.2f}; after it "
+          f"(cho_solve_panels) span {trace16['after_span_ms']:.2f} busy {trace16['after_busy_ms']:.2f}")
+    hid = [j for j, h in enumerate(k3_hidden) if h >= 0.9]
+    print(f"  K3 under the next panel's products (profiled fit): {len(hid)} of {len(k3_hidden)} launches "
+          f"at least 90 % hidden (panels {hid[0] if hid else '-'}-{hid[-1] if hid else '-'}); "
+          f"K3 time not hidden {k3_exposed:.2f} ms")
+    print("  profiled bench fit, device ms (launches): " + "; ".join(
+        f"{k} {v[0]:.2f} ({v[1]})" for k, v in sorted(by_k16.items(), key=lambda kv: -kv[1][0])[:10]))
     print(f"  K1 gram_tile n=384 d=128: {kstats['gram_tile']['ms']:.4f} ms "
           f"(plain {kstats['gram_tile']['plain_ms']:.4f}); n=16384 d=128 tril: {big_ms:.2f} ms "
           f"(plain full {big_plain:.2f})")
@@ -1070,7 +1148,9 @@ def main() -> int:
               f"{', '.join(f'{t:.1f}' for t in rp)}); plain f32 {tq:.2f} ms (runs "
               f"{', '.join(f'{t:.1f}' for t in rq)})")
     print(f"  K5 per n=16383 factorization ({len(k5_shapes)} launches, (m, k) = {k5_shapes}): "
-          f"kernel {runs['kernel']} ms, plain {runs['plain']} ms, torch.addmm {runs['library']} ms")
+          f"kernel {runs['kernel']} ms, plain {runs['plain']} ms, torch.addmm {runs['library']} ms; "
+          f"bound {kstats['syrk_update']['bound_ms']:.2f} 3xTF32, "
+          f"{kstats['syrk_update']['bound_fp32_ms']:.2f} FP32")
     print(f"  blocked-syrk factorization n=16383: {fact_ms:.2f} ms (runs "
           f"{', '.join(f'{t:.1f}' for t in t_fact)}); torch.linalg.cholesky {tchol_ms:.2f} ms "
           f"(runs {', '.join(f'{t:.1f}' for t in t_tchol)})")
@@ -1104,8 +1184,6 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # where the fleet fit's time goes: a torch.profiler trace of 5 fits
-    from torch.profiler import ProfilerActivity, profile
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t_w = time.perf_counter()
         for _ in range(5):

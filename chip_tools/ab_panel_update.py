@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time K2 (panel_update), K3 (diag_factor_inv) and K4 (panel_solve) per
 fit, the fused-gram fit at n=16384, d=128, q=8 and the MLL value + gradient
-there (route fused-matrix) for the gpr_tpu_torch package under a given root,
-on one CUDA card.
+there (route fused-matrix), and K5 (syrk_update) per n=16383 blocked
+factorization and the MLL value + gradient at n=16383 (route blocked-syrk)
+for the gpr_tpu_torch package under a given root, on one CUDA card.
 
     python3 chip_tools/ab_panel_update.py <root> <label> [--fits N]
 
@@ -17,8 +18,11 @@ gitignored tmp_chip/:
 
 Prints one line: each kernel's total per fit (sum of per-launch CUDA events)
 for 3 factorizations, 4 fit times and 3 MLL times (the first of each
-includes the warm-up), in ms; then the device time of each CUDA kernel in
-one fit from a torch.profiler trace.  Each timed launch is queued behind a
+includes the warm-up), in ms; one line with K5's total per n=16383
+factorization (sum of per-launch events over the recursion's trailing
+updates) for 3 factorizations, per factorization at the breathing shape
+(n=3773, d=5) for 5, and 3 MLL times at n=16383; then the device
+time of each CUDA kernel in one fit from a torch.profiler trace.  Each timed launch is queued behind a
 short device sleep, so that its events time the kernel and not the host's
 time to enqueue it.
 
@@ -42,7 +46,7 @@ def main() -> int:
 
     import gpr_tpu_torch as tg
     from gpr_tpu_torch.gp import likelihood as lk
-    from gpr_tpu_torch.ops import _cuda, fullchol
+    from gpr_tpu_torch.ops import _cuda, blocked, fullchol
 
     if not tg.__file__.startswith(root):
         raise RuntimeError(f"imported {tg.__file__}, not the tree under {root}")
@@ -91,6 +95,48 @@ def main() -> int:
     parts = "; ".join(f"{k} per fit {[round(x, 2) for x in v]} ms" for k, v in per_fit.items())
     print(f"{label}: {parts}; fit {[round(x, 2) for x in fit]} ms; "
           f"MLL value + gradient {[round(x, 2) for x in mll]} ms", flush=True)
+
+    # K5 per blocked factorization at n=16383 and at the breathing shape
+    # (n=3773, d=5, Gaussian(2, 1)): each trailing update timed alone
+    def gram(X, sigma):
+        sq = (X * X).sum(1)
+        K = torch.exp(-0.5 * (sq[:, None] + sq[None, :] - 2.0 * X @ X.T).clamp(min=0.0) / sigma ** 2)
+        K.diagonal().add_(args[4])
+        return K
+
+    orig = blocked.syrk_update
+
+    def k5_per_factorization(K):
+        tot = [0.0]
+
+        def timed_update(A22, L21, out):
+            tot[0] += timed(lambda: orig(A22, L21, out=out))
+            return out
+
+        blocked.syrk_update = timed_update
+        try:
+            L = blocked.cholesky_blocked(K)
+        finally:
+            blocked.syrk_update = orig
+        if not torch.isfinite(L[-1, -1]):
+            raise RuntimeError("the timed blocked factorization failed")
+        return tot[0]
+
+    X163, Y163 = Xb[:16383], Yb[:16383]
+    K = gram(X163, 8.0)
+    k5 = [k5_per_factorization(K) for _ in range(3)]
+    X4 = torch.tensor(np.random.default_rng(4).standard_normal((3773, 5)), dtype=torch.float32,
+                      device=dev)  # chip_smoke.py phase 4's data
+    K = gram(X4, 2.0)
+    k5_3773 = [k5_per_factorization(K) for _ in range(5)]
+    del K
+    torch.cuda.empty_cache()
+    mll163 = [timed(lambda: lk.mll_value_and_grad(tg.Gaussian(8.0, 1.0), X163, Y163, 0.1))
+              for _ in range(3)]
+    torch.cuda.empty_cache()
+    print(f"{label}: K5 per n=16383 factorization {[round(x, 2) for x in k5]} ms; per n=3773 "
+          f"factorization {[round(x, 3) for x in k5_3773]} ms; MLL value + gradient n=16383 "
+          f"{[round(x, 2) for x in mll163]} ms", flush=True)
 
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

@@ -23,7 +23,7 @@
 //      (B, n / p, p, p) scratch W); the panel solve P = S_pk W_k^T, 64 rows at
 //      a time staged through shared memory, written over S_pk; the trailing
 //      update S22 -= P P^T over its lower 64x64 tiles with gram_tile.cuh's
-//      syrk_tile (K5's register tile, summed in two levels; a diagonal tile
+//      syrk_tile (a 64x64 FP32 register tile, summed in two levels; a diagonal tile
 //      writes only its lower triangle, so L's strict upper stays 0 at any p);
 //   3. alpha by the block substitution y_i = W_i (y_i - L[i, :i] y[:i]),
 //      x_i = W_i^T (y_i - L[i+1:, i]^T x[i+1:]), 8 right-hand sides per pass,

@@ -4,9 +4,9 @@
 // Replaces the TPU kernel gpr_tpu/ops/pallas_fullchol.py::_fused_kernel
 // (line 722), launched once per factorization by _call_fused (1125).  On the
 // TPU the whole factorization is one dispatch whose sequential grid walks
-// the panels; here the host walks them and launches three kernels per panel
-// on PyTorch's current stream, whose order takes the place of the TPU grid's
-// "arbitrary" (sequential) semantics:
+// the panels; here the host walks them (ops/fullchol.py::_factor) and
+// launches the kernels below on two streams, whose order and events take
+// the place of the TPU grid's "arbitrary" (sequential) semantics:
 //
 //   K2 panel_update     P = S - L[rows, :jp] L[panel, :jp]^T, written into
 //                       column block j of L; zeros into L[:jp, panel].
@@ -20,26 +20,40 @@
 //   * K2's update is n^3/3 FLOPs over a factorization and compute bound.  It
 //     runs on the tensor cores in 3xTF32 (tc_tile.cuh: wgmma.m64n128k8, A
 //     split in registers, B split once per k-slice into shared memory, a
-//     cp.async ring, two-level sums), one 128x128 tile a block at a time, so
-//     its bound is the FLOPs at 495/3 = 165 TFLOP/s (against 67 for FP32
-//     FMA).  A late panel has few row tiles but a deep k range, an early one
-//     many tiles and a short range, so the work is cut in 128-deep slices of
-//     each tile and dealt out evenly to one block per SM
-//     (ops/fullchol.py::_split_plan): a tile's k range is split into the
-//     pieces its blocks hold, each written to a scratch slot, and a second
-//     kernel in stream order builds S (gram_tile.cuh in Gram mode),
-//     subtracts the tile's pieces in a fixed order and writes P.  No
-//     atomics: L is bit-identical from call to call.  The two kernels are one
-//     counted K2 launch.
-//   * K3 is a latency-bound chain on one SM while the rest of the card waits
-//     for it.  It factors the 128x128 block by four 32-wide diagonal blocks:
-//     one warp factors each 32x32 block in registers with shuffles (no block
-//     barrier), the rows below solve against it and the trailing update runs
-//     as products on all warps, the four diagonal inverses run side by side
-//     on four warps, and W's off-diagonal blocks come from products in
-//     block-row order: 18 block barriers a panel in place of the first
-//     design's 512.
-//   * K4 is a small GEMM per panel in plain FP32 FMA.
+//     cp.async ring, two-level sums), so its bound is the FLOPs at 495/3 =
+//     165 TFLOP/s (against 67 for FP32 FMA).  The update of panel j is cut
+//     in three stages, each a kernel:
+//       (a) the products over the columns before panel j - 1, k in [0, jp -
+//           128): a late panel has few row tiles but a deep k range, an
+//           early one many tiles and a short range, so each tile's 128-deep
+//           slices are dealt out evenly to one block an SM but one
+//           (ops/fullchol.py::_split_plan), each block's piece of a tile
+//           written to a scratch slot;
+//       (b) the last slice, k in [jp - 128, jp): L[rows, panel j - 1]
+//           L[panel j, panel j - 1]^T by the same tensor-core tile, into
+//           one more slot a tile;
+//       (c) the strip: S (gram_tile.cuh in Gram mode), minus the tile's
+//           pieces in a fixed order, the last slice last, into P.
+//     (a) reads only columns that are final once panel j - 2 is solved, so
+//     the host runs it on a second stream beside K3 and K4 of panel j - 1
+//     (the lookahead), on all SMs but one, which K3 takes.  No atomics: L
+//     is bit-identical from call to call, and equal to running the stages
+//     in one stream.
+//   * K3 is a latency-bound chain on one SM.  It factors the 128x128 block by
+//     four 32-wide diagonal blocks: one warp factors each 32x32 block in
+//     registers with shuffles (no block barrier), the rows below solve
+//     against it and the trailing update runs as products on all warps, the
+//     four diagonal inverses run side by side on four warps, and W's
+//     off-diagonal blocks come from products in block-row order: 18 block
+//     barriers a panel.  The lookahead hides it behind the next panel's
+//     products wherever those take longer.
+//   * K4 is P W_j^T with K = 128, in FP32 FMA on the CUDA cores: 3xTF32 at
+//     this depth measured 8x the rms error of FP32 against float64 and
+//     moved a standing accuracy gate past its limit, so K4 keeps the sums
+//     of a plain GEMM (each entry one FMA chain in the order of k), bit for
+//     bit, at 32 rows a block so that the late panels' few rows still
+//     spread over several SMs, W_j staged once a block, and the zero terms
+//     of W_j's upper triangle skipped a warp at a time.
 //
 // Contracts kept from the TPU kernel:
 //   * matrix mode reads only A[r, c] with r >= c (potrf 'L');
@@ -60,30 +74,34 @@ constexpr int kDiagWarps = kDiagThreads / 32;
 constexpr int kDiagLd = kPanel + 4;  // K3's smem row: see the K3 section
 constexpr int kNb = 32;              // K3's diagonal block
 constexpr size_t kDiagSmem = (2 * kPanel * kDiagLd + 3 * kNb * kNb) * sizeof(float);
-constexpr int kSolveRows = 64;
-constexpr int kSolveLd = kPanel + 4;
+constexpr int kProducts = 1, kLastSlice = 2, kStrip = 4;  // stages of K2
+constexpr int kSolveRows = 32;        // K4: rows of P a block
+constexpr int kSolveLd = kPanel + 4;  // K4's smem rows of P and of W_j
+constexpr size_t kSolveSmem = (size_t)(kSolveRows + kPanel) * kSolveLd * sizeof(float);  // 84480 B
 static_assert(kTcRows == kPanel, "K2's tensor-core tile is one panel wide");
 
 // ---------------------------------------------------------------- K2 -------
 // (a) the products.  grid (blocks); block (kTcThreads); dynamic shared
-// memory kTcSmem.  Panel j has T = (n_pad - jp) / 128 row tiles of j
-// 128-deep slices each, U = T j units in tile-major order.  Block b
-// takes units [b U / blocks, (b + 1) U / blocks): for each tile t they
-// touch, it sums L[jp + 128 t + r, k] L[jp + c, k] over its k range into
-// scratch slot b + t (128 x 128).  Every block gets the same work to within
-// one unit, so the narrow late panels fill the card as the wide early ones.
+// memory kTcSmem.  Panel j has T = (n_pad - jp) / 128 row tiles of ks =
+// j - 1 slices 128 deep each (k in [0, jp - 128)), U = T ks units in
+// tile-major order.  Block b takes units [b U / blocks, (b + 1) U / blocks):
+// for each tile t they touch, it sums L[jp + 128 t + r, k] L[jp + c, k] over
+// its k range into scratch slot b + t (128 x 128).  Every block gets the same
+// work to within one unit, so the narrow late panels fill the card as the
+// wide early ones.
 __global__ void __launch_bounds__(kTcThreads, 1)
     panel_products_kernel(const float* __restrict__ L, float* __restrict__ part, int n_pad,
                           int j, int blocks) {
   extern __shared__ __align__(128) float tc_smem[];
   const int jp = j * kPanel;
-  const long long units = (long long)(n_pad - jp) / kPanel * j;
+  const int ks = j - 1;
+  const long long units = (long long)(n_pad - jp) / kPanel * ks;
   const int b = blockIdx.x;
   const int u0 = (int)(b * units / blocks);
   const int u1 = (int)((b + 1) * units / blocks);
-  for (int t = u0 / j; t <= (u1 - 1) / j; ++t) {
-    const int lo = max(u0, t * j) - t * j;
-    const int hi = min(u1, (t + 1) * j) - t * j;
+  for (int t = u0 / ks; t <= (u1 - 1) / ks; ++t) {
+    const int lo = max(u0, t * ks) - t * ks;
+    const int hi = min(u1, (t + 1) * ks) - t * ks;
     const float* A = L + (size_t)(jp + t * kTcRows) * n_pad + lo * kPanel;
     const float* B = L + (size_t)jp * n_pad + lo * kPanel;
     TcAcc run;
@@ -92,9 +110,23 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 }
 
-// (b) the strip.  grid (kPanel / kTile, n_pad / kTile); block (kThreads).
-// S, minus the pieces of its row tile in block order (the order of k), into
-// column block j of L; exact zeros above it.
+// (b) the last slice.  grid (T); block (kTcThreads); dynamic shared memory
+// kTcSmem.  Tile t of panel j: L[jp + 128 t + r, k] L[jp + c, k] over the
+// 128 columns k of panel j - 1, into scratch slot s0 + t.
+__global__ void __launch_bounds__(kTcThreads, 1)
+    panel_last_kernel(const float* __restrict__ L, float* __restrict__ part, int n_pad, int j,
+                      int s0) {
+  extern __shared__ __align__(128) float tc_smem[];
+  const float* B = L + (size_t)j * kPanel * n_pad + (j - 1) * kPanel;
+  TcAcc run;
+  tc_rank_tile(B + (size_t)blockIdx.x * kTcRows * n_pad, B, n_pad, kPanel / kTcK, tc_smem, run);
+  tc_store(run, part + (size_t)(s0 + blockIdx.x) * kTcRows * kPanel, kPanel);
+}
+
+// (c) the strip.  grid (kPanel / kTile, n_pad / kTile); block (kThreads).
+// S, minus the pieces of its row tile in block order (the order of k), then
+// minus its last slice (slot s0 + t), into column block j of L; exact zeros
+// above it.
 template <int FORM>
 __global__ void __launch_bounds__(kThreads)
     panel_strip_kernel(const float* __restrict__ src, float* __restrict__ L,
@@ -144,17 +176,21 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   // 2. minus the pieces of this row tile, in a fixed order: blocks b_lo ..
-  // b_hi hold units t j .. t j + j - 1 (the block of unit u is
-  // ((u + 1) blocks - 1) / U), in slots b + t
-  if (blocks > 0) {
+  // b_hi hold units t ks .. t ks + ks - 1 (ks = j - 1; the block of unit u
+  // is ((u + 1) blocks - 1) / U), in slots b + t; then the last slice
+  if (j > 0) {
     const int t = (row0 - jp) / kPanel;
-    const long long units = (long long)(n_pad - jp) / kPanel * j;
-    const int b_lo = (int)(((long long)t * j + 1) * blocks - 1) / units;
-    const int b_hi = (int)(((long long)(t + 1) * j * blocks - 1) / units);
+    const int tiles = (n_pad - jp) / kPanel;
+    const int ks = j - 1;
+    const long long units = (long long)tiles * ks;
+    const int b_lo = blocks ? (int)((((long long)t * ks + 1) * blocks - 1) / units) : 0;
+    const int b_hi = blocks ? (int)(((long long)(t + 1) * ks * blocks - 1) / units) : -1;
+    const int s0 = blocks ? blocks + tiles - 1 : 0;
     const int r0 = (row0 - jp) % kPanel + ty * kPer;
     const int c0 = blockIdx.x * kTile + tx * kPer;
-    for (int b = b_lo; b <= b_hi; ++b) {
-      const float* p = part + (size_t)(b + t) * kPanel * kPanel;
+    for (int b = b_lo; b <= b_hi + 1; ++b) {
+      const int slot = b <= b_hi ? b + t : s0 + t;
+      const float* p = part + (size_t)slot * kPanel * kPanel;
 #pragma unroll
       for (int i = 0; i < kPer; ++i) {
         const float4 v = *reinterpret_cast<const float4*>(&p[(r0 + i) * kPanel + c0]);
@@ -172,6 +208,68 @@ __global__ void __launch_bounds__(kThreads)
     const float4 v = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     *reinterpret_cast<float4*>(&L[(size_t)(row0 + ty * kPer + i) * n_pad + col0 + tx * kPer]) = v;
   }
+}
+
+// ---------------------------------------------------------------- K4 -------
+// grid ((n_pad - (j + 1) 128) / 32); block (kThreads); dynamic shared memory
+// kSolveSmem.  A block stages its 32 rows of P and W_j's rows in shared
+// memory (coalesced 16-byte copies), then thread (tx = threadIdx.x / 8, ty =
+// threadIdx.x % 8) sums rows ty + 8 i (i < 4), columns 4 tx .. 4 tx + 3 by
+// FP32 FMA in the order of k from 0 (the sums of a plain GEMM, bit for bit),
+// reading P's rows and W_j's rows 4 k at a time.  W_j is lower triangular,
+// so warp w (columns 16 w .. 16 w + 15) stops at k = 16 w + 16: the terms it
+// skips are exact zeros.  The block reads its rows whole before it writes
+// them back in place, and no other block reads them.
+__global__ void __launch_bounds__(kThreads)
+    panel_solve_kernel(float* L, const float* __restrict__ W, int n_pad, int j) {
+  extern __shared__ __align__(16) float solve_smem[];
+  float* Ps = solve_smem;                   // [kSolveRows][kSolveLd]
+  float* Ws = Ps + kSolveRows * kSolveLd;   // [kPanel][kSolveLd]
+  float* Lp = L + (size_t)((j + 1) * kPanel + blockIdx.x * kSolveRows) * n_pad + j * kPanel;
+  const float* Wj = W + (size_t)j * kPanel * kPanel;
+  for (int e = threadIdx.x; e < kSolveRows * kPanel / 4; e += kThreads) {
+    const int r = e / (kPanel / 4), q = e % (kPanel / 4);
+    *reinterpret_cast<float4*>(&Ps[r * kSolveLd + 4 * q]) =
+        *reinterpret_cast<const float4*>(&Lp[(size_t)r * n_pad + 4 * q]);
+  }
+  for (int e = threadIdx.x; e < kPanel * kPanel / 4; e += kThreads) {
+    const int c = e / (kPanel / 4), q = e % (kPanel / 4);
+    *reinterpret_cast<float4*>(&Ws[c * kSolveLd + 4 * q]) =
+        *reinterpret_cast<const float4*>(&Wj[c * kPanel + 4 * q]);
+  }
+  __syncthreads();
+  const int tx = threadIdx.x / 8, ty = threadIdx.x % 8;
+  const int kend = 16 * (threadIdx.x / 32) + 16;
+  float acc[4][4] = {};
+  for (int k = 0; k < kend; k += 4) {
+    float p[4][4], w[4][4];  // p[i][e] = P[ty + 8 i][k + e], w[c][e] = W_j[4 tx + c][k + e]
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 v = *reinterpret_cast<const float4*>(&Ps[(ty + 8 * i) * kSolveLd + k]);
+      p[i][0] = v.x;
+      p[i][1] = v.y;
+      p[i][2] = v.z;
+      p[i][3] = v.w;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float4 v = *reinterpret_cast<const float4*>(&Ws[(4 * tx + c) * kSolveLd + k]);
+      w[c][0] = v.x;
+      w[c][1] = v.y;
+      w[c][2] = v.z;
+      w[c][3] = v.w;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(p[i][e], w[c][e], acc[i][c]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<float4*>(&Lp[(size_t)(ty + 8 * i) * n_pad + 4 * tx]) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
 }
 
 // ---------------------------------------------------------------- K3 -------
@@ -420,66 +518,6 @@ __global__ void __launch_bounds__(kDiagThreads, 1)
   }
 }
 
-// ---------------------------------------------------------------- K4 -------
-// grid ((n_pad - (j+1)*kPanel) / kSolveRows); block (kThreads).  Each block
-// owns whole rows of the panel: it reads its 64 x 128 slice of P into shared
-// memory before it writes any of it, so the in-place update is race free.
-__global__ void __launch_bounds__(kThreads)
-    panel_solve_kernel(float* __restrict__ L, const float* __restrict__ W, int n_pad, int j) {
-  __shared__ __align__(16) float Ps[kSolveRows][kSolveLd];
-  __shared__ __align__(16) float Ws[kChunk][kSolveLd];  // Ws[k][c] = W_j[c][k0 + k]
-  const int jp = j * kPanel;
-  const int row0 = (j + 1) * kPanel + blockIdx.x * kSolveRows;
-  float* Lp = L + (size_t)row0 * n_pad + jp;
-  const float* Wj = W + (size_t)j * kPanel * kPanel;
-  const int tx = threadIdx.x % 16;  // columns tx*8 .. tx*8+7
-  const int ty = threadIdx.x / 16;  // rows ty*4 .. ty*4+3
-
-  for (int e = threadIdx.x; e < kSolveRows * kPanel / 4; e += kThreads) {
-    const int r = e / (kPanel / 4), q = e % (kPanel / 4);
-    *reinterpret_cast<float4*>(&Ps[r][4 * q]) =
-        *reinterpret_cast<const float4*>(&Lp[(size_t)r * n_pad + 4 * q]);
-  }
-
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.0f;
-
-  for (int k0 = 0; k0 < kPanel; k0 += kChunk) {
-    for (int e = threadIdx.x; e < kPanel * kChunk / 4; e += kThreads) {
-      const int c = e / (kChunk / 4), q = e % (kChunk / 4);
-      const float4 w = *reinterpret_cast<const float4*>(&Wj[(size_t)c * kPanel + k0 + 4 * q]);
-      Ws[4 * q + 0][c] = w.x;
-      Ws[4 * q + 1][c] = w.y;
-      Ws[4 * q + 2][c] = w.z;
-      Ws[4 * q + 3][c] = w.w;
-    }
-    __syncthreads();  // also orders the Ps fill before its first read
-#pragma unroll
-    for (int kk = 0; kk < kChunk; ++kk) {
-      const float4 w0 = *reinterpret_cast<const float4*>(&Ws[kk][tx * 8]);
-      const float4 w1 = *reinterpret_cast<const float4*>(&Ws[kk][tx * 8 + 4]);
-      const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = Ps[ty * 4 + i][k0 + kk];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(p, w[c], acc[i][c]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float* dst = &Lp[(size_t)(ty * 4 + i) * n_pad + tx * 8];
-    *reinterpret_cast<float4*>(dst) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    *reinterpret_cast<float4*>(dst + 4) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-  }
-}
-
 template <int FORM>
 static void launch_strip(cudaStream_t s, const float* src, float* L, const float* part, int n_pad,
                          int n_true, int d, int j, int blocks, GramParams par, float diag) {
@@ -488,54 +526,159 @@ static void launch_strip(cudaStream_t s, const float* src, float* L, const float
                                                       par, diag);
 }
 
-}  // namespace gpr
+// the dynamic shared memory of K2's products and last slice, K3 and K4
+static cudaError_t smem_attributes() {
+  cudaError_t err = cudaFuncSetAttribute(panel_products_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTcSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(panel_last_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kTcSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(diag_factor_inv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kDiagSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(panel_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kSolveSmem);
+  return err;
+}
 
-// form: a gpr::Form code (Gram mode, src = X (n_true, d)) or -1 (matrix
-// mode, src = A (n_pad, n_pad)).  n_pad % 128 == 0.  blocks: 0 for j = 0,
-// else 1 .. j (n_pad - 128 j) / 128 (ops/fullchol.py::_split_plan); part
-// holds blocks + (n_pad - 128 j) / 128 - 1 tiles of 128 x 128.  Two kernels
-// in stream order: the products (for j > 0), the strip.
-extern "C" int gpr_panel_update(const float* src, float* L, float* part, int n_pad, int n_true,
-                                int d, int j, int blocks, int form, float sigma, float scale,
-                                float third, float diag, void* stream) {
-  using namespace gpr;
-  const GramParams par{sigma, scale, third};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long units = (long long)(n_pad - j * kPanel) / kPanel * j;
-  if (j == 0 ? blocks != 0 : (blocks < 1 || blocks > units)) return (int)cudaErrorInvalidValue;
-  if (blocks > 0) {
-    cudaError_t err = cudaFuncSetAttribute(panel_products_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTcSmem);
-    if (err != cudaSuccess) return (int)err;
+struct Src {  // K2's S: X (n_true, d) and a gpr::Form code, or A (form kMatrixMode)
+  const float* src;
+  int n_true, d, form;
+  GramParams par;
+  float diag;
+};
+
+// the stages of K2 for panel j named in the mask, in stream order, on
+// stream s (see gpr_panel_update); the strip needs the other two to have run
+static int panel_update(const Src& S, float* L, float* part, int n_pad, int j, int blocks,
+                        int stages, cudaStream_t s) {
+  const int jp = j * kPanel;
+  const int tiles = (n_pad - jp) / kPanel;
+  const long long units = (long long)tiles * (j - 1);
+  if (j < 2 ? blocks != 0 : (blocks < 1 || blocks > units)) return (int)cudaErrorInvalidValue;
+  if (stages < 1 || stages > 7 || (blocks == 0 && (stages & kProducts)) ||
+      (j == 0 && (stages & kLastSlice)))
+    return (int)cudaErrorInvalidValue;
+  if (stages & kProducts) {
     panel_products_kernel<<<blocks, kTcThreads, kTcSmem, s>>>(L, part, n_pad, j, blocks);
-    err = cudaGetLastError();
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  switch (form) {
-    case kMatrixMode: launch_strip<kMatrixMode>(s, src, L, part, n_pad, n_true, d, j, blocks, par, diag); break;
-    case kGaussian: launch_strip<kGaussian>(s, src, L, part, n_pad, n_true, d, j, blocks, par, diag); break;
-    case kRQ: launch_strip<kRQ>(s, src, L, part, n_pad, n_true, d, j, blocks, par, diag); break;
-    case kMatern12: launch_strip<kMatern12>(s, src, L, part, n_pad, n_true, d, j, blocks, par, diag); break;
-    case kMatern32: launch_strip<kMatern32>(s, src, L, part, n_pad, n_true, d, j, blocks, par, diag); break;
-    case kMatern52: launch_strip<kMatern52>(s, src, L, part, n_pad, n_true, d, j, blocks, par, diag); break;
+  if (stages & kLastSlice) {
+    const int s0 = blocks ? blocks + tiles - 1 : 0;
+    panel_last_kernel<<<tiles, kTcThreads, kTcSmem, s>>>(L, part, n_pad, j, s0);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (!(stages & kStrip)) return 0;
+  const float* src = S.src;
+  const int n_true = S.n_true, d = S.d;
+  switch (S.form) {
+    case kMatrixMode: launch_strip<kMatrixMode>(s, src, L, part, n_pad, n_true, d, j, blocks, S.par, S.diag); break;
+    case kGaussian: launch_strip<kGaussian>(s, src, L, part, n_pad, n_true, d, j, blocks, S.par, S.diag); break;
+    case kRQ: launch_strip<kRQ>(s, src, L, part, n_pad, n_true, d, j, blocks, S.par, S.diag); break;
+    case kMatern12: launch_strip<kMatern12>(s, src, L, part, n_pad, n_true, d, j, blocks, S.par, S.diag); break;
+    case kMatern32: launch_strip<kMatern32>(s, src, L, part, n_pad, n_true, d, j, blocks, S.par, S.diag); break;
+    case kMatern52: launch_strip<kMatern52>(s, src, L, part, n_pad, n_true, d, j, blocks, S.par, S.diag); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
+static int diag_factor_inv(float* L, float* W, int n_pad, int j, cudaStream_t s) {
+  diag_factor_inv_kernel<<<1, kDiagThreads, kDiagSmem, s>>>(L, W, n_pad, j);
+  return (int)cudaGetLastError();
+}
+
+static int panel_solve(float* L, const float* W, int n_pad, int j, cudaStream_t s) {
+  const int rows = n_pad - (j + 1) * kPanel;
+  if (rows <= 0) return (int)cudaErrorInvalidValue;
+  panel_solve_kernel<<<rows / kSolveRows, kThreads, kSolveSmem, s>>>(L, W, n_pad, j);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace gpr
+
+// form: a gpr::Form code (Gram mode, src = X (n_true, d)) or -1 (matrix
+// mode, src = A (n_pad, n_pad)).  n_pad % 128 == 0.  blocks: 0 for j < 2,
+// else 1 .. (j - 1) (n_pad - 128 j) / 128 (ops/fullchol.py::_split_plan);
+// part holds s0 + T tiles of 128 x 128, T = (n_pad - 128 j) / 128, s0 =
+// blocks + T - 1 (0 without products).  K2's stages in stream order: the
+// products (j >= 2), the last slice (j >= 1), the strip.
+extern "C" int gpr_panel_update(const float* src, float* L, float* part, int n_pad, int n_true,
+                                int d, int j, int blocks, int form, float sigma, float scale,
+                                float third, float diag, void* stream) {
+  using namespace gpr;
+  const cudaError_t err = smem_attributes();
+  if (err != cudaSuccess) return (int)err;
+  const Src S{src, n_true, d, form, GramParams{sigma, scale, third}, diag};
+  const int stages = (blocks ? kProducts : 0) | (j ? kLastSlice : 0) | kStrip;
+  return panel_update(S, L, part, n_pad, j, blocks, stages, static_cast<cudaStream_t>(stream));
+}
+
 extern "C" int gpr_diag_factor_inv(float* L, float* W, int n_pad, int j, void* stream) {
   using namespace gpr;
-  cudaError_t err = cudaFuncSetAttribute(diag_factor_inv_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDiagSmem);
+  const cudaError_t err = smem_attributes();
   if (err != cudaSuccess) return (int)err;
-  diag_factor_inv_kernel<<<1, kDiagThreads, kDiagSmem, static_cast<cudaStream_t>(stream)>>>(L, W, n_pad, j);
-  return (int)cudaGetLastError();
+  return diag_factor_inv(L, W, n_pad, j, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int gpr_panel_solve(float* L, const float* W, int n_pad, int j, void* stream) {
   using namespace gpr;
-  const int rows = n_pad - (j + 1) * kPanel;
-  if (rows <= 0) return (int)cudaErrorInvalidValue;
-  panel_solve_kernel<<<rows / kSolveRows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(L, W, n_pad, j);
-  return (int)cudaGetLastError();
+  const cudaError_t err = smem_attributes();
+  if (err != cudaSuccess) return (int)err;
+  return panel_solve(L, W, n_pad, j, static_cast<cudaStream_t>(stream));
+}
+
+// The whole factorization with the one-panel lookahead, stepped here so that
+// the host enqueues a panel in a few microseconds: per panel j, on stream
+// (the caller's) K2's last slice, a wait for panel j's products, the strip,
+// then K3 and K4; after the strip, panel j + 1's products on `side`, behind
+// an event on stream and ahead of one that the strip of j + 1 waits for.
+// plan[j] is K2's block count for panel j (ops/fullchol.py::_split_plan,
+// at most sms - 1); panel j uses scratch part0 (j even) or part1 (j odd),
+// each of the most tiles any panel needs.  The two events are made and
+// released here; the side stream is joined to stream before it returns.
+extern "C" int gpr_factor_lookahead(const float* src, float* L, float* W, float* part0,
+                                    float* part1, const int* plan, int n_pad, int n_true, int d,
+                                    int form, float sigma, float scale, float third, float diag,
+                                    void* side, void* stream) {
+  using namespace gpr;
+  cudaError_t err = smem_attributes();
+  if (err != cudaSuccess) return (int)err;
+  const Src S{src, n_true, d, form, GramParams{sigma, scale, third}, diag};
+  cudaStream_t s = static_cast<cudaStream_t>(stream), t = static_cast<cudaStream_t>(side);
+  cudaEvent_t ready, done;
+  err = cudaEventCreateWithFlags(&ready, cudaEventDisableTiming);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaEventCreateWithFlags(&done, cudaEventDisableTiming);
+  if (err != cudaSuccess) {
+    cudaEventDestroy(ready);
+    return (int)err;
+  }
+  const int nc = n_pad / kPanel;
+  int rc = 0;
+  for (int j = 0; j < nc && rc == 0; ++j) {
+    float* part = (j % 2) ? part1 : part0;
+    if (j) rc = panel_update(S, L, part, n_pad, j, plan[j], kLastSlice, s);
+    if (rc == 0 && j >= 2) rc = (int)cudaStreamWaitEvent(s, done, 0);
+    if (rc == 0) rc = panel_update(S, L, part, n_pad, j, plan[j], kStrip, s);
+    if (rc == 0 && 0 < j && j < nc - 1) {  // panel j + 1's products over k < 128 j
+      rc = (int)cudaEventRecord(ready, s);
+      if (rc == 0) rc = (int)cudaStreamWaitEvent(t, ready, 0);
+      if (rc == 0)
+        rc = panel_update(S, L, (j % 2) ? part0 : part1, n_pad, j + 1, plan[j + 1], kProducts, t);
+      if (rc == 0) rc = (int)cudaEventRecord(done, t);
+    }
+    if (rc == 0) rc = diag_factor_inv(L, W, n_pad, j, s);
+    if (rc == 0 && j + 1 < nc) rc = panel_solve(L, W, n_pad, j, s);
+  }
+  // join the side stream on every path, a failed one too, so that nothing
+  // runs there once the caller lets go of the scratch
+  const cudaError_t e1 = cudaEventRecord(done, t);
+  const cudaError_t e2 = e1 == cudaSuccess ? cudaStreamWaitEvent(s, done, 0) : e1;
+  cudaEventDestroy(ready);  // released once the device has passed them
+  cudaEventDestroy(done);
+  return rc ? rc : (int)e2;
 }

@@ -85,8 +85,8 @@ __device__ __forceinline__ void stage_rows(float (*dst)[kLd], const float* src,
   }
 }
 
-// The lower-triangle rank-k update shared by K2 (fullchol.cu) and K5
-// (syrk.cu), acc -= A B^T over k, summed in two levels: each staged chunk
+// The lower-triangle rank-k update of syrk_tile (K9's trailing update,
+// fleet.cu) and K16 (inplace.cu), acc -= A B^T over k, summed in two levels: each staged chunk
 // goes into a partial tile `part` (rank_update_chunk), which is folded into
 // acc every kFold chunks (fold_update).  A k-term update then rounds like
 // k / (kFold kChunk) + kFold kChunk additions instead of a chain of k FMAs
@@ -122,8 +122,8 @@ __device__ __forceinline__ void rank_update_chunk(const TileSmem& sm, float part
 }
 
 // One lower 64x64 tile (i, j), j <= i, of out = A22 - L21 L21^T, A22 and out
-// (m, m), L21 (m, k), each row-major with its row stride: the body of K5
-// (syrk.cu) and of K9's trailing update (fleet.cu).  Stages k-slices of the
+// (m, m), L21 (m, k), each row-major with its row stride: the body of K9's
+// trailing update (fleet.cu); K16 (inplace.cu) runs the same register tile.  Stages k-slices of the
 // two row tiles of L21, sums them in two levels into the 4x4 register tile of
 // each thread, and writes the rows and columns below m; with `tril` only the
 // entries on or below the diagonal of out.  A22 is read only where out is

@@ -24,7 +24,7 @@
 // device memory that each block reads for itself (the wrapper builds them once
 // per shape).  The TPU grid walks the target tiles in order; here every
 // (bm x bm) target tile is cut into (bm / 64)^2 register tiles of 64 x 64
-// (gram_tile.cuh: stage_rows, rank_update_chunk, fold_update, K5's tile) and
+// (gram_tile.cuh: stage_rows, rank_update_chunk, fold_update, syrk_tile's tile) and
 // all run at once.  That is race-free because no target tile overlaps the
 // source columns (the schedule's targets lie strictly right of them) and each
 // target element is written by one block only; S is not __restrict__, since

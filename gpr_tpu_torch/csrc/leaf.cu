@@ -21,7 +21,7 @@
 //                (crout.cuh: crout_sweep, tri_inverse, as K7-K9)
 //     column     L_ik = A_ik V_k^T for i > k, a tile per block
 //     trailing   the lower 64x64 tiles of A22 -= L21 L21^T (gram_tile.cuh:
-//                syrk_tile, K5's tile); the block that updates the next
+//                syrk_tile, K9's tile); the block that updates the next
 //                diagonal tile factors it in the same phase
 //   inverse (K13, K14), by block doubling over the 64-tiles: at width w (1, 2,
 //   4, ...) each pair of ranges A = [a0, a0 + w), C = [a0 + w, a0 + 2w) of
@@ -32,12 +32,12 @@
 //   its triangular factor.  K14 first inverts the diagonal tiles, a block each.
 //
 // Every sum runs in two levels (partials of 128 terms, gram_tile.cuh:
-// fold_update), as K2 and K5 do.
+// fold_update), as K9 and K16 do.
 //
 // Contracts kept from the TPU kernels:
 //   * only the lower triangle of the input is read: its strict upper may hold
-//     NaN or junk (the port's in-place recursion leaves A's upper and K5's
-//     undefined tiles there);
+//     NaN or junk (the port's in-place recursion leaves A's upper triangle
+//     there);
 //   * the outputs have an exactly-zero strict upper triangle;
 //   * a non-positive (or NaN) pivot gives NaN through sqrtf with no clamp
 //     (crout.cuh) and the NaN reaches every later block, so L[-1, -1] is NaN

@@ -1,5 +1,5 @@
-// Tensor-core tile of the rank-k update R = A B^T in 3xTF32, for K2
-// (fullchol.cu); written so that the other rank updates (K5, K16) can take it.
+// Tensor-core tile of the rank-k update R = A B^T in 3xTF32, for K2's
+// products and last slice (fullchol.cu) and K5 (syrk.cu).
 //
 // One block of kTcThreads (two warpgroups) computes one 128x128 tile
 // R[r][c] = sum_k A[r][k] B[c][k], with A and B each 128 rows of a row-major

@@ -95,6 +95,26 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def _call(name: str, symbol: str, argtypes, device: torch.device, args) -> None:
+    """Call C entry point ``symbol`` with ``args`` and PyTorch's current
+    stream on ``device``; raise on a non-zero return."""
+    lib = library()
+    fn = _bound.get((id(lib), symbol))
+    if fn is None:
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = _I
+        _bound[(id(lib), symbol)] = fn
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        msg = lib.gpr_error_string(rc).decode()
+        raise RuntimeError(f"{name}: launch failed with CUDA error {rc} ({msg})")
+
+
+_bound = {}
+
+
 class Kernel:
     """One C entry point of the library and the count of its launches, with
     its provenance: ``source``, the file under ``csrc/`` that defines
@@ -108,29 +128,34 @@ class Kernel:
         self.replaces = f"gpr_tpu/ops/{replaces}"
         self.argtypes = list(argtypes) + [_P]  # the stream comes last
         self.launches = 0
-        self._fn = None  # (library, its C function), bound at the first launch
 
     def launch(self, device: torch.device, *args) -> None:
-        lib = library()
-        if self._fn is None or self._fn[0] is not lib:
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = _I
-            self._fn = (lib, fn)
-        fn = self._fn[1]
-        with torch.cuda.device(device):
-            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-        if rc != 0:
-            msg = lib.gpr_error_string(rc).decode()
-            raise RuntimeError(f"{self.name}: launch failed with CUDA error {rc} ({msg})")
+        _call(self.name, self.symbol, self.argtypes, device, args)
         self.launches += 1
+
+
+class Schedule:
+    """A C entry point that steps a sequence of the kernels above itself (a
+    whole factorization), so that the host makes one call where it would
+    make hundreds; the caller names how many launches of each kernel it
+    made, and their counts grow by that."""
+
+    def __init__(self, name: str, symbol: str, argtypes):
+        self.name = name
+        self.symbol = symbol
+        self.argtypes = list(argtypes) + [_P]  # the stream comes last
+
+    def launch(self, device: torch.device, launches: dict, *args) -> None:
+        _call(self.name, self.symbol, self.argtypes, device, args)
+        for kernel, count in launches.items():
+            kernel.launches += count
 
 
 # (X, Y, K, n, m, d, form, sigma, scale, third, diag, tril)
 GRAM = Kernel("gram_tile", "gpr_gram", "gram.cu", "pallas_gram.py:38",
               [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I])
-# (src, L, part, n_pad, n_true, d, j, blocks, form, sigma, scale, third, diag): two kernels in
-# stream order (the products on `blocks` blocks, then the strip), one launch
+# (src, L, part, n_pad, n_true, d, j, blocks, form, sigma, scale, third, diag): three kernels
+# in stream order (the products on `blocks` blocks, the last slice, the strip), one launch
 PANEL_UPDATE = Kernel("panel_update", "gpr_panel_update", "fullchol.cu", "pallas_fullchol.py:722",
                       [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F])
 # (L, W, n_pad, j)
@@ -139,7 +164,11 @@ DIAG_FACTOR_INV = Kernel("diag_factor_inv", "gpr_diag_factor_inv", "fullchol.cu"
 # (L, W, n_pad, j)
 PANEL_SOLVE = Kernel("panel_solve", "gpr_panel_solve", "fullchol.cu", "pallas_fullchol.py:722",
                      [_P, _P, _I, _I])
-# (A22, lda, L21, ldl, out, ldo, m, k)
+# (src, L, W, part0, part1, plan, n_pad, n_true, d, form, sigma, scale, third, diag, side): K2-K4
+# over every panel with the one-panel lookahead
+FACTOR_LOOKAHEAD = Schedule("factor_lookahead", "gpr_factor_lookahead",
+                            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P])
+# (A22, lda, Lp, ldp, out, ldo, m, k_pad): Lp the aligned, zero-filled copy of L21
 SYRK_UPDATE = Kernel("syrk_update", "gpr_syrk_update", "syrk.cu", "pallas_syrk.py:73",
                      [_P, _I, _P, _I, _P, _I, _I, _I])
 

@@ -26,8 +26,8 @@ the strict upper of the returned factor is exactly 0.
 Where JAX builds a tree of blocks and assembles it, the port factors into
 one n x n buffer in place: the leaves, L21 and the Schur complements are
 written over the copy of A, so K5 updates A22 where it lies.  Its strict
-upper still holds A's upper triangle and K5's undefined tiles until the
-last step zeroes it.
+upper still holds A's upper triangle (on the CPU, the plain version's
+full A22 - L21 L21^T) until the last step zeroes it.
 
 With leaf inverses on (``leaf_inverse=True``, or ``GPR_CHOL_LEAF_INV=1`` read
 at call time as blocked.py:309-313 reads it), every leaf that

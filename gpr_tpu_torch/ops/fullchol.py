@@ -3,24 +3,34 @@
 Mirrors gpr_tpu/ops/pallas_fullchol.py:1125-1481 (``_call_fused``,
 ``cholesky_fused``, ``gram_cholesky_fused``, ``safe_gram_cholesky_fused``,
 ``cho_solve_panels``).  The TPU runs the whole factorization as one Pallas
-dispatch; here the host walks the panels of ``PANEL`` columns and, per panel
-j, runs three steps on the current stream:
+dispatch; here the panels of ``PANEL`` columns are walked one by one.  Per
+panel j:
 
   :func:`panel_update`     (K2) P = S - L[rows, :jp] L[panel, :jp]^T into
                            column block j of L, zeros above it.  S is built
                            from X (Gram mode, with the pad masking of
                            pallas_fullchol.py:788-804) or read from the lower
                            triangle of A (matrix mode).  On the card the
-                           product's k range is split into pieces dealt out
-                           evenly to the SMs (:func:`_split_plan`), and the
-                           pieces are subtracted from S in a fixed order.
+                           product runs in three stages: the products over
+                           k < jp - 128, their k range split into pieces
+                           dealt out evenly to the SMs (:func:`_split_plan`);
+                           the last 128-deep slice, k in [jp - 128, jp); the
+                           strip, S minus the pieces in a fixed order, the
+                           last slice last (:func:`_split_pieces`).
   :func:`diag_factor_inv`  (K3) L_jj = chol(P_jj), W_j = inv(L_jj).
   :func:`panel_solve`      (K4) L[r, panel] = P[r, :] W_j^T for r below.
 
 Each step launches its CUDA kernel (csrc/fullchol.cu) for a CUDA tensor and
-runs its ``*_reference`` torch version for a CPU tensor.  Contracts, as on the
-TPU: only the lower triangle of A is read; the strict upper of L is exactly
-0; a non-positive pivot NaN-poisons L[-1, -1].
+runs its ``*_reference`` torch version for a CPU tensor.  A factorization on
+the card runs them with a one-panel lookahead (:func:`_lookahead`), stepped
+by one C call so that the host enqueues a panel in microseconds: the
+products of panel j + 1 read only columns that are final once panel j - 1
+is solved, so they run on a second stream beside K3 and K4 of panel j, and
+the last slice and the strip of panel j + 1 follow K4 on the current stream.
+That moves no sum, only when it runs: L is bit-identical to the stages run
+one after another.  Contracts, as on the TPU: only the lower triangle of A is
+read; the strict upper of L is exactly 0; a non-positive pivot NaN-poisons
+L[-1, -1].
 
 The panel width is 128 (the TPU's 512 is TPU tuning, exact.py:408): the
 128x128 diagonal block and its inverse fit one block's shared memory.  Gram
@@ -29,6 +39,7 @@ mode pads n to a multiple of 128.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -49,37 +60,56 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+@functools.lru_cache(maxsize=None)
+def _side_stream(index: int):
+    """The lookahead's second stream on card ``index``."""
+    return torch.cuda.Stream(torch.device("cuda", index))
+
+
 def _split_plan(n_pad: int, j: int, sms: int) -> int:
     """How many blocks K2's products take for panel ``j`` on a card of
-    ``sms`` SMs: 0 for the first panel (no update), else one per 128-deep k
-    slice of each 128-row tile below the panel, up to one block an SM (a
-    block fills an SM).  The tiles' slices, j each, are dealt out to the
-    blocks in order, as evenly as whole slices allow (:func:`_split_pieces`),
-    so that every SM gets the same work."""
-    return min(j * ((n_pad - j * PANEL) // PANEL), sms)
+    ``sms`` SMs: 0 for the first two panels (no columns before panel j - 1),
+    else one per 128-deep k slice below jp - 128 of each 128-row tile below
+    the panel, up to one block an SM but one (a block fills an SM; K3 of
+    the panel before runs on the one left over).  The tiles' slices, j - 1
+    each, are dealt out to the blocks in order, as evenly as whole slices
+    allow (:func:`_split_pieces`), so that every SM gets the same work."""
+    return min((j - 1) * ((n_pad - j * PANEL) // PANEL), max(sms - 1, 1)) if j > 1 else 0
 
 
 def _split_pieces(n_pad: int, j: int, blocks: int) -> list:
-    """For each 128-row tile t of panel ``j``, the pieces its k range is
-    split into, in the order K2 subtracts them: (slot, lo, hi), k in [lo, hi).
-    Block b takes slices [b U / blocks, (b + 1) U / blocks) of the U =
-    tiles * j in tile-major order and writes the piece it computes of tile t
-    to scratch slot b + t (csrc/fullchol.cu::panel_products_kernel)."""
+    """For each 128-row tile t of panel ``j``, the pieces its k range [0, jp)
+    is split into, in the order K2 subtracts them: (slot, lo, hi), k in
+    [lo, hi).  Block b of the products takes slices [b U / blocks, (b + 1) U
+    / blocks) of the U = tiles * (j - 1) below jp - 128 in tile-major order
+    and writes the piece it computes of tile t to scratch slot b + t
+    (csrc/fullchol.cu::panel_products_kernel); the last slice, [jp - 128,
+    jp), comes last, in slot s0 + t after the products' s0 slots."""
     tiles = (n_pad - j * PANEL) // PANEL
-    units = tiles * j
     pieces = [[] for _ in range(tiles)]
+    if j == 0:
+        return pieces
+    ks = j - 1
+    units = tiles * ks
     for b in range(blocks):
         u0, u1 = b * units // blocks, (b + 1) * units // blocks
-        for t in range(u0 // j, (u1 - 1) // j + 1):
-            lo, hi = max(u0, t * j) - t * j, min(u1, (t + 1) * j) - t * j
+        for t in range(u0 // ks, (u1 - 1) // ks + 1):
+            lo, hi = max(u0, t * ks) - t * ks, min(u1, (t + 1) * ks) - t * ks
             pieces[t].append((b + t, PANEL * lo, PANEL * hi))
+    s0 = blocks + tiles - 1 if blocks else 0
+    for t in range(tiles):
+        pieces[t].append((s0 + t, PANEL * ks, PANEL * j))
     return pieces
 
 
 def _scratch_tiles(n_pad: int, j: int, sms: int) -> int:
-    """128x128 partial tiles K2 needs for panel ``j`` (slots b + t): at most
-    sms + 127 (17 MB at n_pad = 16384 on 132 SMs)."""
-    return _split_plan(n_pad, j, sms) + (n_pad - j * PANEL) // PANEL - 1 if j else 0
+    """128x128 partial tiles K2 needs for panel ``j``: the products' slots
+    b + t, then one last slice a tile; at most (sms - 1) + 2 * 127 (25 MB at
+    n_pad = 16384 on 132 SMs)."""
+    if j == 0:
+        return 0
+    blocks, tiles = _split_plan(n_pad, j, sms), (n_pad - j * PANEL) // PANEL
+    return (blocks + tiles - 1 if blocks else 0) + tiles
 
 
 # ---------------------------------------------------------------------------
@@ -114,22 +144,22 @@ def panel_update_reference(L, j, src, form=None, sigma=1.0, scale=1.0, third=1.0
 
 
 def panel_update(L, j, src, form=None, sigma=1.0, scale=1.0, third=1.0, diag=0.0) -> None:
-    """K2 for panel ``j`` (in place on L).  ``form=None`` is matrix mode,
-    src = A (n_pad, n_pad); otherwise Gram mode, src = X (n_true, d).  On the
-    card the split partials go to scratch from PyTorch's caching allocator."""
+    """K2 for panel ``j`` (in place on L), its three kernels in stream order
+    on the current stream.  ``form=None`` is matrix mode, src = A (n_pad,
+    n_pad); otherwise Gram mode, src = X (n_true, d).  On the card the split
+    partials go to scratch from PyTorch's caching allocator."""
     n_pad = _check_factor(L, "panel_update")
     _check_src(src, n_pad, form)
     if L.device.type == "cpu":
         return panel_update_reference(L, j, src, form, sigma, scale, third, diag)
     sms = _sm_count(L.device.index)
-    blocks = _split_plan(n_pad, j, sms)
     scratch = torch.empty((max(_scratch_tiles(n_pad, j, sms), 1), PANEL, PANEL),
                           dtype=torch.float32, device=L.device)
-    d = src.shape[1]
     code = -1 if form is None else FORMS.index(form)
     _cuda.PANEL_UPDATE.launch(
-        L.device, src.data_ptr(), L.data_ptr(), scratch.data_ptr(), n_pad, src.shape[0], d, j,
-        blocks, code, float(sigma), float(scale), float(third), float(diag),
+        L.device, src.data_ptr(), L.data_ptr(), scratch.data_ptr(), n_pad, src.shape[0],
+        src.shape[1], j, _split_plan(n_pad, j, sms), code, float(sigma), float(scale),
+        float(third), float(diag),
     )
 
 
@@ -210,14 +240,46 @@ def _check_src(src, n_pad, form):
 # ---------------------------------------------------------------------------
 
 def _factor(src, n_pad, gram, steps):
-    update, factor_inv, solve = steps
     L = torch.empty((n_pad, n_pad), dtype=torch.float32, device=src.device)
     W = torch.empty((n_pad // PANEL, PANEL, PANEL), dtype=torch.float32, device=src.device)
+    if steps is _KERNEL_STEPS and src.device.type == "cuda":
+        _lookahead(L, W, src, gram)
+        return L, W
+    update, factor_inv, solve = steps
     for j in range(n_pad // PANEL):
         update(L, j, src, *gram)
         factor_inv(L, W, j)
         solve(L, W, j)
     return L, W
+
+
+def _lookahead(L, W, src, gram) -> None:
+    """The kernels' factorization on the card, in place on L and W, with a
+    one-panel lookahead, stepped by csrc/fullchol.cu::gpr_factor_lookahead
+    in one call.  Per panel j on the current stream: K2's last slice (after
+    K4 of panel j - 1), a wait for the products of panel j, the strip, K3,
+    K4.  After the strip, the products of panel j + 1 over k < jp (the
+    columns solved by now) start on a second stream on all SMs but one
+    (:func:`_split_plan`), so that they run beside K3 (on the one left over)
+    and K4; the strip of panel j + 1 waits for them by an event.  Panels use
+    two scratch buffers in turn, taken here on the current stream; the second
+    stream is joined to it before the call returns."""
+    n_pad = L.shape[0]
+    nc = n_pad // PANEL
+    _check_src(src, n_pad, gram[0] if gram else None)
+    form, sigma, scale, third, diag = gram or (None, 1.0, 1.0, 1.0, 0.0)
+    sms = _sm_count(L.device.index)
+    plan = (ctypes.c_int * nc)(*(_split_plan(n_pad, j, sms) for j in range(nc)))
+    tiles = max(max(_scratch_tiles(n_pad, j, sms) for j in range(nc)), 1)
+    part = torch.empty((2, tiles, PANEL, PANEL), dtype=torch.float32, device=L.device)
+    launches = {_cuda.PANEL_UPDATE: nc + (nc - 1) + max(nc - 2, 0),  # strips, last slices, products
+                _cuda.DIAG_FACTOR_INV: nc, _cuda.PANEL_SOLVE: nc - 1}
+    _cuda.FACTOR_LOOKAHEAD.launch(
+        L.device, launches, src.data_ptr(), L.data_ptr(), W.data_ptr(), part[0].data_ptr(),
+        part[1].data_ptr(), plan, n_pad, src.shape[0], src.shape[1],
+        -1 if form is None else FORMS.index(form), float(sigma), float(scale), float(third),
+        float(diag), _side_stream(L.device.index).cuda_stream,
+    )
 
 
 _KERNEL_STEPS = (panel_update, diag_factor_inv, panel_solve)

@@ -8,12 +8,13 @@ launches the hand-written CUDA kernel ``csrc/syrk.cu`` for a CUDA tensor and
 runs :func:`syrk_update_reference` for a CPU tensor.
 
 The kernel's output contract: the lower triangle is A22 - L21 L21^T; the
-strict upper is undefined (its 64x64 diagonal tiles are computed whole,
-the tiles above them are never written).  Unlike the TPU kernel, which
-needs m % bm == 0 and k % bk == 0, it masks the ragged edge and takes row
-strides, so any (m, k) and any row-major view (``stride(1) == 1``) is
-accepted: the recursion passes views of one n x n buffer and updates A22 in
-place (``out=A22``).
+strict upper of ``out`` is never written.  Unlike the TPU kernel, which
+needs m % bm == 0 and k % bk == 0, any (m, k) and any row-major view
+(``stride(1) == 1``) is accepted: the recursion passes views of one n x n
+buffer (rows of odd stride, not 16-byte aligned) and updates A22 in place
+(``out=A22``).  The wrapper copies L21 once into an aligned buffer of
+:data:`TILE`-row and :data:`SLICE`-column multiples, zero-filled, which the
+kernel's tensor-core tile loads 16 bytes at a time (csrc/syrk.cu).
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ import torch
 from . import _cuda
 
 _INT_MAX = 2**31 - 1
+TILE = 128  # output tile edge of the kernel
+SLICE = 32  # depth of its k-slices
 
 
 def syrk_update_reference(A22: torch.Tensor, L21: torch.Tensor) -> torch.Tensor:
@@ -39,17 +42,30 @@ def syrk_update(A22: torch.Tensor, L21: torch.Tensor,
     float32, into ``out`` (a new (m, m) tensor when None).  ``out`` may be
     A22 itself; it must share no memory with L21.  A CUDA tensor launches
     the kernel; a CPU tensor runs :func:`syrk_update_reference`."""
-    m, k = _check(A22, L21, out)
+    m, _ = _check(A22, L21, out)
     if A22.device.type == "cpu":
         S = syrk_update_reference(A22, L21)
         return S if out is None else out.copy_(S)
     if out is None:
         out = torch.empty((m, m), dtype=torch.float32, device=A22.device)
+    Lp = _aligned(L21)
     _cuda.SYRK_UPDATE.launch(
-        A22.device, A22.data_ptr(), A22.stride(0), L21.data_ptr(), L21.stride(0),
-        out.data_ptr(), out.stride(0), m, k,
+        A22.device, A22.data_ptr(), A22.stride(0), Lp.data_ptr(), Lp.shape[1],
+        out.data_ptr(), out.stride(0), m, Lp.shape[1],
     )
     return out
+
+
+def _aligned(L21: torch.Tensor) -> torch.Tensor:
+    """L21 (m, k) in a new contiguous buffer of ceil(m / TILE) TILE rows and
+    ceil(k / SLICE) SLICE columns, zeros outside L21."""
+    m, k = L21.shape
+    Lp = torch.empty((-(-m // TILE) * TILE, -(-k // SLICE) * SLICE), dtype=torch.float32,
+                     device=L21.device)
+    Lp[:m, :k] = L21
+    Lp[:m, k:] = 0.0
+    Lp[m:] = 0.0
+    return Lp
 
 
 def _check(A22, L21, out):

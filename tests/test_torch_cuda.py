@@ -151,7 +151,7 @@ def test_panel_update_split_k(dev, mode, j):
     fullchol.panel_update(Lk, j, src, *gram)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     blocks = fullchol._split_plan(n, j, sms)
-    assert blocks == min(j * (32 - j), sms)
+    assert blocks == (min((j - 1) * (32 - j), sms - 1) if j > 1 else 0)
     panel_update_split(Lr, j, src, *gram, blocks=blocks)
     fullchol.panel_update_reference(L1, j, src, *gram)
     cols = slice(j * 128, (j + 1) * 128)
@@ -175,6 +175,80 @@ def test_factorization_is_bit_identical(dev, mode):
         L1, L2 = (fullchol.gram_cholesky_fused(X, 2.0, 1.3, 1.0, 0.05) for _ in range(2))
     assert torch.isfinite(L1[-1, -1])
     assert torch.equal(L1, L2)
+
+
+def _seq_factor(src, n_pad, gram=()):
+    """The kernels' stages one after another on one stream (no lookahead)."""
+    L = torch.empty((n_pad, n_pad), dtype=torch.float32, device=src.device)
+    W = torch.empty((n_pad // 128, 128, 128), dtype=torch.float32, device=src.device)
+    for j in range(n_pad // 128):
+        fullchol.panel_update(L, j, src, *gram)
+        fullchol.diag_factor_inv(L, W, j)
+        fullchol.panel_solve(L, W, j)
+    return L, W
+
+
+@pytest.mark.parametrize("mode,n", [("matrix", 4096), ("gram", 4096), ("gram", 3773)])
+def test_lookahead_matches_the_sequential_steps(dev, mode, n):
+    # the lookahead moves no sum, only when each runs: its factor is
+    # bit-identical to the stages run in one stream, and to itself; one
+    # call counts each stage it launched
+    rng = np.random.default_rng(27)
+    nc = fullchol.padded_size(n) // 128
+    _cuda.reset_launch_counts()
+    if mode == "matrix":
+        B = rng.standard_normal((n, 64))
+        src, gram = _t(B @ B.T / 64 + np.eye(n), dev), ()
+        L1 = fullchol.cholesky_fused(src)
+        c = _cuda.launch_counts()
+        assert (c["panel_update"], c["diag_factor_inv"], c["panel_solve"]) == (3 * nc - 3, nc, nc - 1)
+        L2 = fullchol.cholesky_fused(src)
+        W1 = fullchol._factor(src, n, gram, fullchol._KERNEL_STEPS)[1]
+    else:
+        src, gram = _t(rng.standard_normal((n, 8)), dev), ("gaussian", 2.0, 1.3, 1.0, 0.05)
+        L1, W1 = fullchol.gram_cholesky_fused(src, *gram[1:], form="gaussian", return_winv=True)
+        L2 = fullchol.gram_cholesky_fused(src, *gram[1:], form="gaussian")
+    Ls, Ws = _seq_factor(src, fullchol.padded_size(n), gram)
+    assert torch.isfinite(L1[-1, -1])
+    assert torch.equal(L1, L2) and torch.equal(L1, Ls) and torch.equal(W1, Ws)
+
+
+@pytest.mark.parametrize("where", [0, 31, 32, 127])  # the 32-block edges of K3
+def test_lookahead_failed_pivot(dev, where):
+    # a failed pivot in a middle panel, while the next panel's products run
+    # beside its K3 and K4, still poisons L[-1, -1]
+    rng = np.random.default_rng(28)
+    n = 1024
+    B = rng.standard_normal((n, n))
+    A = B @ B.T + n * np.eye(n)
+    A[512 + where, 512 + where] = -1e6  # panel 4 of 8
+    L = fullchol.cholesky_fused(_t(A, dev))
+    assert not torch.isfinite(L[-1, -1])
+    assert torch.isfinite(L[:512, :512]).all()  # the panels before are factored
+
+
+@pytest.mark.parametrize("n,j", [(16384, 0), (16384, 64), (16384, 126), (3840, 0), (3840, 13),
+                                 (3840, 28)])
+def test_panel_solve_kernel(dev, n, j):
+    # K4 (FP32 FMA, 32-row blocks, W_j's zero upper terms skipped) against
+    # its plain version at the n=16384 fit's panels and at the n=3773 fit's
+    # padded size: 1e-5 of the largest entry; in place, nothing outside the
+    # panel's rows below written
+    g = torch.Generator(device=dev).manual_seed(29 + j)
+    L = torch.randn((n, n), generator=g, device=dev)
+    W = torch.zeros((n // 128, 128, 128), device=dev)
+    T = torch.randn((128, 128), generator=g, device=dev).tril_() / 16 + torch.eye(128, device=dev)
+    W[j] = torch.linalg.solve_triangular(T, torch.eye(128, device=dev), upper=False)
+    Lr = L.clone()
+    _cuda.reset_launch_counts()
+    fullchol.panel_solve(L, W, j)
+    assert _cuda.launch_counts()["panel_solve"] == 1
+    fullchol.panel_solve_reference(Lr, W, j)
+    cols = slice(j * 128, (j + 1) * 128)
+    below = L[(j + 1) * 128:, cols]
+    assert float((below - Lr[(j + 1) * 128:, cols]).abs().max()) <= 1e-5 * float(below.abs().max())
+    L[(j + 1) * 128:, cols] = Lr[(j + 1) * 128:, cols]
+    assert torch.equal(L, Lr)
 
 
 def test_diag_factor_inv_kernel(dev):
@@ -267,11 +341,11 @@ def test_syrk_views_in_place_and_upper_tiles_untouched(dev):
     before, top, left = A22.clone(), W[:m0].clone(), L21.clone()
     expect = syrk.syrk_update_reference(A22.clone(), L21.clone())
     m = n - m0
-    # tile (i, j) is above the diagonal band iff its first column >= the end
-    # of its row tile: a NaN sentinel there must survive
+    # the kernel writes only the lower triangle: a NaN sentinel in the strict
+    # upper (the upper tiles and the diagonal tiles' upper part) must survive
     r = torch.arange(m, device=dev)[:, None]
     c = torch.arange(m, device=dev)[None, :]
-    upper_tiles = c >= (r // 64 + 1) * 64
+    upper_tiles = c > r
     A22[upper_tiles] = float("nan")
     out = syrk.syrk_update(A22, L21, out=A22)  # in place on a strided view
     assert out.data_ptr() == A22.data_ptr()
@@ -280,6 +354,34 @@ def test_syrk_views_in_place_and_upper_tiles_untouched(dev):
     assert float((A22 - expect)[tl].abs().max()) <= 1e-5 * float(expect.abs().max())
     assert torch.equal(W[:m0], top) and torch.equal(L21, left)  # nothing else written
     assert bool(torch.isfinite(A22[tl]).all()) and not torch.equal(A22[tl], before[tl])
+
+
+@pytest.mark.parametrize("m,k", [(1, 0), (65, 33), (1853, 1920), (8191, 8192)])
+def test_syrk_kernel_at_the_recursion_shapes(dev, m, k):
+    # K5 in place on views of one buffer with the n=16383 recursion's row
+    # stride (rows not 16-byte aligned): the lower triangle to 1e-5 sqrt(k)
+    # of the largest entry against float64, the strict upper and the rest of
+    # the buffer untouched
+    n = 16383
+    g = torch.Generator(device=dev).manual_seed(30)
+    buf = torch.randn((n, n), generator=g, device=dev)
+    buf[:, :k] /= max(k, 1) ** 0.5
+    A22, L21 = buf[k:k + m, k:k + m], buf[k:k + m, :k]
+    assert A22.stride(0) == L21.stride(0) == n
+    r = torch.arange(m, device=dev)[:, None]
+    c = torch.arange(m, device=dev)[None, :]
+    A22[c > r] = float("nan")
+    before = buf.clone()
+    R = before[k:k + m, k:k + m].double() - L21.double() @ L21.double().T
+    _cuda.reset_launch_counts()
+    out = syrk.syrk_update(A22, L21, out=A22)
+    assert out.data_ptr() == A22.data_ptr() and _cuda.launch_counts()["syrk_update"] == 1
+    tl = r >= c
+    err = float((A22.double() - R)[tl].abs().max() / R[tl].abs().max())
+    assert err <= 1e-5 * max(1, k) ** 0.5
+    assert bool(torch.isnan(A22[c > r]).all())
+    buf[k:k + m, k:k + m][tl] = before[k:k + m, k:k + m][tl]
+    assert torch.equal(buf.nan_to_num(7.0), before.nan_to_num(7.0))
 
 
 @pytest.mark.parametrize("n", [1100, 2200])

@@ -15,7 +15,7 @@ import torch
 
 from gpr_tpu.ops import pallas_fullchol as jfc
 from gpr_tpu_torch.ops import fullchol as tfc
-from torch_split_order import cholesky_split, panel_update_split
+from torch_split_order import cholesky_lookahead, cholesky_split, panel_update_split
 
 F32 = np.float32
 TPU_KW = dict(panel=128, block=64, sw=16, interpret=True)  # test_fullchol.py's small config
@@ -202,40 +202,47 @@ class TestSplitK:
     @pytest.mark.parametrize("sms", [132, 114])  # H100 SXM, H100 PCIe
     @pytest.mark.parametrize("n_pad", [128, 256, 384, 1024, 4096, 8192, 16384])
     def test_plan_covers_every_k_once_in_whole_fold_slices(self, n_pad, sms):
+        # the products' pieces cover k < jp - 128, dealt out to all SMs but
+        # one; the last slice [jp - 128, jp) follows as a piece of its own
         for j in range(n_pad // tfc.PANEL):
             blocks = tfc._split_plan(n_pad, j, sms)
             tiles = (n_pad - j * tfc.PANEL) // tfc.PANEL
             if j == 0:
                 assert blocks == 0 and tfc._scratch_tiles(n_pad, j, sms) == 0
                 continue
-            assert 1 <= blocks == min(j * tiles, sms)
+            ks = j - 1
+            assert blocks == (min(ks * tiles, sms - 1) if ks else 0)
             pieces = tfc._split_pieces(n_pad, j, blocks)
+            s0 = blocks + tiles - 1 if blocks else 0
             slots, work = [], [0] * blocks
             for t, ps in enumerate(pieces):
                 k = 0
                 for slot, lo, hi in ps:  # contiguous, in order: every k once
                     assert lo == k and hi > lo and lo % tfc.PANEL == 0 and hi % tfc.PANEL == 0
                     k = hi
-                    work[slot - t] += (hi - lo) // tfc.PANEL
                 assert k == j * tfc.PANEL
-                first = self._block_of(t * j, tiles * j, blocks)
-                last = self._block_of((t + 1) * j - 1, tiles * j, blocks)
-                assert [slot - t for slot, _, _ in ps] == list(range(first, last + 1))
+                assert ps[-1] == (s0 + t, ks * tfc.PANEL, j * tfc.PANEL)  # the last slice, last
+                for slot, lo, hi in ps[:-1]:
+                    work[slot - t] += (hi - lo) // tfc.PANEL
+                if blocks:
+                    first = self._block_of(t * ks, tiles * ks, blocks)
+                    last = self._block_of((t + 1) * ks - 1, tiles * ks, blocks)
+                    assert [slot - t for slot, _, _ in ps[:-1]] == list(range(first, last + 1))
                 slots += [slot for slot, _, _ in ps]
             assert len(set(slots)) == len(slots)  # no two pieces share a slot
             assert max(slots) < tfc._scratch_tiles(n_pad, j, sms)
-            assert max(work) - min(work) <= 1  # every block the same work, to one slice
+            assert not work or max(work) - min(work) <= 1  # every block the same work, to one slice
         most = max(tfc._scratch_tiles(n_pad, j, sms) for j in range(n_pad // tfc.PANEL))
         assert (most == 0) == (n_pad == 128)  # one panel has no update
 
     def test_scratch_is_bounded(self):
         n_pad = 16384
         most = max(tfc._scratch_tiles(n_pad, j, 132) for j in range(n_pad // tfc.PANEL))
-        assert most <= 132 + 127
-        assert most * tfc.PANEL * tfc.PANEL * 4 <= 17.4e6
-        for j in (64, 100, 120, 127):  # the late panels still fill the card
+        assert most <= 131 + 2 * 127
+        assert most * tfc.PANEL * tfc.PANEL * 4 <= 25.3e6
+        for j in (64, 100, 120, 127):  # the late panels still fill the card but one SM
             tiles = (n_pad - j * tfc.PANEL) // tfc.PANEL
-            assert tfc._split_plan(n_pad, j, 132) == min(j * tiles, 132)
+            assert tfc._split_plan(n_pad, j, 132) == min((j - 1) * tiles, 131)
 
     def test_forced_block_counts_agree(self, rng):
         A = torch.tensor(_spd(rng, 1024))
@@ -245,7 +252,7 @@ class TestSplitK:
         Lj[:, j * 128:] = 0.0
         base = Lj.clone()
         tfc.panel_update_reference(base, j, A)
-        for blocks in (1, 2, 3, 7, 15):
+        for blocks in (1, 2, 3, 7, 12):  # 12: one block a slice below jp - 128
             out = Lj.clone()
             panel_update_split(out, j, A, blocks=blocks)
             assert _relerr(out, base) < 1e-5, blocks
@@ -272,6 +279,33 @@ class TestSplitK:
         Lj, Wj = np.asarray(Lj), np.asarray(Wj)
         assert np.abs(L.numpy() - Lj).max() / np.abs(Lj).max() < 3e-3
         assert np.abs(W.numpy() - Wj).max() / np.abs(Wj).max() < 3e-3
+
+
+class TestLookahead:
+    """The card's one-panel lookahead (ops/fullchol.py::_lookahead) in its
+    order with the plain versions (tests/torch_split_order.py::
+    cholesky_lookahead): the next panel's products are summed before this
+    panel's K3 and K4 write its columns.  They read only finished columns,
+    so L is bit-identical to the split order run panel by panel, and within
+    the file's 3e-3 of JAX's Pallas kernel."""
+
+    @pytest.mark.parametrize("mode,n", [("matrix", 384), ("matrix", 1024), ("gram", 1024),
+                                        ("gram", 300), ("gram", 1000)])
+    def test_lookahead_order_matches_pallas(self, rng, mode, n):
+        if mode == "matrix":
+            src = _spd(rng, n)
+            gram = ()
+            Lj = np.asarray(jfc.cholesky_fused(src, **TPU_KW))
+        else:
+            src = rng.standard_normal((n, 3)).astype(F32)
+            gram = ("gaussian", 1.3, 2.1, 1.0, 1.0)
+            Lj = np.asarray(jfc.gram_cholesky_fused(src, 1.3, 2.1, 1.0, 1.0, form="gaussian",
+                                                    **TPU_KW))
+        L, W = cholesky_lookahead(torch.tensor(src), *gram)
+        L1, W1 = cholesky_split(torch.tensor(src), *gram)
+        assert torch.equal(L, L1) and torch.equal(W, W1)
+        assert torch.all(torch.triu(L, 1) == 0.0)
+        assert np.abs(L.numpy() - Lj).max() / np.abs(Lj).max() < 3e-3
 
 
 def _relerr(a, b):

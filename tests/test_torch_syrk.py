@@ -34,6 +34,30 @@ def test_plain_syrk_matches_jax(m, k):
                                                              torch.tensor(L21)).numpy(), St)
 
 
+def test_plain_syrk_matches_jax_on_an_unaligned_view():
+    # the recursion's case at odd n: views of one buffer with an odd row
+    # stride, a ragged (m, k) (not multiples of the card's 128-row tiles or
+    # 32-deep slices), updated in place; JAX's kernel takes blocks that
+    # divide m and k
+    rng = np.random.default_rng(14)
+    n, m0 = 301, 106
+    W = rng.standard_normal((n, n)).astype(np.float32)
+    A22, L21 = W[m0:, m0:], W[m0:, 1:m0]
+    m, k = L21.shape
+    Sj = np.asarray(jax_syrk(jnp.asarray(A22), jnp.asarray(L21), bm=65, bk=35,
+                             precision="highest", interpret=True))
+    Wt = torch.tensor(W)
+    A22t, L21t = Wt[m0:, m0:], Wt[m0:, 1:m0]
+    assert (m, k) == (195, 105) and A22t.stride(0) == L21t.stride(0) == n
+    out = syrk.syrk_update(A22t, L21t, out=A22t)
+    assert out.data_ptr() == A22t.data_ptr()
+    tl = np.tril_indices(m)
+    scale = np.abs(Sj[tl]).max()
+    assert np.abs(A22t.numpy()[tl] - Sj[tl]).max() <= 1e-5 * scale
+    np.testing.assert_array_equal(Wt[:m0].numpy(), W[:m0])  # nothing else written
+    np.testing.assert_array_equal(L21t.numpy(), L21)
+
+
 def test_in_place_on_views_of_one_buffer():
     rng = np.random.default_rng(13)
     W = torch.tensor(rng.standard_normal((300, 300)), dtype=torch.float32)
