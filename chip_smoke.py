@@ -84,8 +84,9 @@ process per source, in parallel), then:
      fit of its window; then times shrink by 64 at n=3773 against a refit;
  17. times K10 per solve at n=16384 (q=8) against its bound, its plain
      version, torch.cholesky_solve and the port's cho_solve_panels, K11
-     against its plain version and the batched triangular solve, and the
-     narrow fit and MLL against the default triangular solves;
+     against its plain version and the batched triangular solve (beside its
+     first design's time), and the narrow fit and MLL against the default
+     triangular solves;
  18. holds K12 leaf_chol, K13 leaf_chol_wi and K14 tri_inv_leaf (csrc/leaf.cu)
      against their plain versions at n = 256, 512, 768 and 1024, each on a
      strided view with NaN above the diagonal (and K13 in place), and a leaf
@@ -121,7 +122,8 @@ process per source, in parallel), then:
      factorization against their plain versions and library calls, the
      n=16384 factorization on "inplace" against "blocked-syrk",
      "fused-matrix" and torch.linalg.cholesky, and the bench fit and MLL on
-     "inplace" against the default routes;
+     "inplace" against the default routes, and the ten slowest of K16's 63
+     calls with their grids;
  25. holds K19 tile_chol and K20 tile_chol_strips (csrc/chol.cu) against
      their plain versions at n = 1, 32, 64, 128, 200 (K19 only), 256 and 512,
      K20 at sw 8 and 16: NaN below the diagonal (bit-identical factors), an
@@ -1662,19 +1664,26 @@ def main() -> int:
           f"{float(np.median(refit_ms)):.2f} ms (runs {', '.join(f'{t:.1f}' for t in refit_ms)})")
 
     # --------------------------------------------------------------- 17 ----
+    # torch.linalg.cholesky gives a column-major factor, which the kernels'
+    # wrappers copy to row-major (2.3 ms at n=16384); the port's factorizations
+    # write L row-major, so K10, K11 and their plain versions are timed on a
+    # row-major copy, as the fit path hands them L, and torch.cholesky_solve on
+    # the column-major factor, its own layout
+    Lr16, Ljr16 = L16.contiguous(), Lj16.contiguous()
     B8 = torch.randn((n, 8), generator=g14, device=dev)
-    W16 = nsolve.diag_block_inverses(Lj16, 512, "pallas")
+    W16 = nsolve.diag_block_inverses(Ljr16, 512, "pallas")
     W128 = nsolve.diag_block_inverses(L16, 128, "xla")
     k10 = rotate({
-        "kernel": lambda: nsolve.subst_pass(Lj16, W16, nsolve.subst_pass(Lj16, W16, B8, True), False),
-        "plain": lambda: nsolve.subst_pass_reference(L16, W16, nsolve.subst_pass_reference(L16, W16, B8, True), False),
+        "kernel": lambda: nsolve.subst_pass(Ljr16, W16, nsolve.subst_pass(Ljr16, W16, B8, True), False),
+        "plain": lambda: nsolve.subst_pass_reference(Lr16, W16, nsolve.subst_pass_reference(Lr16, W16, B8, True), False),
         "library": lambda: torch.cholesky_solve(B8, L16),
         "cho_solve_panels": lambda: fullchol.cho_solve_panels(L16, W128, B8),
-        "narrow solve (K11 + K10)": lambda: nsolve.cho_solve_narrow(Lj16, B8, diag_inv="pallas")}, 6)
+        "narrow solve (K11 + K10)": lambda: nsolve.cho_solve_narrow(Ljr16, B8, diag_inv="pallas"),
+        "narrow solve on the column-major factor": lambda: nsolve.cho_solve_narrow(Lj16, B8, diag_inv="pallas")}, 6)
     kstats["narrow_subst"].update(ms=k10["kernel"][0], plain_ms=k10["plain"][0],
                                   library_ms=k10["library"][0])
-    k11 = rotate({"kernel": lambda: nsolve.diag_tri_inv(Lj16, 512),
-                  "plain": lambda: nsolve.diag_tri_inv_reference(L16, 512),
+    k11 = rotate({"kernel": lambda: nsolve.diag_tri_inv(Ljr16, 512),
+                  "plain": lambda: nsolve.diag_tri_inv_reference(Lr16, 512),
                   "library": lambda: nsolve.diag_block_inverses(L16, 512, "xla")}, 6)
     kstats["diag_tri_inv"].update(ms=k11["kernel"][0], plain_ms=k11["plain"][0],
                                   library_ms=k11["library"][0])
@@ -1685,11 +1694,12 @@ def main() -> int:
     kstats["narrow_subst"].update(sum_bounds([sweep, sweep]))
     kstats["diag_tri_inv"].update(bound(nb16 * 512 ** 3 / 3.0, 4.0 * nb16 * (512 * 513 / 2 + 512 * 512)))
     Lw, _ = narrow_system(4096)
-    Ww = nsolve.diag_block_inverses(Lw, 512, "pallas")
+    Lwr = Lw.contiguous()
+    Ww = nsolve.diag_block_inverses(Lwr, 512, "pallas")
     B3 = torch.randn((4096, 3), generator=g14, device=dev)
-    k10w = median_ms(lambda: nsolve.subst_pass(Lw, Ww, nsolve.subst_pass(Lw, Ww, B3, True), False), 10)
+    k10w = median_ms(lambda: nsolve.subst_pass(Lwr, Ww, nsolve.subst_pass(Lwr, Ww, B3, True), False), 10)
     libw = median_ms(lambda: torch.cholesky_solve(B3, Lw), 10)
-    del L16, Lj16, W16, W128, Lw, Ww
+    del L16, Lj16, Lr16, Ljr16, W16, W128, Lw, Lwr, Ww
     torch.cuda.empty_cache()
     fit_cmp17 = rotate({"narrow": lambda: with_env(narrow_env, lambda: tg.fit(bench_k, Xb, Yb, sigma=0.1)),
                         "default": lambda: with_env({"GPR_SOLVE_SCHEDULE": "blocked"},
@@ -1701,9 +1711,10 @@ def main() -> int:
     print(f"  per solve at n=16384 q=8 (K10: {2 * nb16} launches): " + "; ".join(
         f"{k} {m:.4f} ms (runs {runs_text(r)})" for k, (m, r) in k10.items())
         + f"; bound {kstats['narrow_subst']['bound_ms']:.4f} ms ({kstats['narrow_subst']['bound_by']})")
-    print(f"  K11 per call at n=16384 bs=512 (32 tiles): " + "; ".join(
+    print(f"  K11 per call at n=16384 bs=512 (32 tiles; blocked: 1 + 4 kernels): " + "; ".join(
         f"{k} {m:.4f} ms (runs {runs_text(r)})" for k, (m, r) in k11.items())
-        + f"; bound {kstats['diag_tri_inv']['bound_ms']:.4f} ms ({kstats['diag_tri_inv']['bound_by']})")
+        + f"; bound {kstats['diag_tri_inv']['bound_ms']:.4f} ms ({kstats['diag_tri_inv']['bound_by']}); "
+        "the first design, one warp a column, 3.5028 ms with the wrapper's layout copy (PERF.md row 12)")
     print(f"  K10 per solve at n=4096 q=3 (16 launches): {k10w:.4f} ms; torch.cholesky_solve {libw:.4f} ms")
     print("  fit n=16384 d=128 q=8 (fused-matrix), alpha by the narrow solve against the default "
           "triangular solves: " + "; ".join(f"{k} {m:.2f} ms (runs {runs_text(r)})" for k, (m, r) in fit_cmp17.items()))
@@ -2133,7 +2144,9 @@ def main() -> int:
     # schedule timed alone by CUDA events, in walks with the kernels, their
     # plain versions and the library calls (K16: one torch.baddbmm over the
     # list's tiles, gathered beforehand; K17: cholesky_ex + solve_triangular of
-    # the panel; K18: Tensor.tril_), each walk on a fresh copy, in turns
+    # the panel; K18: Tensor.tril_), each walk on a fresh copy, in turns; the
+    # K16 kernel's and its library call's launches queued behind a device
+    # sleep, so that a short call is not timed by the host's enqueue
     K24 = gaussian64(Xb, Xb, 8.0, 1.0)
     K24.diagonal().add_(sig * sig)
 
@@ -2144,7 +2157,7 @@ def main() -> int:
         A_ = torch.stack([src[i * bm:(i + 1) * bm] for i in ri])
         B_ = torch.stack([src[j * bm:(j + 1) * bm] for j in ci])
         C_ = torch.stack([S[i * bm:(i + 1) * bm, j * bm:(j + 1) * bm] for i, j in zip(ri, ci)])
-        t_ = timed(lambda: C_.baddbmm_(A_, B_.mT, alpha=-1))
+        t_ = timed(lambda: C_.baddbmm_(A_, B_.mT, alpha=-1), True)
         for t, (i, j) in enumerate(zip(ri, ci)):
             S[i * bm:(i + 1) * bm, j * bm:(j + 1) * bm] = C_[t]
         return t_
@@ -2164,7 +2177,7 @@ def main() -> int:
 
     def inplace_walk(mode):
         S = K24.clone()
-        tot = {"rank_update_tiles": 0.0, "panel_inplace": 0.0, "zero_upper": 0.0}
+        tot = {"rank_update_tiles": 0.0, "panel_inplace": 0.0, "zero_upper": 0.0, "calls16": []}
         for st in tinp.schedule(n, 512, 256, dev):
             if st[0] == "panel":
                 if mode == "library":
@@ -2177,7 +2190,9 @@ def main() -> int:
                 if mode == "library":
                     tot["rank_update_tiles"] += library_update(S, rows, cols, kcols, bm)
                 elif mode == "kernel":  # as cholesky_inplace launches it, on the cached lists
-                    tot["rank_update_tiles"] += timed(lambda: tinp._rank_update_tiles(S, rows, cols, kcols, bm, bm))
+                    t16 = timed(lambda: tinp._rank_update_tiles(S, rows, cols, kcols, bm, bm), True)
+                    tot["rank_update_tiles"] += t16
+                    tot["calls16"].append(t16)
                 else:
                     tot["rank_update_tiles"] += timed(
                         lambda: tinp.rank_update_reference(S, rows, cols, kcols, bm=bm, bk=bm))
@@ -2208,7 +2223,9 @@ def main() -> int:
             T_, ks_ = rows.numel(), kcols.numel()
             src_rows = len(set(rows.tolist()) | set(cols.tolist())) * bm
             parts16.append((2.0 * T_ * bm * bm * ks_ * bm, 4.0 * (2 * T_ * bm * bm + src_rows * ks_ * bm)))
-    kstats["rank_update_tiles"].update(sum_bounds(parts16))
+    # K16 computes on the 3xTF32 tier, as K2 and K5; its FP32 bound stands beside it
+    kstats["rank_update_tiles"].update(sum_bounds(parts16, tf32x3),
+                                       bound_fp32_ms=sum_bounds(parts16)["bound_ms"])
     kstats["panel_inplace"].update(sum_bounds(parts17))
     kstats["zero_upper"].update(bound(0.0, 4.0 * n * (n - 1) / 2))
     torch.cuda.empty_cache()
@@ -2262,6 +2279,18 @@ def main() -> int:
         print(f"  {label} per n=16384 factorization: kernel {s_['ms']:.4f} ms (runs "
               f"{runs_text([w[name] for w in walks['kernel']])}); plain {s_['plain_ms']:.4f}; library "
               f"{s_['library_ms']:.4f}; bound {s_['bound_ms']:.4f} ms ({s_['bound_by']})")
+    # the ten K16 calls that take the most time (median of the kernel walks),
+    # with their grids: how much of K16 the calls that leave SMs idle take
+    sms24 = torch.cuda.get_device_properties(dev).multi_processor_count
+    upd24 = [st for st in tinp.schedule(n, 512, 256, dev) if st[0] == "update"]
+    per16 = np.median([w["calls16"] for w in walks["kernel"]], axis=0)
+    grid16 = [st[1].numel() * (st[4] // 128) ** 2 for st in upd24]
+    small16 = sum(t for t, g in zip(per16, grid16) if g < sms24)
+    print(f"  K16 per call, the ten slowest of {len(upd24)} (call: bm, tiles of 128, ms): " + "; ".join(
+        f"#{c}: {upd24[c][4]}, {grid16[c]}, {per16[c]:.4f}" for c in np.argsort(per16)[::-1][:10])
+        + f"; calls with fewer tiles than the {sms24} SMs: {sum(g < sms24 for g in grid16)} calls, "
+        f"{small16:.4f} ms of {float(per16.sum()):.4f}")
+    print(f"  K16 bound at the FP32 tier: {kstats['rank_update_tiles']['bound_fp32_ms']:.4f} ms")
     s_ = kstats["panel_factor"]
     print(f"  K15 panel_factor per cholesky_left_panels at n=8192 (32 calls): kernel {s_['ms']:.4f} ms; plain "
           f"{s_['plain_ms']:.4f}; cholesky_ex + solve_triangular {s_['library_ms']:.4f}; bound "

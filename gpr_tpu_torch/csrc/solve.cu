@@ -36,18 +36,38 @@
 //
 // K11 diag_tri_inv replaces pallas_solve.py::_diag_inv_kernel (173), launched
 // by _diag_block_inverses_pallas (188): W_i = inv(tril(L_ii)) of every
-// (bs, bs) diagonal tile, bs <= 512, the strict upper of L_ii masked.  A
-// 512 tile (1 MiB) does not fit shared memory, and the TPU's bottom-up 8-row
-// strip scheme is VMEM tuning.  Here the columns of W are independent (column
-// c solves L w = e_c): one warp per column, 16 columns a block, so n columns
-// in all; 32 rows of the tile at a time are staged in shared memory for the
-// block's 16 warps.  Each step of a column's forward substitution is a dot
-// product split over the warp's lanes (w held in registers, 16 entries a
-// lane) and summed by shuffles, so no thread carries a serial chain longer
-// than 16 terms (K8 gives a column to one thread).  What bounds it: bs^3/3
-// FLOP a tile, 1.43 GFLOP at n = 16384, bs = 512 (0.021 ms), against 16.8 MB
-// read and 33.5 MB written (0.015 ms); the bs steps of each column are a
-// dependent chain, so in practice it is latency bound.
+// (bs, bs) diagonal tile, bs <= 512, the strict upper of L_ii masked.  The
+// TPU's bottom-up 8-row strip scheme is VMEM tuning; substitution column by
+// column is a chain of bs dependent steps.  Here the tile is inverted by
+// blocks, so that no chain is longer than one 32-wide diagonal block:
+//   tri_inv_diag   every 32x32 diagonal block of every tile at once, one
+//                  warp a block (lane i holds row i; K3's warp_inv32 order,
+//                  fullchol.cu), a ragged last block of 16 padded with I;
+//                  it also writes the zeros right of its block, so W's
+//                  strict upper is exactly 0;
+//   tri_inv_level  for h = 32, 64, 128, 256 (h < bs), one kernel each: the
+//                  pairs of h-wide diagonal blocks are joined by
+//                  inv([[A, 0], [C, D]]) = [[inv A, 0], [-inv(D) C inv(A), inv D]],
+//                  the identity JAX uses for bs = 1024 (pallas_solve.py:213-227).
+//                  A block takes one 64-column block of the pair's output:
+//                  T = C inv(A)[:, cols] into shared memory, then X = -inv(D) T
+//                  into W, both products by 64x64 register tiles (4x4 a
+//                  thread) over 32-deep chunks staged through shared memory,
+//                  C and inv(D) transposed there, each chunk's partial folded
+//                  into an FP32 running tile (two-level sums, as everywhere in
+//                  the port).  The zero halves of the triangular operands are
+//                  skipped: T's column block j0 sums from row j0 of inv(A), X's
+//                  row block i0 up to column i0 + 63 of inv(D).
+// One counted launch runs 1 + log2(bs / 32) kernels in stream order (five at
+// bs = 512).  L's strict upper is never read: the diagonal blocks are staged
+// through a mask and C lies strictly below the diagonal.  A NaN on a pivot
+// makes its tile's W non-finite through 1 / L_ii and the products.
+// What bounds it: bs^3/3 FLOP a tile for the inverse, 1.43 GFLOP at n =
+// 16384, bs = 512 (0.021 ms at 67 TFLOP/s FP32), against 16.8 MB read and
+// 33.5 MB written (0.015 ms); the doubling computes ~2x that (the products
+// at each level, 2.9 GFLOP, ~0.04 ms).  Plain FP32 FMA on the CUDA cores:
+// the FLOP are few, and the levels are short, so the time is the five
+// kernels' latency and the last level's single wave of 128 blocks.
 #include <cuda_runtime.h>
 
 namespace gpr {
@@ -231,76 +251,168 @@ cudaError_t narrow_subst_row(const float* L, const float* W, const float* src, f
   return cudaGetLastError();
 }
 
-constexpr int kInvCols = 16;  // columns of W a block, one warp each
-constexpr int kInvRows = 32;  // rows of the tile staged at a time
 constexpr int kInvMaxTile = 512;
-constexpr int kInvThreads = kInvCols * 32;
+constexpr int kInvNb = 32;          // diagonal block width, the longest dependent chain
+constexpr int kInvDiagWarps = 4;    // diagonal blocks of one CTA
+constexpr int kInvCb = 64;          // output tile of a level: 64 x 64, 4 x 4 a thread
+constexpr int kInvK = 32;           // depth of a staged chunk, the first level of every sum
+constexpr int kInvThreads = 256;
+constexpr int kInvLd = kInvCb + 4;  // shared row: 16-byte aligned float4 reads
 
-__device__ __forceinline__ float warp_sum(float v) {
+// grid ceil(nb * nblk / 4), nblk = ceil(bs / 32); warp g the diagonal block
+// b = g % nblk of tile g / nblk.  Lane i holds row i of L_bb (its lower
+// triangle, padded with I past a ragged block's width w) and of its
+// inverse; row m of the inverse is final once scaled by 1 / L[m][m], then
+// every lower row subtracts L[i][m] times it (moved by shuffles).  Entries
+// above the diagonal are never touched and stay exactly 0.
+__global__ void __launch_bounds__(kInvDiagWarps * 32)
+    tri_inv_diag(const float* L, int ld, float* W, int nb, int bs) {
+  __shared__ float sm[kInvDiagWarps][kInvNb][kInvNb + 1];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nblk = (bs + kInvNb - 1) / kInvNb;
+  const int g = blockIdx.x * kInvDiagWarps + warp;
+  if (g >= nb * nblk) return;  // warp-uniform: the warps share no barrier
+  const int tile = g / nblk, c0 = (g % nblk) * kInvNb, w = min(kInvNb, bs - c0);
+  const float* T = L + (size_t)(tile * bs + c0) * ld + tile * bs + c0;
+  float(*s)[kInvNb + 1] = sm[warp];
+  // rows r coalesced along the lanes; the strict upper is masked, not read
+  for (int r = 0; r < kInvNb; ++r)
+    s[r][lane] = (r < w && lane < w) ? (lane <= r ? T[(size_t)r * ld + lane] : 0.0f)
+                                     : (lane == r ? 1.0f : 0.0f);
+  __syncwarp();
+  float a[kInvNb], v[kInvNb];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  for (int m = 0; m < kInvNb; ++m) {
+    a[m] = s[lane][m];
+    v[m] = (m == lane) ? 1.0f : 0.0f;
+  }
+#pragma unroll
+  for (int m = 0; m < kInvNb; ++m) {
+    const float sc = (lane == m) ? 1.0f / a[m] : 1.0f;
+#pragma unroll
+    for (int c = 0; c <= m; ++c) {
+      v[c] *= sc;
+      const float wmc = __shfl_sync(0xffffffffu, v[c], m);
+      if (lane > m) v[c] = fmaf(-a[m], wmc, v[c]);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int m = 0; m < kInvNb; ++m) s[lane][m] = v[m];
+  __syncwarp();
+  float* Wr = W + (size_t)tile * bs * bs + (size_t)c0 * bs;
+  for (int r = 0; r < w; ++r) {
+    if (lane < w) Wr[(size_t)r * bs + c0 + lane] = s[r][lane];
+    for (int c = c0 + w + lane; c < bs; c += 32) Wr[(size_t)r * bs + c] = 0.0f;
+  }
 }
 
-// grid (bs / 16, nb).  W[t] = inv(tril(L_tt)); column c = c0 + warp.  Lane l
-// holds w[m] = W[c0 + l + 32 m, c].
+// As[k][r] = M[r][k] for r < rows, k < cols of the row-major M (row stride
+// ld), 0 elsewhere; 64 rows x 32 columns, each warp one row at a time
+// (coalesced), the eight loads of a thread in flight before any is stored.
+__device__ __forceinline__ void inv_stage_t(float* As, const float* M, size_t ld, int rows, int cols) {
+  float v[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int e = threadIdx.x + u * kInvThreads, r = e / kInvK, k = e % kInvK;
+    v[u] = (r < rows && k < cols) ? M[(size_t)r * ld + k] : 0.0f;
+  }
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int e = threadIdx.x + u * kInvThreads;
+    As[(e % kInvK) * kInvLd + e / kInvK] = v[u];
+  }
+}
+
+// Bs[k][c] = M[k][c] for k < rows, c < cols, 0 elsewhere; 32 rows x 64 columns.
+__device__ __forceinline__ void inv_stage(float* Bs, const float* M, size_t ld, int rows, int cols) {
+  float v[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int e = threadIdx.x + u * kInvThreads, k = e / kInvCb, c = e % kInvCb;
+    v[u] = (k < rows && c < cols) ? M[(size_t)k * ld + c] : 0.0f;
+  }
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int e = threadIdx.x + u * kInvThreads;
+    Bs[(e / kInvCb) * kInvLd + e % kInvCb] = v[u];
+  }
+}
+
+// acc[a][b] += sum_{k < 32} As[k][4 ty + a] Bs[k][4 tx + b], the chunk's 32
+// terms summed apart first (the first level of the sum).
+__device__ __forceinline__ void inv_chunk(const float* As, const float* Bs, float acc[4][4]) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float part[4][4] = {};
+#pragma unroll 8
+  for (int k = 0; k < kInvK; ++k) {
+    const float4 a = *reinterpret_cast<const float4*>(&As[k * kInvLd + 4 * ty]);
+    const float4 b = *reinterpret_cast<const float4*>(&Bs[k * kInvLd + 4 * tx]);
+    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) part[i][j] = fmaf(av[i], bv[j], part[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
+}
+
+// grid (pairs * ceil(h / 64), nb), pairs = ceil((bs - h) / 2h); dynamic
+// shared memory (max(h, 64) + 64) * kInvLd floats.  Pair p of tile t: A =
+// the h-wide block at c0 = 2 p h, D the hd-wide block at r0 = c0 + h (hd <
+// h for a ragged pair), C = L[r0 .., c0 ..]; inv(A) and inv(D) are W's
+// diagonal blocks from the levels before (their strict upper is 0).  Block
+// (p, cb) writes W[r0 .., c0 + 64 cb ..] = -inv(D) C inv(A)[:, 64 cb ..].
 __global__ void __launch_bounds__(kInvThreads)
-    diag_tri_inv_kernel(const float* L, int ld, float* W, int bs) {
-  extern __shared__ float Ls[];  // kInvRows x bs, row stride bs; later W's 16 columns
-  const int tile = blockIdx.y, c0 = blockIdx.x * kInvCols;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, c = c0 + warp;
-  const float* T = L + (size_t)tile * bs * ld + (size_t)tile * bs;
-  float w[kInvMaxTile / 32];
-#pragma unroll
-  for (int m = 0; m < kInvMaxTile / 32; ++m) w[m] = 0.0f;
-  for (int i0 = c0; i0 < bs; i0 += kInvRows) {
-    const int i1 = min(i0 + kInvRows, bs), wd = i1 - c0;
-    __syncthreads();
-    // the staging loads go out 8 at a time, before any of them is stored
-    const int total = (i1 - i0) * wd;
-    for (int e0 = threadIdx.x; e0 < total; e0 += 8 * kInvThreads) {
-      float v[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int e = e0 + u * kInvThreads;
-        const int row = i0 + e / wd, col = c0 + e % wd;
-        v[u] = e < total && col <= row ? T[(size_t)row * ld + col] : 0.0f;
-      }
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int e = e0 + u * kInvThreads;
-        if (e < total) Ls[(e / wd) * bs + e % wd] = v[u];
-      }
-    }
-    __syncthreads();
-    for (int i = max(i0, c); i < i1; ++i) {
-      const float* Li = Ls + (i - i0) * bs;  // row i, from column c0
-      float acc = 0.0f;
-#pragma unroll
-      for (int m = 0; m < kInvMaxTile / 32; ++m) {
-        const int k = c0 + lane + 32 * m;
-        if (k >= c && k < i) acc = fmaf(Li[lane + 32 * m], w[m], acc);
-      }
-      acc = warp_sum(acc);
-      const float v = ((i == c ? 1.0f : 0.0f) - acc) / Li[i - c0];
-      const int own = i - c0;
-#pragma unroll
-      for (int m = 0; m < kInvMaxTile / 32; ++m)
-        if (lane + 32 * m == own) w[m] = v;
-    }
-  }
-  __syncthreads();
-  float* Ws = Ls;  // Ws[(k - c0) * 16 + col]
-#pragma unroll
-  for (int m = 0; m < kInvMaxTile / 32; ++m) {
-    const int kk = lane + 32 * m;
-    if (c0 + kk < bs) Ws[kk * kInvCols + warp] = w[m];
-  }
-  __syncthreads();
+    tri_inv_level(const float* L, int ld, float* W, int bs, int h) {
+  extern __shared__ __align__(16) float ism[];
+  float* Ts = ism;                                    // T = C inv(A)[:, cols]: hd rows
+  float* As = Ts + max(h, kInvCb) * kInvLd;           // [32][kInvLd]: C or inv(D), transposed
+  float* Bs = As + kInvK * kInvLd;                    // [32][kInvLd]: rows of inv(A)
+  const int cbs = (h + kInvCb - 1) / kInvCb;
+  const int p = blockIdx.x / cbs, j0 = (blockIdx.x % cbs) * kInvCb, tile = blockIdx.y;
+  const int c0 = 2 * p * h, r0 = c0 + h, hd = min(h, bs - r0), jw = min(kInvCb, h - j0);
+  const float* Lt = L + (size_t)tile * bs * ld + (size_t)tile * bs;
   float* Wt = W + (size_t)tile * bs * bs;
-  for (int e = threadIdx.x; e < bs * kInvCols; e += kInvThreads) {
-    const int k = e / kInvCols, col = e % kInvCols;
-    Wt[(size_t)k * bs + c0 + col] = k < c0 ? 0.0f : Ws[(k - c0) * kInvCols + col];
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  // T's 64-row blocks; inv(A)[k][j] = 0 for k < j, so the sum starts at row j0
+  for (int i0 = 0; i0 < hd; i0 += kInvCb) {
+    float acc[4][4] = {};
+    for (int k0 = j0; k0 < h; k0 += kInvK) {
+      __syncthreads();
+      inv_stage_t(As, Lt + (size_t)(r0 + i0) * ld + c0 + k0, (size_t)ld, hd - i0, h - k0);
+      inv_stage(Bs, Wt + (size_t)(c0 + k0) * bs + c0 + j0, (size_t)bs, h - k0, jw);
+      __syncthreads();
+      inv_chunk(As, Bs, acc);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(&Ts[(i0 + 4 * ty + i) * kInvLd + 4 * tx]) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+  // X's 64-row blocks; inv(D)[i][k] = 0 for k > i, so the sum ends at i0 + 63
+  for (int i0 = 0; i0 < hd; i0 += kInvCb) {
+    float acc[4][4] = {};
+    const int k1 = min(i0 + kInvCb, hd);
+    for (int k0 = 0; k0 < k1; k0 += kInvK) {
+      __syncthreads();  // also: T complete before its first read
+      inv_stage_t(As, Wt + (size_t)(r0 + i0) * bs + r0 + k0, (size_t)bs, hd - i0, k1 - k0);
+      __syncthreads();
+      inv_chunk(As, Ts + k0 * kInvLd, acc);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = i0 + 4 * ty + i;
+      if (r >= hd) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 4 * tx + j;
+        if (c < jw) Wt[(size_t)(r0 + r) * bs + c0 + j0 + c] = -acc[i][j];
+      }
+    }
   }
 }
 
@@ -322,17 +434,27 @@ extern "C" int gpr_narrow_subst(const float* L, const float* W, const float* src
 }
 
 // W (nb, bs, bs) = the inverses of the lower triangles of the diagonal tiles
-// of L (nb bs, nb bs), row stride ld; W's strict upper is exact 0.
+// of L (nb bs, nb bs), row stride ld; W's strict upper is exact 0.  bs % 16
+// == 0, bs <= 512.  1 + log2(bs / 32) kernels in stream order.
 extern "C" int gpr_diag_tri_inv(const float* L, int ld, float* W, int nb, int bs, void* stream) {
   using namespace gpr;
-  if (nb < 1 || bs < kInvCols || bs % kInvCols || bs > kInvMaxTile || ld < nb * bs)
+  if (nb < 1 || bs < 16 || bs % 16 || bs > kInvMaxTile || ld < nb * bs)
     return (int)cudaErrorInvalidValue;
-  // one tile row of slack: a predicated-off read of the last staged row stays inside
-  const int smem = (kInvRows * bs + kInvMaxTile) * (int)sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(diag_tri_inv_kernel,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nblk = (bs + kInvNb - 1) / kInvNb;
+  tri_inv_diag<<<(nb * nblk + kInvDiagWarps - 1) / kInvDiagWarps, kInvDiagWarps * 32, 0, s>>>(
+      L, ld, W, nb, bs);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  diag_tri_inv_kernel<<<dim3(bs / kInvCols, nb), kInvThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(L, ld, W, bs);
-  return (int)cudaGetLastError();
+  const int smem_max = (kInvMaxTile / 2 + 2 * kInvK) * kInvLd * (int)sizeof(float);
+  err = cudaFuncSetAttribute(tri_inv_level, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
+  if (err != cudaSuccess) return (int)err;
+  for (int h = kInvNb; h < bs; h *= 2) {
+    const int pairs = (bs - h + 2 * h - 1) / (2 * h), cbs = (h + kInvCb - 1) / kInvCb;
+    const int smem = (max(h, kInvCb) + 2 * kInvK) * kInvLd * (int)sizeof(float);
+    tri_inv_level<<<dim3(pairs * cbs, nb), kInvThreads, smem, s>>>(L, ld, W, bs, h);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }

@@ -23,9 +23,10 @@ for an (n, w, b) are built once per device and cached there (JAX passes them
 as scalar prefetch), so the 63 K16 calls of an n = 16384 factorization copy
 nothing from the host.
 
-Each function launches its hand-written CUDA kernel (``csrc/inplace.cu``) for
-a CUDA float32 buffer, raises for another CUDA dtype, and runs its plain torch
-version (``*_reference``: tile-list ``addmm_`` updates, ``cholesky_ex`` +
+Each function launches its hand-written CUDA kernel (``csrc/inplace.cu``; K16
+on the 3xTF32 tensor-core tile of ``csrc/tc_tile.cuh``) for a CUDA float32
+buffer, raises for another CUDA dtype, and runs its plain torch version
+(``*_reference``: tile-list ``addmm_`` updates, ``cholesky_ex`` +
 ``solve_triangular`` for the panel, ``tril_``) for a CPU tensor.  Contracts,
 as JAX's: only the lower triangle of A is read (NaN or junk above it leaves
 the factor bit-identical); the factor's strict upper is exactly 0; a
@@ -85,9 +86,11 @@ def _rank_update_tiles(S: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor, 
         raise ValueError("rank_update_inplace: rows and cols must have one length")
     if S.device.type == "cpu":
         return rank_update_reference(S, rows, cols, kcols, bm=bm, bk=bk)
-    if bm % 64 or bk % 16:
-        raise ValueError(f"rank_update_inplace: the kernel takes bm % 64 == 0 and bk % 16 == 0, "
+    if bm % 128 or bk % 32:
+        raise ValueError(f"rank_update_inplace: the kernel takes bm % 128 == 0 and bk % 32 == 0, "
                          f"got {bm}, {bk}")
+    if S.data_ptr() % 16:  # cp.async copies 16-byte pieces of every source row
+        raise ValueError("rank_update_inplace: the kernel needs S 16-byte aligned")
     _cuda.RANK_UPDATE_TILES.launch(S.device, S.data_ptr(), S.shape[0], rows.data_ptr(), cols.data_ptr(),
                                    kcols.data_ptr(), rows.numel(), kcols.numel(), bm, bk)
     return S

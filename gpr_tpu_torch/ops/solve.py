@@ -8,7 +8,10 @@ Mirrors gpr_tpu/ops/pallas_solve.py:161-347 (``_diag_block_inverses``,
    by the scheme ``GPR_SOLVE_DIAGINV`` names at call time: ``xla`` (default)
    one batched ``torch.linalg.solve_triangular`` of the stacked tiles against
    I, where JAX calls its batched triangular solve; ``pallas`` kernel K11
-   diag_tri_inv (:func:`diag_tri_inv`), where JAX runs its Pallas kernel.
+   diag_tri_inv (:func:`diag_tri_inv`), where JAX runs its Pallas kernel: on
+   the card a blocked inverse, 32-wide diagonal blocks, then pairs of blocks
+   joined level by level (h = 32 .. bs / 2) by the identity JAX uses for
+   bs = 1024 below.
    bs = 1024 joins two 512 inverses with two batched products, as JAX does.
 2. the forward substitution  y_i = W_ii (b_i - sum_{j<i} L_ij y_j),
 3. the backward substitution x_i = W_ii^T (y_i - sum_{j>i} L_ji^T x_j),
@@ -169,6 +172,9 @@ def _narrow_impl(L, B, bs, diag_inv):
     n, q = B.shape
     if n % bs or L.shape != (n, n):
         raise ValueError(f"cho_solve_narrow: bad shapes {tuple(L.shape)} {tuple(B.shape)}")
+    # the kernels read L row-major: a column-major factor (torch.linalg.cholesky's)
+    # is copied once here, not once in each of the three kernels' wrappers
+    L = L.contiguous()
     W = diag_block_inverses(L, bs, diag_inv)
     return subst_pass(L, W, subst_pass(L, W, B, True), False)
 

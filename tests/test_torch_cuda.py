@@ -30,7 +30,8 @@ K12-K14's factor and inverse get 1e-5 relative against their plain versions
 < 1e-4, as tests/test_ops.py:457-499 holds JAX's leaf kernels.  K15 and K17
 (a panel factored by 64-blocks and products with W, against cholesky_ex and
 a triangular solve) and the in-place factorization get 1e-5 relative; K16's
-tiles 1e-5 of the largest entry (K5's bound); K18 is bit-exact.  K19 and K20
+tiles 1e-5 of the largest entry (K5's bound; two calls bit-identical); K18
+is bit-exact.  K19 and K20
 get 1e-5 of the largest entry against their plain versions (the gate
 tests/test_ops.py:318 puts on JAX's kernel) and ||L L^T - A|| / ||A|| < 1e-5
 (Frobenius, float64 arithmetic on the float32 factor).
@@ -715,6 +716,29 @@ def test_diag_tri_inv_kernel(dev, n, bs):
     assert not bool(torch.isfinite(Wb[1]).all()) and bool(torch.isfinite(Wb[0]).all())
 
 
+@pytest.mark.parametrize("bs", [16, 48, 256, 512])
+def test_diag_tri_inv_blocked(dev, bs):
+    # the blocked inverse at a ragged (16, 48) and full (256, 512) tile: NaN
+    # and junk above the diagonal ignored, an exact-zero upper, and a NaN
+    # pivot at 0, 31, 32, 511 (those inside the tile) and bs - 1 of tile 1
+    # making that tile's W non-finite and no other
+    rng = np.random.default_rng(35)
+    n = 3 * bs
+    Lh, Lj, _ = _narrow_system(rng, n, 1)
+    R = solve.diag_tri_inv_reference(_t(Lh, dev), bs)
+    for upper in (Lj, Lh + np.triu(np.full((n, n), np.nan, np.float32), 1)):
+        _cuda.reset_launch_counts()
+        W = solve.diag_tri_inv(_t(upper, dev), bs)
+        torch.cuda.synchronize()
+        assert _cuda.launch_counts()["diag_tri_inv"] == 1
+        assert _relerr(W, R) <= 1e-4 and torch.all(torch.triu(W, 1) == 0)
+    for p in sorted({0, 31, 32, 511, bs - 1} & set(range(bs))):
+        bad = Lh.copy()
+        bad[bs + p, bs + p] = np.nan
+        Wb = solve.diag_tri_inv(_t(bad, dev), bs)
+        assert [bool(torch.isfinite(Wb[i]).all()) for i in range(3)] == [True, False, True], p
+
+
 @pytest.mark.parametrize("diag_inv", ["xla", "pallas"])
 @pytest.mark.parametrize("n,q,bs", [(2048, 8, 512), (3072, 8, 1024), (1024, 1, 256)])
 def test_cho_solve_narrow_on_the_card(dev, diag_inv, n, q, bs):
@@ -890,6 +914,51 @@ def test_rank_update_tiles_kernel(dev):
         for i, j in zip(rows, cols):
             mask[i * bm:(i + 1) * bm, j * bm:(j + 1) * bm] = False
         assert torch.equal(S[mask], S0[mask]) and not torch.equal(S[~mask], S0[~mask])
+
+
+def test_rank_update_tiles_smallest_grids(dev):
+    # the last narrow (one 256-tile: 4 blocks) and wide (one 512-tile: 16
+    # blocks) calls of the n = 16384 schedule: 1e-5 of the largest entry,
+    # nothing outside the target written, two calls bit-identical
+    n = 16384
+    steps = [s_ for s_ in inplace_chol.schedule(n, 512, 256, dev) if s_[0] == "update"]
+    last = {s_[4]: s_ for s_ in steps}
+    g = torch.Generator(device=dev).manual_seed(36)
+    S0 = torch.randn((n, n), generator=g, device=dev)
+    for bm in (256, 512):
+        _, rows, cols, kcols, _ = last[bm]
+        assert rows.numel() == 1
+        S, R = S0.clone(), S0.clone()
+        _cuda.reset_launch_counts()
+        inplace_chol._rank_update_tiles(S, rows, cols, kcols, bm, bm)
+        torch.cuda.synchronize()
+        assert _cuda.launch_counts()["rank_update_tiles"] == 1
+        inplace_chol.rank_update_reference(R, rows, cols, kcols, bm=bm, bk=bm)
+        assert float((S - R).abs().max()) <= 1e-5 * float(R.abs().max())
+        i, j = int(rows[0]), int(cols[0])
+        changed = S != S0
+        changed[i * bm:(i + 1) * bm, j * bm:(j + 1) * bm] = False
+        assert not bool(changed.any())
+        S2 = S0.clone()
+        inplace_chol._rank_update_tiles(S2, rows, cols, kcols, bm, bm)
+        assert torch.equal(S, S2)
+        del S, R, S2, changed
+    del S0
+    torch.cuda.empty_cache()
+
+
+def test_rank_update_tiles_deterministic(dev):
+    # the first wide call at n = 2048 twice on one input: bit-identical
+    S0 = _t(np.random.default_rng(37).standard_normal((2048, 2048)), dev)
+    _, rows, cols, kcols, bm = [s_ for s_ in inplace_chol.schedule(2048, 512, 256, dev)
+                                if s_[0] == "update"][1]
+    outs = []
+    for _ in range(2):
+        S = S0.clone()
+        inplace_chol._rank_update_tiles(S, rows, cols, kcols, bm, bm)
+        outs.append(S)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], S0)
 
 
 def test_rank_update_checks_device_lists(dev):

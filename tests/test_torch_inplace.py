@@ -10,7 +10,9 @@ relative to its largest entry (as tests/test_torch_leaf.py holds the leaf
 kernels; both sides sum in float32 in other orders, the port's plain
 versions by cholesky_ex and triangular solves, JAX's by strip factors and
 inverse products); JAX's own bound for the rank update, 2e-2 absolute against
-float64.  The slice as a whole (fit -> predict / credible interval, MLL value
+float64.  K16's order on the card (per 128x128 sub-tile, one partial per
+32-deep slice folded into a float32 running tile, then S -= run) is
+emulated here in float32 torch and held to JAX's kernel at the same 1e-5.  The slice as a whole (fit -> predict / credible interval, MLL value
 + gradient) runs at sigma 0.1, where K's condition number turns the two
 float32 computations' rounding into differences of ~2e-3 in alpha and ~1e-2
 in the gradient between the packages; there each result of each package is
@@ -84,6 +86,47 @@ def test_rank_update_on_jax_lists():
     for i, j in [(2, 2), (3, 2), (3, 3)]:
         rest[i * 256:(i + 1) * 256, j * 256:(j + 1) * 256] = False
     np.testing.assert_array_equal(out.numpy()[rest], S[rest])  # nothing else is touched
+
+
+def _k16_order(S, rows, cols, kcols, bm, bk, sub=128, k=32):
+    """csrc/inplace.cu's K16 in float32 torch: every target tile cut into
+    128x128 sub-tiles, each summed over the contiguous kcols by one partial
+    per 32-deep slice, folded into a float32 running tile, then subtracted."""
+    S = S.clone()
+    assert list(kcols) == list(range(kcols[0], kcols[0] + len(kcols)))  # one run
+    src = S[:, kcols[0] * bk:(kcols[-1] + 1) * bk].clone()
+    for i, j in zip(rows, cols):
+        for a in range(0, bm, sub):
+            for b in range(0, bm, sub):
+                A = src[i * bm + a:i * bm + a + sub]
+                B = src[j * bm + b:j * bm + b + sub]
+                run = torch.zeros((sub, sub))
+                for k0 in range(0, src.shape[1], k):
+                    run += A[:, k0:k0 + k] @ B[:, k0:k0 + k].T
+                S[i * bm + a:i * bm + a + sub, j * bm + b:j * bm + b + sub] -= run
+    return S
+
+
+@pytest.mark.parametrize("lists", ["jax", "narrow", "wide"])
+def test_k16_order_matches_jax(lists):
+    # JAX's lists at n = 1024; the schedule's first narrow and wide lists at 2048
+    n = 1024 if lists == "jax" else 2048
+    S = np.random.default_rng(6).standard_normal((n, n)).astype(np.float32)
+    if lists == "jax":
+        rows, cols, kcols, bm = [2, 3, 3], [2, 2, 3], [0, 1], 256
+    else:
+        st = [s_ for s_ in ic.schedule(n, 512, 256, torch.device("cpu")) if s_[0] == "update"]
+        _, r, c, kc, bm = st[0] if lists == "narrow" else st[1]
+        rows, cols, kcols = r.tolist(), c.tolist(), kc.tolist()
+        assert bm == (256 if lists == "narrow" else 512)
+    out = _k16_order(torch.tensor(S), rows, cols, kcols, bm, bm).numpy()
+    out_j = np.asarray(jic.rank_update_inplace(jnp.asarray(S), *(np.asarray(a, np.int32) for a in (rows, cols, kcols)),
+                                               bm=bm, bk=bm, interpret=True))
+    assert _rel(out, out_j) < TOL
+    rest = np.ones(S.shape, bool)
+    for i, j in zip(rows, cols):
+        rest[i * bm:(i + 1) * bm, j * bm:(j + 1) * bm] = False
+    np.testing.assert_array_equal(out[rest], S[rest])
 
 
 @pytest.mark.parametrize("c0t", [0, 1])

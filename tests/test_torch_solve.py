@@ -8,7 +8,11 @@ solve (scipy's cho_solve of the same float32 factor), for both packages; the
 two float32 results differ from each other by the sum of those.  Gradients:
 2e-5 of the largest entry, as JAX's gradient test.  The diagonal-tile
 inverses: W L = I to 2e-5, as JAX's test, and 1e-5 of the largest entry
-between the packages.  The narrow-schedule MLL is a float32 computation whose
+between the packages.  K11's blocked order on the card (32-wide diagonal
+inverses by row elimination, then the doubling levels h = 32 .. bs / 2,
+each product summed by 32-deep float32 partials) is emulated here in float32
+torch and held to JAX's Pallas kernel the same way, and to a float64 inverse
+of an ill-conditioned tile (cond ~1e4) at 3x the plain version's error.  The narrow-schedule MLL is a float32 computation whose
 error against float64 is set by the conditioning of K + sigma^2 I, so the
 port's error must stay within 3x JAX's (the ratio gate of ADVICE.md:5).
 """
@@ -90,6 +94,65 @@ def test_diag_block_inverses_match_jax(n, bs):
         assert np.all(np.triu(W[i], 1) == 0)
     Wx = ts.diag_block_inverses(torch.tensor(Lj), bs, "xla").numpy()
     assert _rel(W, Wx) < 1e-5
+
+
+def _chunked_matmul(P, Q, k=32):
+    """P @ Q summed as K11 sums it: one float32 partial per 32-deep chunk,
+    folded into a float32 running sum."""
+    run = torch.zeros(P.shape[:-1] + Q.shape[-1:], dtype=P.dtype)
+    for k0 in range(0, P.shape[-1], k):
+        run += P[..., k0:k0 + k] @ Q[..., k0:k0 + k, :]
+    return run
+
+
+def _k11_blocked_order(L, bs, nb_w=32):
+    """csrc/solve.cu's K11 in float32 torch: each diagonal block's inverse by
+    row elimination (tri_inv_diag), then for h = 32, 64, ... < bs every pair
+    of h-wide blocks joined by X = -inv(D) (C inv(A)) (tri_inv_level)."""
+    D = torch.tril(ts._diag_tiles(L, bs))
+    W = torch.zeros_like(D)
+    for c0 in range(0, bs, nb_w):
+        w = min(nb_w, bs - c0)
+        B = D[:, c0:c0 + w, c0:c0 + w]
+        V = torch.eye(w).expand_as(B).clone()
+        for m in range(w):
+            V[:, m] *= 1.0 / B[:, m, m:m + 1]
+            V[:, m + 1:] -= B[:, m + 1:, m:m + 1] * V[:, m:m + 1]
+        W[:, c0:c0 + w, c0:c0 + w] = V
+    h = nb_w
+    while h < bs:
+        for c0 in range(0, bs - h, 2 * h):
+            r0, r1 = c0 + h, min(c0 + 2 * h, bs)
+            T = _chunked_matmul(D[:, r0:r1, c0:r0], W[:, c0:r0, c0:r0])
+            W[:, r0:r1, c0:r0] = -_chunked_matmul(W[:, r0:r1, r0:r1], T)
+        h *= 2
+    return W
+
+
+@pytest.mark.parametrize("bs", [256, 512])
+def test_k11_blocked_order_matches_jax(bs):
+    Lh, Lj, _ = _system(1024, 1, seed=23)
+    W = _k11_blocked_order(torch.tensor(Lj), bs).numpy()
+    Wj = np.asarray(jps._diag_block_inverses_pallas(jnp.asarray(Lj), bs, interpret=True))
+    assert _rel(W, Wj) < 1e-5 and np.all(np.triu(W, 1) == 0)
+    for i in range(1024 // bs):
+        blk = Lh[i * bs:(i + 1) * bs, i * bs:(i + 1) * bs]
+        np.testing.assert_allclose(W[i] @ blk, np.eye(bs, dtype=np.float32), atol=2e-5)
+
+
+@pytest.mark.parametrize("bs", [48, 512])
+def test_k11_blocked_order_precision(bs):
+    # a factor tile of cond ~1e4 (A's eigenvalues 1 .. 1e-8); the doubling's
+    # error against float64 within 3x that of the plain substitution
+    rng = np.random.default_rng(24)
+    Q, _ = np.linalg.qr(rng.standard_normal((bs, bs)))
+    A = (Q * np.logspace(0, -8, bs)) @ Q.T
+    Lh = np.linalg.cholesky(A + 1e-12 * np.eye(bs)).astype(np.float32)
+    truth = np.linalg.inv(Lh.astype(np.float64))
+    assert 3e3 < np.linalg.cond(Lh.astype(np.float64)) < 3e4
+    err = _rel(_k11_blocked_order(torch.tensor(Lh), bs)[0], truth)
+    err_plain = _rel(ts.diag_tri_inv_reference(torch.tensor(Lh), bs)[0], truth)
+    assert err <= 3 * err_plain, (err, err_plain)
 
 
 def test_kernel_wrappers_check_their_arguments():
