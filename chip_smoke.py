@@ -130,8 +130,9 @@ process per source, in parallel), then:
      exact-zero upper, ||L L^T - A|| / ||A||, a failed pivot, n % sw; then the
      leaf dispatcher leaf_cholesky (one K19 launch at n=512 float32, none at
      513, on float64 or on the CPU);
- 26. times K19 and K20 (sw 8 and 16) at n=256 and 512 against their plain
-     versions and torch.linalg.cholesky_ex, beside their bounds.
+ 26. times K19 and K20 (sw 8 and 16) at n=256 and 512 in turns with their
+     plain versions and torch.linalg.cholesky_ex, beside their bounds: each
+     call queued behind a device sleep, and each with the host's enqueue.
 
 Phase 4's fit and phase 6's training steps are the standing check at the
 breathing-fixture shape: their gates go to chip_smoke_out/breathing_check.json
@@ -1361,16 +1362,16 @@ def main() -> int:
         finally:
             fbatched._FLEET_FUSED_MAX_N = saved_max_n
 
-    def rotate(fns, rounds):
+    def rotate(fns, rounds, queued=False):
         """Each fn timed in turns, the order reversed every round, after a
-        warm-up: {name: (median, runs)}."""
+        warm-up: {name: (median, runs)}; ``queued`` as in timed."""
         for fn in fns.values():
             fn()
         runs = {k: [] for k in fns}
         keys = list(fns)
         for i in range(rounds):
             for k in (keys if i % 2 == 0 else keys[::-1]):
-                runs[k].append(timed(fns[k]))
+                runs[k].append(timed(fns[k], queued))
         return {k: (float(np.median(v)), v) for k, v in runs.items()}
 
     r13 = np.random.default_rng(11)  # phase 11's data at B=256, n=1024
@@ -2393,30 +2394,38 @@ def main() -> int:
     del A_, A_nan, A512, A513, L512
 
     # --------------------------------------------------------------- 26 ----
-    # K19 and K20 at n=256 (the leaf pallas_chol.py's docstring measures) and
-    # n=512 (the dispatcher's cap), each in turns with its plain version and
-    # torch.linalg.cholesky_ex on the same symmetric tile, median of 10.
+    # K19 and K20 (sw 8 and 16) at n=256 (the leaf pallas_chol.py's docstring
+    # measures) and n=512 (the dispatcher's cap), each in turns with its plain
+    # version and torch.linalg.cholesky_ex on the same symmetric tile, median
+    # of 10: once with every call queued behind a device sleep (the kernel's
+    # time, the kernels line's ms) and once with the host's enqueue (the
+    # wrapper's checks, its allocation of L and the ctypes launch).
     # Bound: n^3 / 3 FLOP at 67 TFLOP/s against the upper triangle read and L
     # written, 4 (n (n + 1) / 2 + n^2) bytes, at 3.35 TB/s.
     t26 = {}
     for n_ in (256, 512):
         A_ = spd25(n_)
-        t26[n_] = rotate({"K19": lambda: tchol.cholesky_tile(A_),
-                          "K19 plain": lambda: tchol.cholesky_tile_reference(A_),
-                          "K20 sw=8": lambda: tchol.cholesky_tile_v2(A_, sw=8),
-                          "K20 sw=8 plain": lambda: tchol.cholesky_tile_v2_reference(A_, sw=8),
-                          "K20 sw=16": lambda: tchol.cholesky_tile_v2(A_, sw=16),
-                          "K20 sw=16 plain": lambda: tchol.cholesky_tile_v2_reference(A_, sw=16),
-                          "cholesky_ex": lambda: torch.linalg.cholesky_ex(A_)}, 10)
-    bounds26 = {n_: bound(n_ ** 3 / 3.0, 4.0 * (n_ * (n_ + 1) / 2 + n_ * n_)) for n_ in t26}
+        fns26 = {"K19": lambda: tchol.cholesky_tile(A_),
+                 "K19 plain": lambda: tchol.cholesky_tile_reference(A_),
+                 "K20 sw=8": lambda: tchol.cholesky_tile_v2(A_, sw=8),
+                 "K20 sw=8 plain": lambda: tchol.cholesky_tile_v2_reference(A_, sw=8),
+                 "K20 sw=16": lambda: tchol.cholesky_tile_v2(A_, sw=16),
+                 "K20 sw=16 plain": lambda: tchol.cholesky_tile_v2_reference(A_, sw=16),
+                 "cholesky_ex": lambda: torch.linalg.cholesky_ex(A_)}
+        t26[(n_, "queued")] = rotate(fns26, 10, queued=True)
+        t26[(n_, "with the host's enqueue")] = rotate(fns26, 10)
+    bounds26 = {n_: bound(n_ ** 3 / 3.0, 4.0 * (n_ * (n_ + 1) / 2 + n_ * n_)) for n_ in (256, 512)}
     for name, key in (("tile_chol", "K19"), ("tile_chol_strips", "K20 sw=8")):
-        kstats[name].update(ms=t26[512][key][0], plain_ms=t26[512][f"{key} plain"][0],
-                            library_ms=t26[512]["cholesky_ex"][0], **bounds26[512])
+        q26 = t26[(512, "queued")]
+        kstats[name].update(ms=q26[key][0], plain_ms=q26[f"{key} plain"][0],
+                            library_ms=q26["cholesky_ex"][0], **bounds26[512])
     del A_
     print(f"phase 26 single-tile timings ({smi}), CUDA events, medians of 10:")
-    for n_, res in t26.items():
-        print(f"  n={n_} (bound {bounds26[n_]['bound_ms']:.6f} ms, {bounds26[n_]['bound_by']}): " + "; ".join(
-            f"{k} {m:.4f} ms (runs {runs_text(r)})" for k, (m, r) in res.items()))
+    for (n_, mode), res in t26.items():
+        print(f"  n={n_} {mode} (bound {bounds26[n_]['bound_ms']:.6f} ms, {bounds26[n_]['bound_by']}): "
+              + "; ".join(f"{k} {m:.4f} ms (runs {runs_text(r)})" for k, (m, r) in res.items()))
+        print("    cholesky_ex / kernel: " + "; ".join(
+            f"{k} {res['cholesky_ex'][0] / res[k][0]:.2f}x" for k in ("K19", "K20 sw=8", "K20 sw=16")))
 
     print(f"wall time: {time.perf_counter() - t_start:.1f} s")
 

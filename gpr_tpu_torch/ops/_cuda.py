@@ -214,11 +214,11 @@ PANEL_INPLACE = Kernel("panel_inplace", "gpr_panel_inplace", "inplace.cu", "inpl
 ZERO_UPPER = Kernel("zero_upper", "gpr_zero_upper", "inplace.cu", "inplace_chol.py:201",
                     [_P, _I, _P, _P, _P, _I, _I])
 
-# (A, L, n)
-TILE_CHOL = Kernel("tile_chol", "gpr_tile_chol", "chol.cu", "pallas_chol.py:29", [_P, _P, _I])
-# (A, L, n, sw)
+# (A, L, W, n): W the panels' workspace
+TILE_CHOL = Kernel("tile_chol", "gpr_tile_chol", "chol.cu", "pallas_chol.py:29", [_P, _P, _P, _I])
+# (A, L, W, n, sw)
 TILE_CHOL_STRIPS = Kernel("tile_chol_strips", "gpr_tile_chol_strips", "chol.cu", "pallas_chol.py:83",
-                          [_P, _P, _I, _I])
+                          [_P, _P, _P, _I, _I])
 
 KERNELS = (GRAM, PANEL_UPDATE, DIAG_FACTOR_INV, PANEL_SOLVE, SYRK_UPDATE, GRAM_BATCHED, CROUT_CHOL,
            CROUT_CHOL_WI, FLEET_FUSED, NARROW_SUBST, DIAG_TRI_INV, LEAF_CHOL, LEAF_CHOL_WI,

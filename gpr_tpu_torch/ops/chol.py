@@ -10,14 +10,18 @@ name in ops/leaf.py (pallas_leaf.py:85), as the JAX package has the same two
 names.  Nothing else in the JAX package calls these kernels.
 
 Both kernels return L = U^T, U the Cholesky factor of one (n, n) SPD tile
-computed from its upper triangle, U's rows by n rank-1 updates (K19) or by
-strips of ``sw`` rows, each factored in place and followed by one rank-sw
-trailing update (K20).  The wrappers launch the hand-written CUDA kernels
-(``csrc/chol.cu``) for a CUDA float32 tile with n <= 512 (K20: sw in {8, 16};
+computed from its upper triangle; the plain versions follow the TPU kernels
+step for step, U's rows by n rank-1 updates (K19) or by strips of ``sw``
+rows, each factored in place and followed by one rank-sw trailing update
+(K20).  The wrappers launch the hand-written CUDA kernel (``csrc/chol.cu``:
+the tile held in one 8-CTA thread-block cluster's shared memory, factored by
+32-wide diagonal blocks, each on one warp; K20 takes its strips inside each
+diagonal block) for a CUDA float32 tile with n <= 512 (K20: sw in {8, 16};
 the kernel's limits, which raise ``ValueError``), raise for another CUDA
-dtype, and run the plain torch versions (``*_reference``) for a CPU tensor of
-any float dtype and any n, as JAX runs its kernels in interpret mode.  A tile
-that is not contiguous is copied first.
+dtype or a refused launch, and run the plain torch versions
+(``*_reference``) for a CPU tensor of any float dtype and any n, as JAX runs
+its kernels in interpret mode.  A tile that is not contiguous is copied
+first.
 
 Contracts (kept from the TPU kernels):
   * K19 reads only the upper triangle of A, so NaN below the diagonal leaves
@@ -37,8 +41,9 @@ import torch
 
 from . import _cuda
 
-MAX_N = 512  # csrc/chol.cu: kCholMaxN, one row of the strip per thread; the dispatcher's cap
+MAX_N = 512  # csrc/chol.cu: kCholMaxN, two 32-column blocks per CTA of an 8-CTA cluster; the dispatcher's cap
 STRIP_WIDTHS = (8, 16)  # K20's strip widths (csrc/chol.cu: gpr_tile_chol_strips)
+_SLOT = 32 * (MAX_N - 32)  # csrc/chol.cu: kCholSlot, one published panel's floats
 
 
 def _lower_from_upper(U: torch.Tensor) -> torch.Tensor:
@@ -98,8 +103,8 @@ def cholesky_tile(A: torch.Tensor) -> torch.Tensor:
     if A.device.type == "cpu":
         return cholesky_tile_reference(A)
     A = _kernel_input("cholesky_tile", A, n)
-    L = torch.empty_like(A)
-    _cuda.TILE_CHOL.launch(A.device, A.data_ptr(), L.data_ptr(), n)
+    L, W = torch.empty_like(A), _workspace(A, n)
+    _cuda.TILE_CHOL.launch(A.device, A.data_ptr(), L.data_ptr(), W.data_ptr(), n)
     return L
 
 
@@ -113,8 +118,8 @@ def cholesky_tile_v2(A: torch.Tensor, *, sw: int = 8) -> torch.Tensor:
     A = _kernel_input("cholesky_tile_v2", A, n)
     if sw not in STRIP_WIDTHS:
         raise ValueError(f"cholesky_tile_v2: the kernel takes strip widths {STRIP_WIDTHS}, got {sw}")
-    L = torch.empty_like(A)
-    _cuda.TILE_CHOL_STRIPS.launch(A.device, A.data_ptr(), L.data_ptr(), n, sw)
+    L, W = torch.empty_like(A), _workspace(A, n)
+    _cuda.TILE_CHOL_STRIPS.launch(A.device, A.data_ptr(), L.data_ptr(), W.data_ptr(), n, sw)
     return L
 
 
@@ -141,9 +146,15 @@ def _kernel_input(name: str, A: torch.Tensor, n: int) -> torch.Tensor:
     if A.dtype != torch.float32:
         raise ValueError(f"{name}: the kernel takes float32, got {A.dtype}")
     if n > MAX_N:
-        raise ValueError(f"{name}: the kernel takes n <= {MAX_N} (one row of the strip per thread), "
-                         f"got {n}")
+        raise ValueError(f"{name}: the kernel takes n <= {MAX_N} (the tile held in one thread-block "
+                         f"cluster's shared memory), got {n}")
     return A.contiguous()
+
+
+def _workspace(A: torch.Tensor, n: int) -> torch.Tensor:
+    """The kernel's panel workspace: a slot for every diagonal step's panel
+    but the last (each published once, then read by every CTA from L2)."""
+    return torch.empty(max((n + 31) // 32 - 1, 1) * _SLOT, dtype=A.dtype, device=A.device)
 
 
 def _check(name: str, A: torch.Tensor, sw: int | None = None) -> int:

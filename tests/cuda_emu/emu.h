@@ -1,9 +1,15 @@
-// A shim of the CUDA constructs that csrc/solve.cu uses, so that its source
-// compiles with a host C++ compiler and runs on the CPU: every thread of a
-// block is a fiber (ucontext), switched cooperatively at __syncthreads,
-// __syncwarp and __shfl_sync; blocks run one after another.  __shared__
-// becomes static (one block at a time), a launch becomes emu::launch.  It
-// checks a kernel's index arithmetic and rounding, never its speed.
+// A shim of the CUDA constructs that csrc/solve.cu and csrc/chol.cu use, so
+// that their sources compile with a host C++ compiler and run on the CPU:
+// every thread is a fiber (ucontext), switched cooperatively at
+// __syncthreads, __syncwarp, __shfl_sync and the cluster barrier.  A plain
+// launch runs its blocks one after another (__shared__ becomes static, one
+// block at a time); a cluster launch (cudaLaunchKernelEx with a cluster
+// dimension) runs the CTAs of a cluster together, each with its own dynamic
+// shared memory, and the cluster barrier (gpr::cluster_arrive / wait) in
+// phases, as csrc/cluster.cuh declares them.  A fiber
+// that waits at a barrier is not switched to until the barrier moves.  It
+// checks a kernel's index arithmetic, synchronisation and rounding, never its
+// speed.
 #pragma once
 #include <ucontext.h>
 
@@ -12,6 +18,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <functional>
+#include <memory>
 #include <vector>
 
 struct uint3_ {
@@ -41,56 +48,111 @@ inline int max(int a, int b) { return a > b ? a : b; }
 #define __launch_bounds__(...)
 
 namespace emu {
+struct Cta {
+  uint3_ blk;
+  int rank = 0;
+  int bar_count = 0, bar_gen = 0, wbar_count[64] = {}, wbar_gen[64] = {};
+  float wbuf[64][32];
+  float* smem = nullptr;
+};
 struct Fiber {
   ucontext_t ctx;
-  std::vector<char> stack;
+  std::unique_ptr<char[]> stack;
   bool done = false;
+  const int* wait_on = nullptr;  // blocked while *wait_on == wait_val
+  int wait_val = 0;
   uint3_ tid;
+  Cta* cta = nullptr;
+  int cl_arrives = 0;
 };
-extern uint3_ blk, grd;
 extern Fiber* cur;
-extern int nthreads, bar_count, bar_gen, wbar_count[64], wbar_gen[64];
-extern float wbuf[64][32];
-extern float dyn_smem[1 << 16];
+extern int nthreads;
+extern float* dyn_smem;  // the running CTA's dynamic shared memory
 void yield();
+// block the running fiber until *p changes from v
+inline void block_while(const int* p, int v) {
+  cur->wait_on = p;
+  cur->wait_val = v;
+  yield();
+}
 inline void block_barrier() {
-  const int g = bar_gen;
-  if (++bar_count == nthreads) {
-    bar_count = 0;
-    ++bar_gen;
+  Cta& c = *cur->cta;
+  const int g = c.bar_gen;
+  if (++c.bar_count == nthreads) {
+    c.bar_count = 0;
+    ++c.bar_gen;
     return;
   }
-  while (bar_gen == g) yield();
+  while (c.bar_gen == g) block_while(&c.bar_gen, g);
 }
 inline void warp_barrier() {
-  const int w = cur->tid.x / 32, g = wbar_gen[w];
+  Cta& c = *cur->cta;
+  const int w = cur->tid.x / 32, g = c.wbar_gen[w];
   const int live = nthreads - w * 32 < 32 ? nthreads - w * 32 : 32;
-  if (++wbar_count[w] == live) {
-    wbar_count[w] = 0;
-    ++wbar_gen[w];
+  if (++c.wbar_count[w] == live) {
+    c.wbar_count[w] = 0;
+    ++c.wbar_gen[w];
     return;
   }
-  while (wbar_gen[w] == g) yield();
+  while (c.wbar_gen[w] == g) block_while(&c.wbar_gen[w], g);
 }
+void cluster_arrive();
+void cluster_wait();
 void launch(dim3 grid, dim3 block, std::function<void()> body);
+void launch_cluster(dim3 grid, dim3 block, unsigned cluster, size_t smem_bytes, std::function<void()> body);
 }  // namespace emu
 
-#define threadIdx (emu::cur->tid)
-#define blockIdx (emu::blk)
-#define gridDim (emu::grd)
+// cudaLaunchKernelEx with at most a cluster dimension
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  union {
+    struct {
+      unsigned x, y, z;
+    } clusterDim;
+  } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <class... Exp, class... Act>
+inline cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(Exp...), Act&&... args) {
+  unsigned cluster = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension) cluster = cfg->attrs[i].val.clusterDim.x;
+  if (cfg->gridDim.x % cluster || cfg->gridDim.y != 1 || cfg->gridDim.z != 1) return cudaErrorInvalidValue;
+  emu::launch_cluster(cfg->gridDim, cfg->blockDim, cluster, cfg->dynamicSmemBytes, [&] { kernel(args...); });
+  return cudaSuccess;
+}
+
+// the running fiber's indices, set by the scheduler at every switch
+extern uint3_ threadIdx, blockIdx, gridDim;
 inline void __syncthreads() { emu::block_barrier(); }
 inline void __syncwarp() { emu::warp_barrier(); }
 inline float __shfl_sync(unsigned, float v, int src) {
+  emu::Cta& c = *emu::cur->cta;
   const int w = emu::cur->tid.x / 32;
   emu::warp_barrier();  // the previous exchange has been read
-  emu::wbuf[w][emu::cur->tid.x % 32] = v;
+  c.wbuf[w][emu::cur->tid.x % 32] = v;
   emu::warp_barrier();
-  return emu::wbuf[w][src];
+  return c.wbuf[w][src];
 }
 inline void __threadfence() {}
 inline float __ldcg(const float* p) { return *p; }
+inline float4 __ldcg(const float4* p) { return *p; }
 inline int atomicAdd(int* p, int v) {
   const int o = *p;
   *p += v;
   return o;
 }
+
+// csrc/cluster.cuh
+namespace gpr {
+inline int cluster_rank() { return emu::cur->cta->rank; }
+inline void cluster_arrive() { emu::cluster_arrive(); }
+inline void cluster_wait() { emu::cluster_wait(); }
+}  // namespace gpr

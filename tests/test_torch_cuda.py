@@ -1099,6 +1099,42 @@ def test_leaf_cholesky_dispatch(dev):
     assert _cuda.launch_counts() == {k.name: 0 for k in _cuda.KERNELS}
 
 
+@pytest.mark.parametrize("n", [1, 33, 200])
+def test_tile_chol_unaligned(dev, n):
+    # the partial last 32-block is masked inside the kernel
+    A = _leaf_spd(n, dev, seed=n)
+    A_nan = torch.triu(A) + torch.tril(torch.full_like(A, float("nan")), -1)
+    runs = [(chol.cholesky_tile, chol.cholesky_tile_reference, {})]
+    runs += [(chol.cholesky_tile_v2, chol.cholesky_tile_v2_reference, {"sw": sw}) for sw in (8, 16) if n % sw == 0]
+    for fn, ref, kw in runs:
+        L = fn(A, **kw)
+        assert torch.equal(fn(A_nan, **kw), L)
+        assert bool(torch.all(torch.triu(L, 1) == 0))
+        assert _relerr(L, ref(A, **kw)) <= 1e-5 and _recon(L, A) < 1e-5
+
+
+@pytest.mark.parametrize("n,where", [(256, 32), (256, 64), (200, 199)])
+def test_tile_chol_failed_pivot_at_block_edges(dev, n, where):
+    # the first pivot of a diagonal block, and the last of a partial one
+    A = _leaf_spd(n, dev, seed=8)
+    A[where, where] = -1.0
+    fns = [chol.cholesky_tile] + [lambda M, sw=sw: chol.cholesky_tile_v2(M, sw=sw) for sw in (8, 16) if n % sw == 0]
+    for fn in fns:
+        L = fn(A)
+        rows_ok = torch.isfinite(L).all(dim=1)
+        assert bool(rows_ok[:where].all()) and not bool(rows_ok[where:].any())
+        assert bool(torch.isnan(L[-1, -1])) and bool(torch.all(torch.triu(L, 1) == 0))
+
+
+@pytest.mark.parametrize("n", [200, 512])
+def test_tile_chol_is_deterministic(dev, n):
+    A = _leaf_spd(n, dev, seed=9)
+    assert torch.equal(chol.cholesky_tile(A), chol.cholesky_tile(A))
+    for sw in (8, 16):
+        if n % sw == 0:
+            assert torch.equal(chol.cholesky_tile_v2(A, sw=sw), chol.cholesky_tile_v2(A, sw=sw))
+
+
 def test_tile_chol_refuses_what_the_kernel_does_not_take(dev):
     A = _leaf_spd(200, dev, seed=6)
     for call in (lambda: chol.cholesky_tile_v2(A, sw=16),  # 16 does not divide 200

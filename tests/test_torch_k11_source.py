@@ -14,10 +14,7 @@ NaN pivot making its tile, and only it, non-finite; on a tile of cond ~1e4
 the error against float64 within 3x the plain version's.
 """
 
-import re
-import shutil
 import subprocess
-from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,42 +24,12 @@ import torch
 from gpr_tpu.ops import pallas_solve as jps
 from gpr_tpu_torch.ops import solve as ts
 
-ROOT = Path(__file__).resolve().parent.parent
-EMU = ROOT / "tests" / "cuda_emu"
-
-
-def _host_source(src: str) -> str:
-    """solve.cu for the shim: its header, launches as emu::launch calls, the
-    dynamic shared memory as the shim's buffer."""
-    src = src.replace("#include <cuda_runtime.h>", '#include "emu.h"')
-
-    def launch(m):
-        depth, cfg, cur = 0, [], ""
-        for ch in m.group(2):
-            depth += ch in "([" and 1 or ch in ")]" and -1 or 0
-            if ch == "," and depth == 0:
-                cfg.append(cur)
-                cur = ""
-            else:
-                cur += ch
-        cfg.append(cur)
-        return f"emu::launch(dim3({cfg[0]}), dim3({cfg[1]}), [&] {{ {m.group(1)}({m.group(3)}); }});"
-
-    src = re.sub(r"([\w:]+(?:<\w+>)?)<<<(.*?)>>>\((.*?)\);", launch, src, flags=re.S)
-    return re.sub(r"extern __shared__ (?:__align__\(\d+\) )?float (\w+)\[\];", r"float* \1 = emu::dyn_smem;", src)
+from cuda_emu_host import build
 
 
 @pytest.fixture(scope="module")
 def k11_binary(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs a host C++ compiler (g++)")
-    out = tmp_path_factory.mktemp("k11")
-    (out / "solve_host.cpp").write_text(_host_source((ROOT / "gpr_tpu_torch" / "csrc" / "solve.cu").read_text()))
-    exe = out / "k11"
-    subprocess.run([gxx, "-O1", "-std=c++17", f"-I{EMU}", str(EMU / "emu.cpp"), str(out / "solve_host.cpp"),
-                    str(EMU / "k11_main.cpp"), "-o", str(exe)], check=True, capture_output=True)
-    return exe
+    return build(tmp_path_factory.mktemp("k11"), "solve.cu", "k11_main.cpp")
 
 
 def _run(exe, L, bs):
