@@ -87,18 +87,23 @@ process per source, in parallel), then:
      against its plain version and the batched triangular solve (beside its
      first design's time), and the narrow fit and MLL against the default
      triangular solves;
- 18. holds K12 leaf_chol, K13 leaf_chol_wi and K14 tri_inv_leaf (csrc/leaf.cu)
-     against their plain versions at n = 256, 512, 768 and 1024, each on a
-     strided view with NaN above the diagonal (and K13 in place), and a leaf
-     that is not positive definite;
+ 18. prints how many of K12's thread-block clusters (n / 64 CTAs, 16 at
+     n = 1024) the card places at once, then holds K12 leaf_chol, K13
+     leaf_chol_wi and K14 tri_inv_leaf (csrc/leaf.cu) against their plain
+     versions at n = 256, 512, 768 and 1024, each on a strided view with NaN
+     above the diagonal (K12 bit-identical to its factor of the lower
+     triangle alone; K12 and K13 in place), and a leaf that is not positive
+     definite;
  19. under GPR_CHOL_LEAF_INV=1 trains at the breathing shape (phase 6's
      steps, route "blocked-syrk-leaf": two K13 launches per factorization),
      fits and predicts with the learned kernel; then, with
      GPR_CHOL_SCHEDULE=recursive as well, fits the bench model (route
      "gram-kernel", 16 K13 launches) with a 128-point credible interval and
      runs the MLL value + gradient at n=16384 and 16383 (16 and 15 launches);
- 20. times K12-K14 per 1024-leaf against their plain versions and
-     torch.linalg.cholesky_ex (+ solve_triangular against I), the n=16384
+ 20. times K12 at n = 256, 512 and 1024 (each call queued behind a device
+     sleep, then with the host's enqueue) and K13-K14 per 1024-leaf against
+     their plain versions and torch.linalg.cholesky_ex (+ solve_triangular
+     against I), the n=16384
      blocked factorization with and without the switch against
      torch.linalg.cholesky, and the bench fit and MLL with and without it;
  21. holds K15 panel_factor (csrc/panel.cu), K16 rank_update_tiles, K17
@@ -106,7 +111,8 @@ process per source, in parallel), then:
      versions: K16 on JAX's tile lists and on the schedule's narrow and wide
      lists at n=4096, K17 at tile columns 0 and 8 with NaN above its diagonal
      tile, K18 bit-exact against torch.tril at n = 2048, 4096, 4608 and
-     16384, K15 at (1024, 256) and (8192, 256); the whole
+     16384, K15 at (1024, 256) and (8192, 256) (NaN below its diagonal tile
+     bit-identical, two calls bit-equal); the whole
      in-place schedule at n = 1024, 2048, 4096 with NaN and 1234.0 above the
      diagonal (bit-identical factors), a failed pivot, the jitter escalation;
  22. under GPR_CHOL_SCHEDULE=inplace fits the bench model (route
@@ -119,7 +125,10 @@ process per source, in parallel), then:
  23. factors the bench K at n=8192 by cholesky_panels and
      cholesky_left_panels (32 K15 launches each) against float64;
  24. times K16-K18 per n=16384 factorization and K15 per left-looking n=8192
-     factorization against their plain versions and library calls, the
+     factorization (queued behind a device sleep and with the host's
+     enqueue; split into its diagonal-tile and rows kernels by
+     torch.profiler, beside K17's split, whose kernels are K15's before its
+     redesign) against their plain versions and library calls, the
      n=16384 factorization on "inplace" against "blocked-syrk",
      "fused-matrix" and torch.linalg.cholesky, and the bench fit and MLL on
      "inplace" against the default routes, and the ten slowest of K16's 63
@@ -1737,6 +1746,13 @@ def main() -> int:
     print("phase 18 K12 leaf_chol, K13 leaf_chol_wi and K14 tri_inv_leaf against their plain versions")
     g18 = torch.Generator(device=dev).manual_seed(18)
     nan = float("nan")
+    # K12 holds the leaf in one thread-block cluster of n / 64 CTAs (16 at
+    # n = 1024, a non-portable size): how many such clusters the card places
+    # at once, by cudaOccupancyMaxActiveClusters (0: the launch would fail)
+    placed18 = {n_: tleaf.max_active_clusters(n_) for n_ in (256, 512, 768, 1024)}
+    check(all(v > 0 for v in placed18.values()), f"K12's cluster cannot be placed: {placed18}")
+    print("  K12 clusters the card places at once (cudaOccupancyMaxActiveClusters): " + ", ".join(
+        f"n={n_} ({n_ // 64} CTAs) {v}" for n_, v in placed18.items()))
 
     def leaf_spd(n_):
         G = torch.randn((n_, n_), generator=g18, device=dev)
@@ -1765,6 +1781,15 @@ def main() -> int:
               f"K12-K14 n={n_}: strict upper not 0")
         check(bool(torch.isnan(buf[:32]).all() and torch.isnan(buf[:, :100]).all()),
               f"K12-K14 n={n_}: wrote outside the leaf")
+        # K12 reads only the lower triangle: the same factor from a clean copy,
+        # twice (a fixed sum order), and in place over the strided view
+        low = torch.tril(A_).contiguous()
+        check(torch.equal(tleaf.leaf_cholesky(low), L12) and torch.equal(tleaf.leaf_cholesky(view), L12),
+              f"K12 n={n_}: NaN above the diagonal or a second call changed the factor")
+        saved = view.clone()
+        Lk = tleaf.leaf_cholesky(view, out=view)
+        check(Lk.data_ptr() == view.data_ptr() and torch.equal(view, L12), f"K12 n={n_} in place")
+        view.copy_(saved)
         Lv, Wv = tleaf.leaf_cholesky_wi(view, out=view)
         check(Lv.data_ptr() == view.data_ptr() and relerr(view, Lr) <= 1e-5 and relerr(Wv, Wr) <= 1e-5,
               f"K13 n={n_} in place")
@@ -1780,11 +1805,12 @@ def main() -> int:
     check(bool(torch.isnan(Lb[-1, -1])) and not bool(torch.isfinite(Wb).all())
           and bool(torch.isnan(tleaf.leaf_cholesky(bad)[-1, -1]))
           and not bool(torch.isfinite(tleaf.tri_inv_leaf(Lb)).all()), "a failed leaf is not poisoned")
-    del A_, buf, view, Lr, Wr, L12, L13, W13, W14, W14r, bad, Lb, Wb
+    del A_, buf, view, Lr, Wr, L12, L13, W13, W14, W14r, bad, Lb, Wb, low, saved, Lk
     torch.cuda.synchronize()
     for n_, (errs, res) in worst18.items():
         print(f"  n={n_} (strided, NaN upper): rel err vs plain " + ", ".join(
-            f"{k} {e:.3g}" for k, e in errs.items()) + f"; |WL-I| {res:.3g}; in place ok")
+            f"{k} {e:.3g}" for k, e in errs.items()) + f"; |WL-I| {res:.3g}; K12 bit-identical to its "
+            "factor of the lower triangle alone, twice and in place; K13 in place ok")
     print("  a leaf that is not positive definite: L[-1,-1] NaN, W non-finite ok")
 
     # --------------------------------------------------------------- 19 ----
@@ -1862,9 +1888,18 @@ def main() -> int:
     A20 = leaf_spd(1024)
     L20 = torch.linalg.cholesky(A20).contiguous()  # cuSOLVER returns a column-major factor
     I20 = torch.eye(1024, device=dev)
-    t12 = rotate({"kernel": lambda: tleaf.leaf_cholesky(A20),
-                  "plain": lambda: tleaf.leaf_cholesky_reference(A20),
-                  "library": lambda: torch.linalg.cholesky_ex(A20)}, 10)
+    # K12 at n = 256, 512 and 1024 in turns with its plain version and
+    # cholesky_ex: each call queued behind a device sleep (the kernel's time,
+    # the kernels line's ms at 1024), then with the host's enqueue (the
+    # wrapper's checks, its allocations and the ctypes launch)
+    t12s = {}
+    for n_ in (256, 512, 1024):
+        A_ = A20 if n_ == 1024 else leaf_spd(n_)
+        fns12 = {"kernel": lambda: tleaf.leaf_cholesky(A_), "plain": lambda: tleaf.leaf_cholesky_reference(A_),
+                 "library": lambda: torch.linalg.cholesky_ex(A_)}
+        t12s[(n_, "queued")] = rotate(fns12, 10, queued=True)
+        t12s[(n_, "with the host's enqueue")] = rotate(fns12, 10)
+    t12 = t12s[(1024, "queued")]
     t13 = rotate({"kernel": lambda: tleaf.leaf_cholesky_wi(A20),
                   "plain": lambda: tleaf.leaf_cholesky_wi_reference(A20),
                   "library": lambda: torch.linalg.solve_triangular(torch.linalg.cholesky_ex(A20)[0], I20,
@@ -1899,7 +1934,11 @@ def main() -> int:
                     "no leaf": lambda: with_env(rec_env, lambda: lk.mll_value_and_grad(bench_k, Xb, Yb, 0.1))},
                    4)
     print(f"phase 20 leaf timings ({smi}), CUDA events, medians:")
-    for label, name, t_ in (("K12 leaf_chol", "leaf_chol", t12), ("K13 leaf_chol_wi", "leaf_chol_wi", t13),
+    for (n_, mode), t_ in t12s.items():
+        print(f"  K12 leaf_chol n={n_} {mode}: " + "; ".join(
+            f"{k} {m:.4f} ms (runs {runs_text(r)})" for k, (m, r) in t_.items())
+            + f"; cholesky_ex / kernel {t_['library'][0] / t_['kernel'][0]:.2f}x")
+    for label, name, t_ in (("K12 leaf_chol (queued)", "leaf_chol", t12), ("K13 leaf_chol_wi", "leaf_chol_wi", t13),
                             ("K14 tri_inv_leaf", "tri_inv_leaf", t14)):
         print(f"  {label} per 1024-leaf: " + "; ".join(
             f"{k} {m:.4f} ms (runs {runs_text(r)})" for k, (m, r) in t_.items())
@@ -1983,9 +2022,15 @@ def main() -> int:
     A8 = spd21(8192)
     for n_ in (1024, 8192):
         P_ = A8[:n_, :256]
-        e = relerr(tpanel.panel_factor(P_), tpanel.panel_factor_reference(P_))
+        L15 = tpanel.panel_factor(P_)
+        e = relerr(L15, tpanel.panel_factor_reference(P_))
         check(e <= 1e-5, f"K15 ({n_}, 256): {e}")
         errs21[f"K15 ({n_}, 256)"] = e
+        Pn = P_.clone()  # D is read from its upper triangle only; a fixed sum order
+        Pn[:256] += torch.tril(torch.full((256, 256), float("nan"), device=dev), -1)
+        check(torch.equal(tpanel.panel_factor(Pn), L15) and torch.equal(tpanel.panel_factor(P_), L15),
+              f"K15 ({n_}, 256): NaN below the diagonal tile or a second call changed the output")
+    del L15, Pn
     kstats["panel_factor"] = {"max_abs_err": float((tpanel.panel_factor(A8[:, :256])
                                                     - tpanel.panel_factor_reference(A8[:, :256])).abs().max())}
     try:
@@ -2012,6 +2057,7 @@ def main() -> int:
     del A4, bad, L_, Lz
     torch.cuda.synchronize()
     print("  rel err vs plain: " + ", ".join(f"{k} {v:.3g}" for k, v in errs21.items()))
+    print("  K15: NaN below its diagonal tile leaves the output bit-identical; two calls bit-equal")
     print(f"  K18 bit-exact at n = 2048, 4096, 4608, 16384; junk above the diagonal (NaN, 1234.0) leaves the factor bit-identical; a failed "
           f"pivot gives L[-1,-1] NaN; safe_cholesky on 0 escalates to jitter {float(jz):.3g}: ok")
 
@@ -2231,37 +2277,66 @@ def main() -> int:
     kstats["zero_upper"].update(bound(0.0, 4.0 * n * (n - 1) / 2))
     torch.cuda.empty_cache()
 
-    # K15 per cholesky_left_panels at n=8192: each panel timed with the kernel,
-    # the plain version and cholesky_ex + solve_triangular, in turns
-    t15 = {"kernel": 0.0, "plain": 0.0, "library": 0.0}
+    # K15 per cholesky_left_panels at n=8192: the 32 panels as the schedule
+    # meets them, each timed with the kernel, the plain version and
+    # cholesky_ex + solve_triangular in turns, summed; 5 walks queued behind a
+    # device sleep (the kernel's time, the kernels line's ms), 3 with the
+    # host's enqueue; then one walk of the kernel under torch.profiler, split
+    # into its diagonal-tile kernel and its rows kernel
     L24 = torch.zeros_like(K23)
-    parts15 = []
+    parts15, panels15 = [], []
     for k in range(n23 // 256):
         j0 = k * 256
         P_ = K23[j0:, j0:j0 + 256]
         if k > 0:
             P_ = P_ - L24[j0:, :j0] @ L24[j0:j0 + 256, :j0].mT
-        box = {}
-
-        def lib15():
-            Lk = torch.linalg.cholesky_ex(P_[:256])[0]
-            return torch.linalg.solve_triangular(Lk.mT, P_[256:], upper=True, left=False)
-
-        fns = {"kernel": lambda: box.setdefault("L", tpanel.panel_factor(P_)),
-               "plain": lambda: tpanel.panel_factor_reference(P_), "library": lib15}
-        for m in (list(fns) if k % 2 == 0 else list(fns)[::-1]):
-            t15[m] += timed(fns[m])
-        L24[j0:, j0:j0 + 256] = box["L"]
+        panels15.append(P_)
+        L24[j0:, j0:j0 + 256] = tpanel.panel_factor(P_)
         rows_ = n23 - j0
         parts15.append((256 ** 3 / 3.0 + (rows_ - 256) * 256.0 ** 2, 2 * 4.0 * rows_ * 256))
     check(bool(torch.isfinite(L24[-1, -1])), "timed left-looking panels failed")
-    kstats["panel_factor"].update(ms=t15["kernel"], plain_ms=t15["plain"], library_ms=t15["library"],
+
+    def lib15(P_):
+        Lk = torch.linalg.cholesky_ex(P_[:256])[0]
+        return torch.linalg.solve_triangular(Lk.mT, P_[256:], upper=True, left=False)
+
+    fns15 = {"kernel": tpanel.panel_factor, "plain": tpanel.panel_factor_reference, "library": lib15}
+    t15s = {}
+    for mode, walks15, queued in (("queued", 5, True), ("with the host's enqueue", 3, False)):
+        runs15 = {m: [] for m in fns15}
+        for w in range(walks15):
+            for m in (list(fns15) if w % 2 == 0 else list(fns15)[::-1]):
+                runs15[m].append(sum(timed(lambda: fns15[m](P_), queued) for P_ in panels15))
+        t15s[mode] = {m: (float(np.median(v)), v) for m, v in runs15.items()}
+
+    def device_split(fn):
+        """Device time by kernel name (ms) and launches of fn's kernels, by
+        torch.profiler."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof_:
+            fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof_.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > e.time_range.start:
+                key = e.name.split("(")[0].replace("void ", "").replace("gpr::", "")
+                t_, c_ = out.get(key, (0.0, 0))
+                out[key] = (t_ + (e.time_range.end - e.time_range.start) / 1e3, c_ + 1)
+        return out
+
+    split15 = device_split(lambda: [tpanel.panel_factor(P_) for P_ in panels15])
+    check(set(split15) == {"panel_diag_cluster", "panel_factor_rows"}, f"K15's kernels: {split15}")
+    t15 = t15s["queued"]
+    kstats["panel_factor"].update(ms=t15["kernel"][0], plain_ms=t15["plain"][0], library_ms=t15["library"][0],
                                   **sum_bounds(parts15))
+    del panels15
     panels24 = rotate({"cholesky_left_panels": lambda: tpanel.cholesky_left_panels(K23),
                        "cholesky_panels": lambda: tpanel.cholesky_panels(K23),
                        "torch.linalg.cholesky": lambda: torch.linalg.cholesky(K23)}, 4)
     del K23, L24
     torch.cuda.empty_cache()
+    # K17's split: its kernels are K15's before this redesign (a 256 diagonal
+    # tile walked by one block, then 64-row strips), on the in-place schedule
+    split17 = device_split(lambda: tinp.cholesky_inplace(K24))
     fact24 = rotate({"inplace": lambda: tinp.cholesky_inplace(K24),
                      "blocked-syrk": lambda: blocked.cholesky_blocked(K24, leaf_inverse=False),
                      "fused-matrix": lambda: fullchol.cholesky_fused(K24),
@@ -2293,9 +2368,16 @@ def main() -> int:
         f"{small16:.4f} ms of {float(per16.sum()):.4f}")
     print(f"  K16 bound at the FP32 tier: {kstats['rank_update_tiles']['bound_fp32_ms']:.4f} ms")
     s_ = kstats["panel_factor"]
-    print(f"  K15 panel_factor per cholesky_left_panels at n=8192 (32 calls): kernel {s_['ms']:.4f} ms; plain "
-          f"{s_['plain_ms']:.4f}; cholesky_ex + solve_triangular {s_['library_ms']:.4f}; bound "
-          f"{s_['bound_ms']:.4f} ms ({s_['bound_by']})")
+    for mode, t_ in t15s.items():
+        print(f"  K15 panel_factor per cholesky_left_panels at n=8192 (32 calls, {mode}): " + "; ".join(
+            f"{k} {m:.4f} ms (runs {runs_text(r)})" for k, (m, r) in t_.items())
+            + f"; library / kernel {t_['library'][0] / t_['kernel'][0]:.2f}x")
+    print(f"  K15 bound {s_['bound_ms']:.4f} ms ({s_['bound_by']}); device split of one walk (torch.profiler): "
+          + "; ".join(f"{k} {t:.4f} ms ({c} launches)" for k, (t, c) in sorted(split15.items())))
+    print("  K17 device split per n=16384 in-place factorization (the diagonal tile on one block and 64-row "
+          "strips, K15's kernels before its redesign): " + "; ".join(
+              f"{k} {t:.4f} ms ({c} launches)" for k, (t, c) in sorted(split17.items())
+              if k.startswith("panel_inplace")))
     print("  factorization n=8192 (bench K): " + "; ".join(
         f"{k} {m:.2f} ms (runs {runs_text(r)})" for k, (m, r) in panels24.items()))
     print("  factorization n=16384 (bench K): " + "; ".join(

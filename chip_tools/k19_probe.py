@@ -34,6 +34,9 @@ SLOTS = ("wait", "copy", "diag", "below", "solve", "fence", "other update", "oth
 
 def patched(src: Path, threads: int) -> str:
     s = src.read_text()
+    header = src.parent / "chol.cuh"  # where chol.cu's device code lives
+    if '#include "chol.cuh"' in s and header.exists():
+        s = s.replace('#include "chol.cuh"', header.read_text().replace("#pragma once", ""))
     s = re.sub(r"constexpr int kCholThreads = \d+;", f"constexpr int kCholThreads = {threads};", s)
     s = s.replace("namespace gpr {\n", "namespace gpr {\n__device__ long long g_probe[8 * 16 * 8];\n"
                   "__device__ __forceinline__ void probe(int r, int k, int s) {\n"
@@ -43,7 +46,7 @@ def patched(src: Path, threads: int) -> str:
         ("    copy_panel(W, PT, k, cols[0], nt);\n    __syncthreads();\n", "    probe(rank, k, 1);\n"),
         ("    diag_factor<SW>(P, ld, rd, lane);\n", "    probe(cluster_rank(), j - 1, 2);\n"),
         ("  __syncthreads();\n  float* Wj", None),
-        ("row_solve<SW>(P, ld, r, rd, Wj);\n", "  probe(cluster_rank(), j - 1, 3);\n"),
+        ("row_solve<SW>(P, ld, r, P, ld, rd, Wj, kCholLdp, r - kCholNb);\n", "  probe(cluster_rank(), j - 1, 3);\n"),
         ("      factor_column<SW>(smem, PT, rd, W, k + 1, nt);\n", "      probe(rank, k, 4);\n"),
         ("      update_columns(smem, PT, cols + 1, nc - 1, k, nt);\n", "      __syncthreads();\n      probe(rank, k, 5);\n"),
         ("      update_columns(smem, PT, cols, nc, k, nt);\n", "      __syncthreads();\n      probe(rank, k, 6);\n"),

@@ -1,7 +1,7 @@
 // K12 leaf_chol: L = chol(A); K13 leaf_chol_wi: (L, W = L^-1) from one
 // factorization; K14 tri_inv_leaf: W = L^-1 of a lower-triangular L.  Each
-// takes one whole recursion leaf, s x s with s % 64 == 0 (the wrappers keep the
-// JAX package's gate: s % 256 == 0, s <= 1024), as a strided view.
+// takes one whole recursion leaf, s x s (the wrappers keep the JAX package's
+// gate: s % 256 == 0, s <= 1024), as a strided view.
 //
 // They replace the TPU kernels of gpr_tpu/ops/pallas_leaf.py: K12 _leaf_kernel
 // (line 47, launched by leaf_cholesky, 99), K13 _leaf_wi_kernel (118, by
@@ -9,14 +9,49 @@
 // GPR_CHOL_LEAF_INV=1) and K14 _tri_inv_kernel (239, by tri_inv_leaf, 294).
 // They compute what those compute, not their blocking.  The TPU kernel keeps
 // the whole leaf in VMEM (4 MiB at s = 1024) and walks 256-wide diagonal
-// blocks in one program.  A Hopper block has at most 227 KB of shared memory,
-// so here the leaf stays in device memory (L2 holds it) and one launch of a
-// persistent grid walks it, with a grid-wide barrier between dependent phases.
-// The launch is cooperative (cudaLaunchCooperativeKernel), so every block is
-// resident and the barrier cannot deadlock; a barrier that waits ~9 s traps
+// blocks in one program.
+//
+// K12: the leaf in the shared memory of one thread-block cluster.  A Hopper
+// block has at most 227 KB of shared memory; the lower triangle of a 1024
+// leaf (2.1 MB) fits the 16 CTAs of one non-portable cluster (the card places
+// 7 such clusters at this kernel's shared memory; chip_smoke.py phase 18 asks
+// cudaOccupancyMaxActiveClusters).  The leaf is cut into nt = s / 32 block
+// rows of 32-square tiles, and CTA c of the nt / 2 owns block rows c and
+// nt - 1 - c whole: nt + 1 tiles, 152 KB at s = 1024, each tile column-major
+// with a column stride of 36 floats.  A CTA reads only its own rows of A's
+// lower triangle (coalesced rows of the strided view) and writes only its own
+// rows of L, so L may be A.  Right-looking by 32-wide panels k = 0 .. nt - 2,
+// with one cluster barrier a step (A_k: the diagonal block L_kk and every
+// tile of panel k - 1 are published to an L2 workspace, a slot a tile):
+//
+//   stage    after A_k, a CTA that holds rows below k copies L_kk, its scales
+//            and L_k,k-1 from their slots (ld.cg);
+//   column   each of its rows i > k, on four warps: tile (i, k) -=
+//            L_i,k-1 L_k,k-1^T (panel k - 1's last update of the column), then
+//            L_ik = A_ik L_kk^-T by a thread a row (chol.cuh: row_solve),
+//            published to its slot, and the diagonal tile (i, i) -= L_ik
+//            L_ik^T at once: a diagonal tile needs only its own row's panels;
+//   factor   the owner of row k + 1 factors tile (k + 1, k + 1) on one warp
+//            in registers with shuffles (chol.cuh: diag_factor) and publishes
+//            it with its scales; then every CTA arrives on A_k+1;
+//   bulk     after its arrive, each CTA subtracts panel k - 1 from its other
+//            tiles (i, j), k + 1 <= j < i: a warp a tile, panel k - 1's tiles
+//            streamed from L2 in chunks of 8 (cp.async, double-buffered), so
+//            that this work overlaps the next factor.
+//
+// The chain from one step to the next is the barrier, the column's update
+// and solve, the diagonal tile's update and the warp's 32 pivots; the rows'
+// solve is spread over all CTAs (each solves its own <= 2 tiles).  No grid
+// barrier.  The scale is 1.0f / sqrtf(pivot) with no clamp (chol.cuh), so a
+// non-positive or NaN pivot poisons every later diagonal block and L[-1, -1]
+// is NaN.  Sums are 32-term tile products in a fixed order, no atomics.
+//
+// K13 and K14 keep the first design: the leaf stays in device memory (L2
+// holds it) and one cooperative launch of a persistent grid walks it, with a
+// grid-wide barrier between dependent phases; a barrier that waits ~9 s traps
 // rather than hang the card.  The diagonal block is 64, one register tile:
 //
-//   factor (K12, K13), right-looking, for k = 0 .. nb - 1:
+//   factor (K13), right-looking, for k = 0 .. nb - 1:
 //     diagonal   one block: L_kk = chol(A_kk) and V_k = L_kk^-1 in shared memory
 //                (crout.cuh: crout_sweep, tri_inverse, as K7-K9)
 //     column     L_ik = A_ik V_k^T for i > k, a tile per block
@@ -31,8 +66,8 @@
 //   at the end), then W_CA = W_C (-X).  Every product skips the zero tiles of
 //   its triangular factor.  K14 first inverts the diagonal tiles, a block each.
 //
-// Every sum runs in two levels (partials of 128 terms, gram_tile.cuh:
-// fold_update), as K9 and K16 do.
+// Every sum of K13 and K14 runs in two levels (partials of 128 terms,
+// gram_tile.cuh: fold_update), as K9 and K16 do.
 //
 // Contracts kept from the TPU kernels:
 //   * only the lower triangle of the input is read: its strict upper may hold
@@ -40,21 +75,22 @@
 //     there);
 //   * the outputs have an exactly-zero strict upper triangle;
 //   * a non-positive (or NaN) pivot gives NaN through sqrtf with no clamp
-//     (crout.cuh) and the NaN reaches every later block, so L[-1, -1] is NaN
-//     and W is not finite: the caller's O(1) check and jitter retry work.
+//     (crout.cuh, chol.cuh) and the NaN reaches every later block, so
+//     L[-1, -1] is NaN and W is not finite: the caller's O(1) check and
+//     jitter retry work.
 // K12 and K13 may factor in place (L the same view as A); W shares no memory
 // with A or L.
 //
 // What bounds them on the H100: s^3 / 3 FLOP (K12, K14) or 2 s^3 / 3 (K13),
 // 0.36 / 0.72 GFLOP at s = 1024, 5.3 / 10.7 us at 67 TFLOP/s FP32, against
 // 4 (s(s+1)/2 + s^2) bytes (4 (s(s+1)/2 + 2 s^2) for K13), 2.7-4.2 us at
-// 3.35 TB/s.  In practice the nb = s / 64 diagonal steps are a dependent chain
-// on one block each (64 pivots a step, each a shared-memory barrier), and the
-// ~2 nb + 2 log2(nb) grid barriers sit between them: latency, not bytes or
-// FLOP.  Plain FP32 FMA; tensor cores and a shorter diagonal step are later
-// work.
+// 3.35 TB/s.  In practice K12's pace is its chain of nt = 32 dependent
+// diagonal steps (a warp's 32 pivots each, ~260 cycles a pivot in K19), and
+// K13's the nb = 16 64-wide steps on one block each with ~2 nb + 2 log2(nb)
+// grid barriers between them: latency, not bytes or FLOP.  Plain FP32 FMA.
 #include <cuda_runtime.h>
 
+#include "chol.cuh"
 #include "leaf.cuh"
 
 namespace gpr {
@@ -93,14 +129,212 @@ int launch_leaf(const float* A, int lda, float* L, int ldl, float* W, int ldw, f
   return (int)cudaGetLastError();
 }
 
+
+// ---- K12: the leaf in one cluster ----------------------------------------
+
+constexpr int kLcLd = kCholNb + 4;             // an own tile's column stride
+constexpr int kLcTile = kCholNb * kLcLd;       // floats of an own tile
+constexpr int kLcPub = kCholNb * kCholNb;      // a published tile, column-major, stride 32
+constexpr int kLcChunk = 8;                    // published tiles a staging buffer holds
+constexpr int kLcMaxCluster = kLeafMax / (2 * kCholNb);  // 16
+
+// Shared memory (floats) at nt block rows: the nt + 1 own tiles, two staging
+// buffers, L_kk, L_k,k-1 and the 32 scales.  225,920 bytes at nt = 32.
+__host__ __device__ constexpr int leaf_cluster_floats(int nt) {
+  return (nt + 1) * kLcTile + 2 * kLcChunk * kLcPub + 2 * kLcPub + kCholNb;
+}
+
+// Own tile (i, j) of the CTA that holds block rows r0 (r0 + 1 tiles) and r1.
+__device__ __forceinline__ float* own_tile(float* own, int r0, int i, int j) {
+  return own + ((i == r0 ? 0 : r0 + 1) + j) * kLcTile;
+}
+
+// Block row i of A's lower triangle (row stride lda) into its tiles T: 0
+// above the diagonal; A's strict upper is never read.  8 loads in flight a
+// thread.
+__device__ void leaf_load_row(const float* __restrict__ A, size_t lda, int i, float* T) {
+  const int w = kCholNb * (i + 1), total = kCholNb * w, d0 = kCholNb * i;
+  constexpr int kB = 8;
+  for (int base = threadIdx.x; base < total; base += kB * kCholThreads) {
+    float v[kB];
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      const int e = base + u * kCholThreads, r = e / w, c = e - r * w;
+      v[u] = e < total && c <= d0 + r ? A[(size_t)(d0 + r) * lda + c] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      const int e = base + u * kCholThreads, r = e / w, c = e - r * w;
+      if (e < total) T[(c / kCholNb) * kLcTile + (c % kCholNb) * kLcLd + r] = v[u];
+    }
+  }
+}
+
+// Block row i of L from its tiles T, every column of the s: exact zeros above
+// the diagonal.
+__device__ void leaf_store_row(float* __restrict__ L, size_t ldl, int s, int i, const float* T) {
+  const int d0 = kCholNb * i, total = kCholNb * s;
+  for (int e = threadIdx.x; e < total; e += kCholThreads) {
+    const int r = e / s, c = e - r * s;
+    L[(size_t)(d0 + r) * ldl + c] = c <= d0 + r ? T[(c / kCholNb) * kLcTile + (c % kCholNb) * kLcLd + r] : 0.0f;
+  }
+}
+
+// Warp 0 factors the diagonal tile T of block row k and publishes it and its
+// scales (rd, in shared memory) to their slots; the caller fences.
+__device__ __forceinline__ void leaf_factor_publish(float* T, float* rd, float* slot, float* rds, int lane) {
+  diag_factor<1>(T, kLcLd, rd, lane);
+  __syncwarp();
+#pragma unroll 8
+  for (int c = 0; c < kCholNb; ++c) slot[c * kCholNb + lane] = T[c * kLcLd + lane];
+  rds[lane] = rd[lane];
+}
+
+// `tiles` published tiles of a panel, contiguous in the workspace, into a
+// staging buffer: 16 bytes a copy, asynchronous, one commit group.
+__device__ __forceinline__ void leaf_stage(float* buf, const float* src, int tiles) {
+  for (int e = threadIdx.x; e < tiles * kLcPub / 4; e += kCholThreads) cp_async16(buf + 4 * e, src + 4 * e);
+  cp_async_commit();
+}
+
+// The bulk of step k: panel m = k - 1 subtracted from the own tiles (i, j),
+// k + 1 <= j < i, i in {r0, r1}; panel m's tiles streamed in chunks.
+__device__ void leaf_bulk(float* own, float* ring, const float* WS, int nt, int r0, int r1, int k) {
+  const int m = k - 1, j0 = k + 1, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (r1 <= j0) return;
+  const float* panel = WS + (size_t)m * nt * kLcPub;
+  const int chunks = (r1 - j0 + kLcChunk - 1) / kLcChunk;
+  leaf_stage(ring, panel + (size_t)j0 * kLcPub, min(kLcChunk, r1 - j0));
+  for (int c = 0; c < chunks; ++c) {
+    const int a = j0 + c * kLcChunk, b = min(a + kLcChunk, r1);
+    if (c + 1 < chunks) {
+      const int a1 = b, b1 = min(a1 + kLcChunk, r1);
+      leaf_stage(ring + ((c + 1) & 1) * kLcChunk * kLcPub, panel + (size_t)a1 * kLcPub, b1 - a1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // chunk c is in its buffer, for every thread
+    const float* buf = ring + (c & 1) * kLcChunk * kLcPub;
+    const int n0 = max(0, min(b, r0) - a), total = n0 + (b - a);
+    for (int t = warp; t < total; t += kCholWarps) {
+      const int i = t < n0 ? r0 : r1, j = a + (t < n0 ? t : t - n0);
+      tile_update(own_tile(own, r0, i, j), kLcLd, own_tile(own, r0, i, m), kLcLd, buf + (j - a) * kLcPub,
+                  kCholNb, lane);
+    }
+    __syncthreads();  // the buffer is read before chunk c + 2 refills it
+  }
+}
+
+// grid (s / 64) as one cluster; block (256); dynamic shared memory
+// leaf_cluster_floats(s / 32) floats.  WS: the workspace, nt * nt published
+// tiles (slot (k, i) the tile (i, k) of L) and nt * 32 scales.
+__global__ void __launch_bounds__(kCholThreads, 1)
+    leaf_chol_cluster(const float* A, size_t lda, float* L, size_t ldl, float* __restrict__ WS, int s) {
+  extern __shared__ __align__(16) float smem[];
+  const int nt = s / kCholNb, rank = cluster_rank(), r0 = rank, r1 = nt - 1 - rank;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* own = smem;
+  float* ring = own + (nt + 1) * kLcTile;
+  float* Dk = ring + 2 * kLcChunk * kLcPub;  // L_kk
+  float* Pk = Dk + kLcPub;                   // L_k,k-1
+  float* rd = Pk + kLcPub;                   // L_kk's scales
+  float* rds = WS + (size_t)nt * nt * kLcPub;
+  auto slot = [&](int k, int i) { return WS + ((size_t)k * nt + i) * kLcPub; };
+
+  leaf_load_row(A, lda, r0, own_tile(own, r0, r0, 0));
+  leaf_load_row(A, lda, r1, own_tile(own, r0, r1, 0));
+  __syncthreads();
+  if (r0 == 0 && warp == 0) {
+    leaf_factor_publish(own_tile(own, r0, 0, 0), rd, slot(0, 0), rds, lane);
+    __threadfence();
+  }
+  __syncthreads();
+  cluster_arrive();  // A_0
+  for (int k = 0; k + 1 < nt; ++k) {
+    cluster_wait();  // A_k: L_kk and panel k - 1 are in their slots
+    int rows[2], np = 0;
+    if (r0 > k) rows[np++] = r0;
+    if (r1 > k) rows[np++] = r1;
+    if (np > 0) {
+      for (int e = threadIdx.x; e < kLcPub / 4; e += kCholThreads) {
+        reinterpret_cast<float4*>(Dk)[e] = __ldcg(reinterpret_cast<const float4*>(slot(k, k)) + e);
+        if (k > 0) reinterpret_cast<float4*>(Pk)[e] = __ldcg(reinterpret_cast<const float4*>(slot(k - 1, k)) + e);
+      }
+      if (threadIdx.x < kCholNb) rd[threadIdx.x] = __ldcg(rds + k * kCholNb + threadIdx.x);
+      __syncthreads();
+      // the column: panel k - 1's last update, the solve against L_kk, then
+      // the row's diagonal tile; four warps a row, each a quarter of the tile
+      // products, the first of them solves
+      const int g = warp >> 2, q = warp & 3, i = rows[g < np ? g : 0];
+      float* T = own_tile(own, r0, i, k);
+      if (k > 0 && g < np) tile_update_cols(T, kLcLd, own_tile(own, r0, i, k - 1), kLcLd, Pk, kCholNb, lane, q);
+      __syncthreads();
+      if (g < np && q == 0) row_solve<1>(T, kLcLd, lane, Dk, kCholNb, rd, slot(k, i), kCholNb, lane);
+      __syncthreads();
+      if (g < np) tile_update_cols(own_tile(own, r0, i, i), kLcLd, T, kLcLd, T, kLcLd, lane, q);
+      __syncthreads();
+      if (warp == 0 && (r0 == k + 1 || r1 == k + 1))
+        leaf_factor_publish(own_tile(own, r0, k + 1, k + 1), rd, slot(k + 1, k + 1), rds + (k + 1) * kCholNb,
+                            lane);
+      __threadfence();  // this thread's tiles of the slots are written before its arrive
+      __syncthreads();
+    }
+    cluster_arrive();  // A_k+1
+    if (k > 0) leaf_bulk(own, ring, WS, nt, r0, r1, k);
+  }
+  leaf_store_row(L, ldl, s, r0, own_tile(own, r0, r0, 0));
+  leaf_store_row(L, ldl, s, r1, own_tile(own, r0, r1, 0));
+  cluster_wait();  // each thread waits on its last arrive
+}
+
+// The launch configuration of K12 at leaf size s (grid = cluster = s / 64).
+struct LeafClusterLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  cudaError_t err;
+  LeafClusterLaunch(int s, void* stream) : cfg() {
+    const int cl = s / (2 * kCholNb);
+    const int bytes = leaf_cluster_floats(s / kCholNb) * (int)sizeof(float);
+    err = cudaFuncSetAttribute(leaf_chol_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess && cl > 8)
+      err = cudaFuncSetAttribute(leaf_chol_cluster, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cl;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(cl);
+    cfg.blockDim = dim3(kCholThreads);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+inline bool leaf_cluster_size_ok(int s) { return s >= 2 * kCholNb && s % (2 * kCholNb) == 0 && s <= kLeafMax; }
+
 }  // namespace gpr
 
-// A, L: (s, s) row-major views, row strides lda and ldl (L may be A); V: a
-// (64, 64) float scratch; bar: two zeroed unsigned ints.
-extern "C" int gpr_leaf_chol(const float* A, int lda, float* L, int ldl, float* V, int s,
-                             unsigned* bar, void* stream) {
-  return gpr::launch_leaf<true, false>(A, lda, L, ldl, nullptr, 0, V, gpr::kLeafBlock, 0, s, bar,
-                                       stream);
+// A, L: (s, s) row-major views, row strides lda and ldl (L may be A); WS: a
+// workspace of nt (nt * 1024 + 32) floats, nt = s / 32.  s % 64 == 0, s <=
+// 1024.  One cluster of s / 64 CTAs (16 at s = 1024, non-portable); a cluster
+// the card cannot place fails the launch.
+extern "C" int gpr_leaf_chol(const float* A, int lda, float* L, int ldl, float* WS, int s, void* stream) {
+  if (!gpr::leaf_cluster_size_ok(s) || lda < s || ldl < s) return (int)cudaErrorInvalidValue;
+  gpr::LeafClusterLaunch launch(s, stream);
+  if (launch.err != cudaSuccess) return (int)launch.err;
+  cudaError_t err = cudaLaunchKernelEx(&launch.cfg, gpr::leaf_chol_cluster, A, (size_t)lda, L, (size_t)ldl, WS, s);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// How many of K12's clusters the card can hold at once at leaf size s
+// (cudaOccupancyMaxActiveClusters; 0: it cannot place one) into *out.
+extern "C" int gpr_leaf_chol_clusters(int s, int* out) {
+  if (!gpr::leaf_cluster_size_ok(s)) return (int)cudaErrorInvalidValue;
+  gpr::LeafClusterLaunch launch(s, nullptr);
+  if (launch.err != cudaSuccess) return (int)launch.err;
+  return (int)cudaOccupancyMaxActiveClusters(out, gpr::leaf_chol_cluster, &launch.cfg);
 }
 
 // As gpr_leaf_chol; W: (s, s), row stride ldw, sharing no memory with A or L.

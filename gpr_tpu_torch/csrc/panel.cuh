@@ -1,7 +1,9 @@
-// One Cholesky column panel of width kPanel = 256: the device code that K15
-// panel_factor (panel.cu) and K17 panel_inplace (inplace.cu) share, as the
-// JAX package's two panel kernels share _strip_factor and _inv_upper
-// (gpr_tpu/ops/pallas_panel.py:42, 92; inplace_chol.py:45).
+// One Cholesky column panel of width kPanel = 256: the device code of K17
+// panel_inplace (inplace.cu), as the JAX package's panel kernels share
+// _strip_factor and _inv_upper (gpr_tpu/ops/pallas_panel.py:42, 92;
+// inplace_chol.py:45).  K15 panel_factor (panel.cu) takes kPanel and the
+// tile sizes from here and factors its diagonal tile on a thread-block
+// cluster instead (chol.cuh).
 //
 // A panel is the (b, b) diagonal tile D over row tiles R_1, R_2, ... of b rows
 // each.  The TPU kernel factors D to U = L_dd^T in VMEM on grid step 0, parks
@@ -31,9 +33,7 @@
 // would put a grid barrier on every step of the diagonal walk for no gain,
 // since at most six 64-tiles of D are ever independent.
 //
-// How D is read is the caller's: K17 reads its lower triangle (the strict
-// upper may hold junk), K15 its upper triangle as rows, as _strip_factor does
-// (panel_diag_upper_copy mirrors it into the output's lower triangle first).
+// K17 reads D's lower triangle (the strict upper may hold junk).
 // A non-positive (or NaN) pivot gives NaN through sqrtf with no clamp
 // (crout.cuh); it reaches W's later rows and so every row tile, and through
 // the trailing updates every later panel, so the factor's L[-1, -1] is NaN.
@@ -54,16 +54,6 @@ constexpr int kPanelRows = kPanel / kTile;  // 64-tiles along the panel's width
 __device__ inline void panel_diag(float* T, size_t ldt, float* W, LeafSmem& sm) {
   leaf_body<true, true>(T, ldt, T, ldt, W, kPanel, W, kPanel, (long long)kTile * (kPanel + 1),
                         kPanel, nullptr, sm);
-}
-
-// T's lower triangle = the transpose of src's upper: T[r][c] = src[c][r] for
-// c <= r (K15 reads its diagonal tile as rows).  Ends with a block barrier.
-__device__ inline void panel_diag_upper_copy(const float* src, size_t lds, float* T, size_t ldt) {
-  for (int e = threadIdx.x; e < kPanel * kPanel; e += kThreads) {
-    const int c = e / kPanel, r = e % kPanel;  // neighbouring threads read along a row of src
-    if (c <= r) T[(size_t)r * ldt + c] = src[(size_t)c * lds + r];
-  }
-  __syncthreads();
 }
 
 // dst rows = src rows W^T for the 64 rows at src and dst (kPanel columns

@@ -115,6 +115,22 @@ def _call(name: str, symbol: str, argtypes, device: torch.device, args) -> None:
 _bound = {}
 
 
+def query(symbol: str, device: torch.device, *ints: int) -> int:
+    """Call ``symbol(int..., int* out)``, a C entry point that asks the
+    runtime about a kernel's launch and launches nothing; raise on a
+    non-zero return, else return ``out``."""
+    lib = library()
+    fn = getattr(lib, symbol)
+    fn.argtypes = [_I] * len(ints) + [ctypes.POINTER(_I)]
+    fn.restype = _I
+    out = _I(-1)
+    with torch.cuda.device(device):
+        rc = fn(*ints, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"{symbol}: CUDA error {rc} ({lib.gpr_error_string(rc).decode()})")
+    return out.value
+
+
 class Kernel:
     """One C entry point of the library and the count of its launches, with
     its provenance: ``source``, the file under ``csrc/`` that defines
@@ -191,9 +207,9 @@ NARROW_SUBST = Kernel("narrow_subst", "gpr_narrow_subst", "solve.cu", "pallas_so
 DIAG_TRI_INV = Kernel("diag_tri_inv", "gpr_diag_tri_inv", "solve.cu", "pallas_solve.py:173",
                       [_P, _I, _P, _I, _I])
 
-# (A, lda, L, ldl, V, s, barrier): V a (64, 64) scratch, barrier two zeroed ints
+# (A, lda, L, ldl, WS, s): WS the published tiles' workspace; one cluster of s / 64 CTAs
 LEAF_CHOL = Kernel("leaf_chol", "gpr_leaf_chol", "leaf.cu", "pallas_leaf.py:47",
-                   [_P, _I, _P, _I, _P, _I, _P])
+                   [_P, _I, _P, _I, _P, _I])
 # (A, lda, L, ldl, W, ldw, s, barrier)
 LEAF_CHOL_WI = Kernel("leaf_chol_wi", "gpr_leaf_chol_wi", "leaf.cu", "pallas_leaf.py:118",
                       [_P, _I, _P, _I, _P, _I, _I, _P])
@@ -201,9 +217,10 @@ LEAF_CHOL_WI = Kernel("leaf_chol_wi", "gpr_leaf_chol_wi", "leaf.cu", "pallas_lea
 TRI_INV_LEAF = Kernel("tri_inv_leaf", "gpr_tri_inv_leaf", "leaf.cu", "pallas_leaf.py:239",
                       [_P, _I, _P, _I, _I, _P])
 
-# (P, ldp, out, W, n): two kernels in stream order, one launch
+# (P, ldp, out, W, WS, n): two kernels in stream order (the diagonal tile on a cluster, the
+# rows), one launch
 PANEL_FACTOR = Kernel("panel_factor", "gpr_panel_factor", "panel.cu", "pallas_panel.py:143",
-                      [_P, _I, _P, _P, _I])
+                      [_P, _I, _P, _P, _P, _I])
 # (S, n, rows, cols, kcols, T, ks, bm, bk)
 RANK_UPDATE_TILES = Kernel("rank_update_tiles", "gpr_rank_update_tiles", "inplace.cu",
                            "inplace_chol.py:53", [_P, _I, _P, _P, _P, _I, _I, _I, _I])

@@ -12,11 +12,15 @@ into products.
 Each wrapper launches its hand-written CUDA kernel (``csrc/leaf.cu``) for a
 CUDA float32 tensor, raises for another CUDA dtype, and runs its plain torch
 version (``*_reference``) for a CPU tensor of any dtype, as JAX runs its
-kernels in interpret mode on the CPU.  The plain versions walk 64-wide
-diagonal blocks as the kernels do: the diagonal block by
-``torch.linalg.cholesky_ex`` (NaN where it fails) and its inverse by a
-triangular solve, the column solve and trailing update by products, and W by
-the kernels' block doubling (``_inverse_from_blocks``).
+kernels in interpret mode on the CPU.  K12 holds the leaf in the shared
+memory of one thread-block cluster of n / 64 CTAs (16 at n = 1024, a
+non-portable size; :func:`max_active_clusters` asks the card how many it
+places) and walks 32-wide diagonal blocks; K13 and K14 walk 64-wide diagonal
+blocks on a cooperative grid.  The plain versions walk 64-wide diagonal
+blocks: the diagonal block by ``torch.linalg.cholesky_ex`` (NaN where it
+fails) and its inverse by a triangular solve, the column solve and trailing
+update by products, and W by K13's block doubling
+(``_inverse_from_blocks``).
 
 Contracts (potrf 'L', as the TPU kernels'): only the lower triangle of the
 input is read; the outputs' strict upper triangles are exactly 0; a
@@ -32,9 +36,10 @@ import torch
 
 from . import _cuda
 
-BLOCK = 64  # csrc/leaf.cu: kLeafBlock, the kernels' diagonal block
+BLOCK = 64  # csrc/leaf.cuh: kLeafBlock, K13's and K14's diagonal block and the plain versions'
 ALIGN = 256  # the JAX package's shape gate: its 256-wide diagonal block
 MAX_N = 1024  # the largest leaf (JAX: the whole leaf in VMEM)
+CLUSTER_BLOCK = 32  # csrc/chol.cuh: kCholNb, K12's diagonal block
 
 
 def leaf_usable(n: int, dtype: torch.dtype, device) -> bool:
@@ -130,11 +135,23 @@ def leaf_cholesky(A: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.
         return L if out is None else out.copy_(L)
     _kernel_dtype("leaf_cholesky", A)
     out = _new(A) if out is None else out
-    scratch = torch.empty((BLOCK, BLOCK), dtype=torch.float32, device=A.device)
-    bar = _barrier(A)
+    # the published tiles of every panel (nt x nt slots of 32 x 32) and scales
+    nt = n // CLUSTER_BLOCK
+    ws = torch.empty(nt * (nt * CLUSTER_BLOCK * CLUSTER_BLOCK + CLUSTER_BLOCK), dtype=torch.float32,
+                     device=A.device)
     _cuda.LEAF_CHOL.launch(A.device, A.data_ptr(), A.stride(0), out.data_ptr(), out.stride(0),
-                           scratch.data_ptr(), n, bar.data_ptr())
+                           ws.data_ptr(), n)
     return out
+
+
+def max_active_clusters(n: int, device="cuda") -> int:
+    """How many of K12's thread-block clusters (n / 64 CTAs at the kernel's
+    shared memory) the card can hold at once, by
+    ``cudaOccupancyMaxActiveClusters``; 0 means it cannot place one, and a
+    launch at this n would fail."""
+    if n <= 0 or n % (2 * CLUSTER_BLOCK) or n > MAX_N:
+        raise ValueError(f"max_active_clusters: n ({n}) must be a multiple of {2 * CLUSTER_BLOCK}, <= {MAX_N}")
+    return _cuda.query("gpr_leaf_chol_clusters", torch.device(device), n)
 
 
 def leaf_cholesky_wi(A: torch.Tensor, out: Optional[torch.Tensor] = None):
@@ -171,7 +188,7 @@ def _new(A):
 
 
 def _barrier(A):
-    # the kernels' grid barrier: an arrival count and a generation, zero at launch
+    # K13's and K14's grid barrier: an arrival count and a generation, zero at launch
     return torch.zeros(2, dtype=torch.int32, device=A.device)
 
 

@@ -12,7 +12,9 @@ the same diagonal-tile device code (``csrc/panel.cuh``).
 for a CUDA float32 panel, raises for another CUDA dtype or a tile other than
 256, and runs :func:`panel_factor_reference` for a CPU tensor.  The kernel
 reads the panel's top (b, b) block from its upper triangle, as rows, as
-``_strip_factor`` does; its row products A21 L_dd^-T run in the kernel's body.
+``_strip_factor`` does, factors it and forms W = L_dd^-1 on one 8-CTA
+thread-block cluster (K19's factor, ``csrc/chol.cuh``), then computes the
+rows A21 W^T in a second kernel, 32 rows a block.
 The schedules' trailing and left products stay ``torch.matmul``, as JAX leaves
 them to XLA (pallas_panel.py:208-211, 246-249).
 """
@@ -24,6 +26,9 @@ import torch
 from . import _cuda
 
 TILE = 256  # csrc/panel.cuh: kPanel, the kernel's panel width
+# csrc/panel.cu's workspace: the factor's 7 published panels (32 x 480 each,
+# chol.cuh's slots) and the 8 diagonal blocks' inverses (32 x 32)
+WORKSPACE = 7 * 32 * 480 + 8 * 32 * 32
 
 
 def panel_factor_reference(P: torch.Tensor) -> torch.Tensor:
@@ -64,7 +69,9 @@ def panel_factor(P: torch.Tensor, *, sw: int = 8, tile: int = TILE) -> torch.Ten
         P = P.contiguous()
     out = torch.empty((n, b), dtype=torch.float32, device=P.device)
     W = torch.empty((b, b), dtype=torch.float32, device=P.device)
-    _cuda.PANEL_FACTOR.launch(P.device, P.data_ptr(), P.stride(0), out.data_ptr(), W.data_ptr(), n)
+    ws = torch.empty(WORKSPACE, dtype=torch.float32, device=P.device)
+    _cuda.PANEL_FACTOR.launch(P.device, P.data_ptr(), P.stride(0), out.data_ptr(), W.data_ptr(),
+                              ws.data_ptr(), n)
     return out
 
 

@@ -1,12 +1,15 @@
-// A shim of the CUDA constructs that csrc/solve.cu and csrc/chol.cu use, so
-// that their sources compile with a host C++ compiler and run on the CPU:
+// A shim of the CUDA constructs that csrc/solve.cu, chol.cu, leaf.cu and
+// panel.cu use, so that their sources compile with a host C++ compiler and
+// run on the CPU:
 // every thread is a fiber (ucontext), switched cooperatively at
 // __syncthreads, __syncwarp, __shfl_sync and the cluster barrier.  A plain
 // launch runs its blocks one after another (__shared__ becomes static, one
 // block at a time); a cluster launch (cudaLaunchKernelEx with a cluster
 // dimension) runs the CTAs of a cluster together, each with its own dynamic
 // shared memory, and the cluster barrier (gpr::cluster_arrive / wait) in
-// phases, as csrc/cluster.cuh declares them.  A fiber
+// phases, as csrc/cluster.cuh declares them; its cp.async copies at once.
+// Any cluster size places (cudaOccupancyMaxActiveClusters answers 1).  A
+// cooperative launch (leaf.cu's K13 and K14) compiles but is refused.  A fiber
 // that waits at a barrier is not switched to until the barrier moves.  It
 // checks a kernel's index arithmetic, synchronisation and rounding, never its
 // speed.
@@ -31,10 +34,21 @@ struct dim3 {
 struct float4 {
   float x, y, z, w;
 };
+struct float2 {
+  float x, y;
+};
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorNotSupported = 801,
+  cudaErrorCooperativeLaunchTooLarge = 720,
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaFuncAttributeNonPortableClusterSizeAllowed = 12,
+  cudaDevAttrMultiProcessorCount = 16,
+};
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
@@ -42,6 +56,7 @@ inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __shared__ static
 #define __align__(x)
@@ -129,6 +144,42 @@ inline cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kern
   return cudaSuccess;
 }
 
+template <class F>
+inline cudaError_t cudaOccupancyMaxActiveClusters(int* out, F, const cudaLaunchConfig_t*) {
+  *out = 1;
+  return cudaSuccess;
+}
+// leaf.cu's cooperative launch (K13, K14) compiles; the shim does not run it
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
+  *v = 1;
+  return cudaSuccess;
+}
+template <class F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* v, F, int, size_t) {
+  *v = 1;
+  return cudaSuccess;
+}
+inline cudaError_t cudaLaunchCooperativeKernel(const void*, dim3, dim3, void**, size_t, cudaStream_t) {
+  return cudaErrorNotSupported;
+}
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  const unsigned o = *p;
+  *p += v;
+  return o;
+}
+inline unsigned atomicExch(unsigned* p, unsigned v) {
+  const unsigned o = *p;
+  *p = v;
+  return o;
+}
+inline long long clock64() { return 0; }
+inline void __nanosleep(unsigned) {}
+inline void __trap() { abort(); }
+
 // the running fiber's indices, set by the scheduler at every switch
 extern uint3_ threadIdx, blockIdx, gridDim;
 inline void __syncthreads() { emu::block_barrier(); }
@@ -155,4 +206,8 @@ namespace gpr {
 inline int cluster_rank() { return emu::cur->cta->rank; }
 inline void cluster_arrive() { emu::cluster_arrive(); }
 inline void cluster_wait() { emu::cluster_wait(); }
+inline void cp_async16(void* dst, const void* src) { memcpy(dst, src, 16); }
+inline void cp_async_commit() {}
+template <int N>
+inline void cp_async_wait() {}
 }  // namespace gpr

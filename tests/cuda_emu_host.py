@@ -1,6 +1,6 @@
 """Build a CUDA source of gpr_tpu_torch/csrc for the CPU with the host's g++
 against tests/cuda_emu/emu.h, the shim that runs every thread as a fiber
-(tests/test_torch_k11_source.py, tests/test_torch_chol_source.py)."""
+(tests/test_torch_*_source.py)."""
 
 import re
 import shutil
@@ -11,14 +11,26 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 EMU = ROOT / "tests" / "cuda_emu"
+CSRC = ROOT / "gpr_tpu_torch" / "csrc"
 
 
-def host_source(src: str) -> str:
+def host_source(src: str, seen=None) -> str:
     """A .cu source for the shim: its headers (the CUDA runtime, cluster.cuh)
-    as emu.h, <<<...>>> launches as emu::launch calls, the dynamic shared
-    memory as the running block's buffer."""
+    as emu.h, the other headers of csrc/ inlined once each, <<<...>>>
+    launches as emu::launch calls, the dynamic shared memory as the running
+    block's buffer."""
+    seen = set() if seen is None else seen
     src = src.replace("#include <cuda_runtime.h>", '#include "emu.h"')
     src = src.replace('#include "cluster.cuh"', "// cluster.cuh: emu.h")
+
+    def header(m):
+        name = m.group(1)
+        if name in seen:
+            return f"// {name}: above"
+        seen.add(name)
+        return host_source((CSRC / name).read_text(), seen).replace("#pragma once", "")
+
+    src = re.sub(r'#include "(\w+\.cuh)"', header, src)
 
     def launch(m):
         depth, cfg, cur = 0, [], ""
@@ -43,7 +55,7 @@ def build(out: Path, source: str, main: str) -> Path:
     if gxx is None:
         pytest.skip("needs a host C++ compiler (g++)")
     host = out / (Path(source).stem + "_host.cpp")
-    host.write_text(host_source((ROOT / "gpr_tpu_torch" / "csrc" / source).read_text()))
+    host.write_text(host_source((CSRC / source).read_text()))
     exe = out / Path(main).stem
     subprocess.run([gxx, "-O1", "-std=c++17", "-fno-strict-aliasing", f"-I{EMU}", str(EMU / "emu.cpp"),
                     str(host), str(EMU / main), "-o", str(exe)], check=True, capture_output=True)

@@ -26,8 +26,9 @@ float32, in other orders), K11's inverse 1e-4 relative and W L = I to 1e-4;
 the narrow solve is held to a float64 solve at JAX's own 5e-6 relative
 (tests/test_ops.py:621-773) times 4 for the card's other summation order.
 K12-K14's factor and inverse get 1e-5 relative against their plain versions
-(the same 64-block algorithm, float32 sums in another order) and |W L - I|
-< 1e-4, as tests/test_ops.py:457-499 holds JAX's leaf kernels.  K15 and K17
+(K13 and K14 the same 64-block algorithm, K12 32-wide blocks; float32 sums in
+other orders) and |W L - I| < 1e-4, as tests/test_ops.py:457-499 holds JAX's
+leaf kernels; K12 and K15 are bit-equal from call to call.  K15 and K17
 (a panel factored by 64-blocks and products with W, against cholesky_ex and
 a triangular solve) and the in-place factorization get 1e-5 relative; K16's
 tiles 1e-5 of the largest entry (K5's bound; two calls bit-identical); K18
@@ -837,7 +838,7 @@ def _leaf_spd(n, dev, seed):
     return _t(M @ M.T / n + np.eye(n), dev)
 
 
-@pytest.mark.parametrize("n", [256, 768, 1024])
+@pytest.mark.parametrize("n", [256, 512, 768, 1024])
 def test_leaf_kernels(dev, n):
     A = _leaf_spd(n, dev, seed=n)
     # a strided view with NaN above the diagonal: only the lower triangle is read
@@ -857,6 +858,11 @@ def test_leaf_kernels(dev, n):
         assert bool(torch.all(torch.triu(M, 1) == 0)) and _relerr(M, R) <= 1e-5
     assert float((W @ Lw - eye).abs().max()) < 1e-4 and float((Wt @ Lw - eye).abs().max()) < 1e-4
     assert bool(torch.isnan(buf[:32]).all())  # the out-of-place calls leave the input alone
+    assert torch.equal(leaf.leaf_cholesky(view), L)  # fixed sum order: two calls bit-equal
+    saved = view.clone()
+    Lk = leaf.leaf_cholesky(view, out=view)  # K12 in place: each CTA reads and writes its own rows
+    assert Lk.data_ptr() == view.data_ptr() and torch.equal(view, L)
+    view.copy_(saved)
     Lv, Wv = leaf.leaf_cholesky_wi(view, out=view)  # in place, as the recursion factors
     assert Lv.data_ptr() == view.data_ptr() and _relerr(view, Lr) <= 1e-5 and _relerr(Wv, Wr) <= 1e-5
 
@@ -868,6 +874,22 @@ def test_leaf_kernels_poison_a_failed_leaf(dev):
     assert bool(torch.isnan(L[-1, -1])) and not bool(torch.isfinite(W).all())
     assert bool(torch.isnan(leaf.leaf_cholesky(A)[-1, -1]))
     assert bool(torch.all(torch.triu(L, 1) == 0)) and bool(torch.all(torch.triu(W, 1) == 0))
+
+
+@pytest.mark.parametrize("where", [31, 32, 512, 1023])
+def test_leaf_chol_failed_pivot_at_block_edges(dev, where):
+    # K12's 32-wide diagonal blocks: a pivot that fails at the end or the
+    # start of one, or at the last pivot, leaves the rows before it finite and
+    # poisons every row from it on, L[-1, -1] included
+    A = _leaf_spd(1024, dev, seed=4)
+    A[where, where] = -1.0
+    L = leaf.leaf_cholesky(A)
+    rows_ok = torch.isfinite(L).all(dim=1)
+    assert bool(rows_ok[:where].all()) and not bool(rows_ok[where:].any())
+    assert bool(torch.isnan(L[-1, -1])) and bool(torch.all(torch.triu(L, 1) == 0))
+    e = where // leaf.BLOCK * leaf.BLOCK  # the plain version's 64-block fails whole
+    if e:
+        assert _relerr(L[:e], leaf.leaf_cholesky_reference(A)[:e]) <= 1e-5
 
 
 @pytest.mark.parametrize("n,leaves", [(2048, 2), (3773, 2)])
@@ -1002,16 +1024,25 @@ def test_zero_upper_kernel(dev):
     assert _cuda.launch_counts()["zero_upper"] == 1 and torch.equal(S, expect)
 
 
-@pytest.mark.parametrize("n", [256, 1024])
+@pytest.mark.parametrize("n", [256, 1024, 8192])
 def test_panel_factor_kernel(dev, n):
-    A = _spd_f32(1024, dev, seed=n)
-    P = A[:n, :256]  # a strided view: row stride 1024
+    if n <= 1024:
+        A = _spd_f32(1024, dev, seed=n)
+    else:  # G G^T + n I made on the card
+        G = torch.randn((n, n), generator=torch.Generator(device=dev).manual_seed(n), device=dev)
+        A = G @ G.T
+        A.diagonal().add_(n)
+    P = A[:n, :256]  # a strided view: row stride max(n, 1024)
     _cuda.reset_launch_counts()
     L = panel.panel_factor(P)
     torch.cuda.synchronize()
     assert _cuda.launch_counts()["panel_factor"] == 1 and L.shape == (n, 256)
     assert _relerr(L, panel.panel_factor_reference(P)) <= 1e-5
     assert bool(torch.all(torch.triu(L[:256], 1) == 0))
+    assert torch.equal(panel.panel_factor(P), L)  # fixed sum order: two calls bit-equal
+    Pn = P.clone()
+    Pn[:256] += torch.tril(torch.full((256, 256), float("nan"), device=dev), -1)
+    assert torch.equal(panel.panel_factor(Pn), L)  # D is read from its upper triangle only
     with pytest.raises(ValueError, match="must be"):
         panel.panel_factor(A[:1000, :256])
     ref = torch.linalg.cholesky(A.double())

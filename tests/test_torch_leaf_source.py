@@ -1,0 +1,102 @@
+"""K12 leaf_chol's CUDA source (gpr_tpu_torch/csrc/leaf.cu) run on the CPU:
+compiled by the host's g++ against tests/cuda_emu/emu.h, a shim that runs
+every thread as a fiber and the CTAs of the kernel's thread-block cluster
+together (s / 64 of them: 4 at s = 256, 8 at 512), each with its own shared
+memory, with the cluster barrier in phases and cp.async as plain copies, so
+that the kernel's block-row ownership, its strided reads and writes, the
+tiles' way through the workspace, its barriers and its float32 rounding are
+exercised where no CUDA compiler exists.  It says nothing of speed.
+
+The same numpy inputs (seeded, symmetric) go through the emulated kernel, the
+port's plain version and JAX's leaf_cholesky in interpret mode.  Tolerances:
+1e-5 of the largest entry against both (float32 sums in other orders: the
+kernel by 32-wide blocks, the plain version by 64-wide ones, JAX's by
+256-wide ones; the card test's gate, tests/test_torch_cuda.py) and ||L L^T -
+A|| / ||A|| < 1e-5 (Frobenius, float64 arithmetic on the float32 factor);
+an exact-zero strict upper.  NaN above the diagonal leaves the factor
+bit-identical (only the lower triangle is read), the factor in place over a
+strided A is the same factor, and a failed pivot poisons its row, every
+later one and L[-1, -1].
+"""
+
+import subprocess
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gpr_tpu.ops import pallas_leaf as jleaf
+from gpr_tpu_torch.ops import leaf
+
+from cuda_emu_host import build
+
+
+@pytest.fixture(scope="module")
+def leaf_binary(tmp_path_factory):
+    return build(tmp_path_factory.mktemp("leaf"), "leaf.cu", "leaf_main.cpp")
+
+
+def _run(exe, A, lda=None, inplace=False):
+    """K12 of the (s, s) leaf A, placed in an (s, lda) buffer whose other
+    entries are NaN."""
+    s = A.shape[0]
+    lda = lda or s
+    buf = np.full((s, lda), np.nan, np.float32)
+    buf[:, :s] = A
+    d = exe.parent
+    buf.tofile(d / "A.bin")
+    r = subprocess.run([str(exe), str(s), str(lda), str(int(inplace)), str(d / "A.bin"), str(d / "L.bin")],
+                       check=True, capture_output=True, text=True)
+    assert r.stdout.split() == ["clusters", "1"]  # the shim places any cluster
+    return np.fromfile(d / "L.bin", np.float32).reshape(s, s)
+
+
+def _spd(n, seed):
+    # chip_smoke.py phase 18's leaf, G G^T / n + I
+    G = np.random.default_rng(seed).standard_normal((n, n))
+    return (G @ G.T / n + np.eye(n)).astype(np.float32)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b).max() / np.abs(b).max()
+
+
+def _nan_upper(A):
+    return np.tril(A) + np.triu(np.full_like(A, np.nan), 1)
+
+
+@pytest.mark.parametrize("s", [256, 512])
+def test_leaf_source_matches_plain_and_jax(leaf_binary, s):
+    A = _spd(s, seed=s)
+    L = _run(leaf_binary, A)
+    assert np.all(np.triu(L, 1) == 0)
+    assert _rel(L, leaf.leaf_cholesky_reference(torch.tensor(A)).numpy()) <= 1e-5
+    assert _rel(L, np.asarray(jleaf.leaf_cholesky(jnp.asarray(_nan_upper(A)), interpret=True))) <= 1e-5
+    L64 = L.astype(np.float64)
+    assert np.linalg.norm(L64 @ L64.T - A) / np.linalg.norm(A) < 1e-5
+    assert np.array_equal(_run(leaf_binary, _nan_upper(A)), L)  # the upper triangle is never read
+
+
+@pytest.mark.parametrize("s,lda", [(256, 300), (512, 520)])
+def test_leaf_source_strided_and_in_place(leaf_binary, s, lda):
+    A = _nan_upper(_spd(s, seed=s + 1))
+    L = _run(leaf_binary, A)
+    assert np.array_equal(_run(leaf_binary, A, lda=lda), L)
+    assert np.array_equal(_run(leaf_binary, A, lda=lda, inplace=True), L)
+
+
+@pytest.mark.parametrize("s,where", [(256, 0), (256, 100), (512, 31), (512, 32), (512, 511)])
+def test_leaf_source_failed_pivot(leaf_binary, s, where):
+    A = _spd(s, seed=9)
+    A[where, where] = -1.0
+    L = _run(leaf_binary, A)
+    rows_ok = np.isfinite(L).all(axis=1)
+    assert rows_ok[:where].all() and not rows_ok[where:].any()
+    assert np.isnan(L[-1, -1]) and np.all(np.triu(L, 1) == 0)
+    Lj = np.asarray(jleaf.leaf_cholesky(jnp.asarray(A), interpret=True))
+    assert np.isnan(Lj[-1, -1])  # JAX's kernel is poisoned too
+    e = where // leaf.BLOCK * leaf.BLOCK  # the plain version's 64-block fails whole
+    if e:
+        assert _rel(L[:e], leaf.leaf_cholesky_reference(torch.tensor(A)).numpy()[:e]) <= 1e-5
