@@ -92,8 +92,9 @@ process per source, in parallel), then:
      leaf_chol_wi and K14 tri_inv_leaf (csrc/leaf.cu) against their plain
      versions at n = 256, 512, 768 and 1024, each on a strided view with NaN
      above the diagonal (K12 bit-identical to its factor of the lower
-     triangle alone; K12 and K13 in place), and a leaf that is not positive
-     definite;
+     triangle alone; K13's factor bit-identical to K12's, whose cluster
+     kernel it launches before its card-wide blocked inverse; K12 and K13 in
+     place), and a leaf that is not positive definite;
  19. under GPR_CHOL_LEAF_INV=1 trains at the breathing shape (phase 6's
      steps, route "blocked-syrk-leaf": two K13 launches per factorization),
      fits and predicts with the learned kernel; then, with
@@ -101,14 +102,16 @@ process per source, in parallel), then:
      "gram-kernel", 16 K13 launches) with a 128-point credible interval and
      runs the MLL value + gradient at n=16384 and 16383 (16 and 15 launches);
  20. times K12 at n = 256, 512 and 1024 (each call queued behind a device
-     sleep, then with the host's enqueue) and K13-K14 per 1024-leaf against
+     sleep, then with the host's enqueue), K13 per 1024-leaf the same way
+     and K14 per 1024-leaf against
      their plain versions and torch.linalg.cholesky_ex (+ solve_triangular
      against I), the n=16384
      blocked factorization with and without the switch against
      torch.linalg.cholesky, and the bench fit and MLL with and without it;
- 21. holds K15 panel_factor (csrc/panel.cu), K16 rank_update_tiles, K17
-     panel_inplace and K18 zero_upper (csrc/inplace.cu) against their plain
-     versions: K16 on JAX's tile lists and on the schedule's narrow and wide
+ 21. holds K15 panel_factor and K17 panel_inplace (csrc/panel.cu: K17 runs
+     K15's cluster diagonal kernel on the lower triangle and its rows kernel,
+     in place), K16 rank_update_tiles and K18 zero_upper (csrc/inplace.cu)
+     against their plain versions: K16 on JAX's tile lists and on the schedule's narrow and wide
      lists at n=4096, K17 at tile columns 0 and 8 with NaN above its diagonal
      tile, K18 bit-exact against torch.tril at n = 2048, 4096, 4608 and
      16384, K15 at (1024, 256) and (8192, 256) (NaN below its diagonal tile
@@ -124,11 +127,11 @@ process per source, in parallel), then:
      by 512, shrink by 512 and a refit of the 4608 window (18 / 17 / 1);
  23. factors the bench K at n=8192 by cholesky_panels and
      cholesky_left_panels (32 K15 launches each) against float64;
- 24. times K16-K18 per n=16384 factorization and K15 per left-looking n=8192
+ 24. times K16-K18 per n=16384 factorization (K16's and K17's calls queued
+     behind a device sleep; K17 split into its diagonal-tile and rows
+     kernels by torch.profiler) and K15 per left-looking n=8192
      factorization (queued behind a device sleep and with the host's
-     enqueue; split into its diagonal-tile and rows kernels by
-     torch.profiler, beside K17's split, whose kernels are K15's before its
-     redesign) against their plain versions and library calls, the
+     enqueue; split the same way) against their plain versions and library calls, the
      n=16384 factorization on "inplace" against "blocked-syrk",
      "fused-matrix" and torch.linalg.cholesky, and the bench fit and MLL on
      "inplace" against the default routes, and the ten slowest of K16's 63
@@ -1770,6 +1773,7 @@ def main() -> int:
         Lr, Wr = tleaf.leaf_cholesky_wi_reference(A_)
         L12 = tleaf.leaf_cholesky(view)
         L13, W13 = tleaf.leaf_cholesky_wi(view)
+        check(torch.equal(L13, L12), f"K13 n={n_}: its factor is not K12's")
         W14 = tleaf.tri_inv_leaf(L13 + up)
         W14r = tleaf.tri_inv_leaf_reference(L13)
         eye = torch.eye(n_, device=dev)
@@ -1810,7 +1814,7 @@ def main() -> int:
     for n_, (errs, res) in worst18.items():
         print(f"  n={n_} (strided, NaN upper): rel err vs plain " + ", ".join(
             f"{k} {e:.3g}" for k, e in errs.items()) + f"; |WL-I| {res:.3g}; K12 bit-identical to its "
-            "factor of the lower triangle alone, twice and in place; K13 in place ok")
+            "factor of the lower triangle alone, twice and in place; K13's factor K12's; K13 in place ok")
     print("  a leaf that is not positive definite: L[-1,-1] NaN, W non-finite ok")
 
     # --------------------------------------------------------------- 19 ----
@@ -1900,10 +1904,12 @@ def main() -> int:
         t12s[(n_, "queued")] = rotate(fns12, 10, queued=True)
         t12s[(n_, "with the host's enqueue")] = rotate(fns12, 10)
     t12 = t12s[(1024, "queued")]
-    t13 = rotate({"kernel": lambda: tleaf.leaf_cholesky_wi(A20),
-                  "plain": lambda: tleaf.leaf_cholesky_wi_reference(A20),
-                  "library": lambda: torch.linalg.solve_triangular(torch.linalg.cholesky_ex(A20)[0], I20,
-                                                                   upper=False)}, 10)
+    # K13 per 1024-leaf the same way: queued (the kernels line's ms), then
+    # with the host's enqueue
+    fns13 = {"kernel": lambda: tleaf.leaf_cholesky_wi(A20), "plain": lambda: tleaf.leaf_cholesky_wi_reference(A20),
+             "library": lambda: torch.linalg.solve_triangular(torch.linalg.cholesky_ex(A20)[0], I20, upper=False)}
+    t13s = {"queued": rotate(fns13, 10, queued=True), "with the host's enqueue": rotate(fns13, 10)}
+    t13 = t13s["queued"]
     t14 = rotate({"kernel": lambda: tleaf.tri_inv_leaf(L20),
                   "plain": lambda: tleaf.tri_inv_leaf_reference(L20),
                   "library": lambda: torch.linalg.solve_triangular(L20, I20, upper=False)}, 10)
@@ -1938,7 +1944,9 @@ def main() -> int:
         print(f"  K12 leaf_chol n={n_} {mode}: " + "; ".join(
             f"{k} {m:.4f} ms (runs {runs_text(r)})" for k, (m, r) in t_.items())
             + f"; cholesky_ex / kernel {t_['library'][0] / t_['kernel'][0]:.2f}x")
-    for label, name, t_ in (("K12 leaf_chol (queued)", "leaf_chol", t12), ("K13 leaf_chol_wi", "leaf_chol_wi", t13),
+    for label, name, t_ in (("K12 leaf_chol (queued)", "leaf_chol", t12),
+                            ("K13 leaf_chol_wi (queued)", "leaf_chol_wi", t13),
+                            ("K13 leaf_chol_wi (with the host's enqueue)", "leaf_chol_wi", t13s["with the host's enqueue"]),
                             ("K14 tri_inv_leaf", "tri_inv_leaf", t14)):
         print(f"  {label} per 1024-leaf: " + "; ".join(
             f"{k} {m:.4f} ms (runs {runs_text(r)})" for k, (m, r) in t_.items())
@@ -2192,8 +2200,8 @@ def main() -> int:
     # plain versions and the library calls (K16: one torch.baddbmm over the
     # list's tiles, gathered beforehand; K17: cholesky_ex + solve_triangular of
     # the panel; K18: Tensor.tril_), each walk on a fresh copy, in turns; the
-    # K16 kernel's and its library call's launches queued behind a device
-    # sleep, so that a short call is not timed by the host's enqueue
+    # K16 and K17 kernels' and their library calls' launches queued behind a
+    # device sleep, so that a short call is not timed by the host's enqueue
     K24 = gaussian64(Xb, Xb, 8.0, 1.0)
     K24.diagonal().add_(sig * sig)
 
@@ -2215,10 +2223,11 @@ def main() -> int:
         D_ = low + torch.tril(low, -1).mT
         R_ = S[e_:, c0_:e_]
         box = []
-        t_ = timed(lambda: box.append(torch.linalg.cholesky_ex(D_)[0]))
+        t_ = timed(lambda: box.append(torch.linalg.cholesky_ex(D_)[0]), True)
         S[c0_:e_, c0_:e_] = box[0]
         if e_ < S.shape[0]:
-            t_ += timed(lambda: box.append(torch.linalg.solve_triangular(box[0].mT, R_, upper=True, left=False)))
+            t_ += timed(lambda: box.append(torch.linalg.solve_triangular(box[0].mT, R_, upper=True, left=False)),
+                        True)
             S[e_:, c0_:e_] = box[1]
         return t_
 
@@ -2231,7 +2240,7 @@ def main() -> int:
                     tot["panel_inplace"] += library_panel(S, st[1])
                 else:
                     fn = tinp.panel_inplace if mode == "kernel" else tinp.panel_inplace_reference
-                    tot["panel_inplace"] += timed(lambda: fn(S, st[1]))
+                    tot["panel_inplace"] += timed(lambda: fn(S, st[1]), mode == "kernel")
             else:
                 _, rows, cols, kcols, bm = st
                 if mode == "library":
@@ -2374,8 +2383,8 @@ def main() -> int:
             + f"; library / kernel {t_['library'][0] / t_['kernel'][0]:.2f}x")
     print(f"  K15 bound {s_['bound_ms']:.4f} ms ({s_['bound_by']}); device split of one walk (torch.profiler): "
           + "; ".join(f"{k} {t:.4f} ms ({c} launches)" for k, (t, c) in sorted(split15.items())))
-    print("  K17 device split per n=16384 in-place factorization (the diagonal tile on one block and 64-row "
-          "strips, K15's kernels before its redesign): " + "; ".join(
+    print("  K17 device split per n=16384 in-place factorization (K15's cluster diagonal kernel on the lower "
+          "triangle, in place, and its rows kernel): " + "; ".join(
               f"{k} {t:.4f} ms ({c} launches)" for k, (t, c) in sorted(split17.items())
               if k.startswith("panel_inplace")))
     print("  factorization n=8192 (bench K): " + "; ".join(

@@ -1,9 +1,10 @@
 // The device code of K19 tile_chol and K20 tile_chol_strips (chol.cu, which
 // explains the scheme): one small SPD tile factored from its upper triangle
 // in the shared memory of one 8-CTA thread-block cluster, a warp per 32-wide
-// diagonal block.  K15 panel_factor (panel.cu) runs the same factor on its
-// 256-wide diagonal tile, and K12 leaf_chol (leaf.cu) its pieces: the warp's
-// diagonal factor, the rows' solve and the 32x32 tile update.
+// diagonal block.  K15 panel_factor and K17 panel_inplace (panel.cu) run the
+// same factor on their 256-wide diagonal tile (K17 reading its lower
+// triangle), and K12 leaf_chol (leaf.cu) its pieces: the warp's diagonal
+// factor, the rows' solve and the 32x32 tile update.
 //
 // tile_chol_factor is called by every thread of the cluster; it leaves the
 // factor in the CTAs' block columns, every panel's rows below its diagonal
@@ -62,6 +63,29 @@ __device__ inline void load_column(const float* __restrict__ A, size_t lda, int 
     for (int u = 0; u < kB; ++u) {
       const int idx = base + u * kCholThreads, c = idx / rows;
       if (idx < total) P[c * ld + idx - c * rows] = v[u];
+    }
+  }
+}
+
+// As load_column, from A's lower triangle: P[c ld + r] = A[j0 + r][j0 + c]
+// for r >= c.  A warp reads 32 columns of one row of the block column
+// (coalesced, where load_column's reads of a column stride by lda).
+__device__ inline void load_column_lower(const float* __restrict__ A, size_t lda, int n, int j, int nt, float* P) {
+  const int ld = col_ld(j, nt), rows = kCholNb * (nt - j), total = kCholNb * rows, j0 = kCholNb * j;
+  constexpr int kB = 8;
+  for (int base = threadIdx.x; base < total; base += kB * kCholThreads) {
+    float v[kB];
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      const int idx = base + u * kCholThreads, r = idx / kCholNb, c = idx % kCholNb;
+      const int gr = j0 + r, gc = j0 + c;
+      if (gr < n && gc < n) v[u] = gr >= gc && idx < total ? A[(size_t)gr * lda + gc] : 0.0f;
+      else v[u] = gr == gc ? 1.0f : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      const int idx = base + u * kCholThreads;
+      if (idx < total) P[(idx % kCholNb) * ld + idx / kCholNb] = v[u];
     }
   }
 }
@@ -306,10 +330,11 @@ __device__ inline void store_column(float* __restrict__ L, size_t ldl, int n, in
   }
 }
 
-// Load A (its upper triangle, row stride lda) into the CTAs' block columns
-// and factor it there; W the workspace, nt - 1 slots.  Returns this CTA's
-// block columns (ascending) in own[0 .. *no).
-template <int SW>
+// Load A (its upper triangle, or with LOWER its lower triangle; row stride
+// lda) into the CTAs' block columns and factor it there; W the workspace, nt
+// - 1 slots.  Returns this CTA's block columns (ascending) in own[0 .. *no).
+// A CTA reads only its own block columns of A.
+template <int SW, bool LOWER = false>
 __device__ __forceinline__ void tile_chol_factor(const float* __restrict__ A, size_t lda, float* W, int n, float* smem, int own[2],
                                  int* no) {
   float* PT = smem + kCholOwn;
@@ -319,7 +344,10 @@ __device__ __forceinline__ void tile_chol_factor(const float* __restrict__ A, si
   if (rank < nt) own[(*no)++] = rank;
   if (2 * kCholCluster - 1 - rank < nt) own[(*no)++] = 2 * kCholCluster - 1 - rank;
 
-  for (int s = 0; s < *no; ++s) load_column(A, lda, n, own[s], nt, smem + col_offset(own[s], nt));
+  for (int s = 0; s < *no; ++s) {
+    if constexpr (LOWER) load_column_lower(A, lda, n, own[s], nt, smem + col_offset(own[s], nt));
+    else load_column(A, lda, n, own[s], nt, smem + col_offset(own[s], nt));
+  }
   __syncthreads();
   if (rank == 0) factor_column<SW>(smem, PT, rd, W, 0, nt);
   cluster_arrive();

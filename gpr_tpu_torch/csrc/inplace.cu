@@ -1,5 +1,5 @@
-// The in-place Cholesky schedule's three kernels, each rewriting one (n, n)
-// row-major float32 buffer S in place (gpr_tpu_torch/ops/inplace_chol.py):
+// Two of the in-place Cholesky schedule's three kernels, each rewriting one
+// (n, n) row-major float32 buffer S in place (gpr_tpu_torch/ops/inplace_chol.py):
 //
 //   K16 rank_update_tiles  S[i, j] -= S[i, kc] S[j, kc]^T over listed (bm x bm)
 //                          target tiles (rows[t], cols[t]), contracting over
@@ -8,17 +8,14 @@
 //                          gpr_tpu/ops/inplace_chol.py::_rank_update_call
 //                          (line 53; its kernel wraps pallas_syrk.py::
 //                          _syrk_kernel), launched by rank_update_inplace (105).
-//   K17 panel_inplace      the 256-wide column panel at tile column c0t: its
-//                          diagonal tile factored from its lower triangle
-//                          (the strict upper may hold junk) with an exact-zero
-//                          upper, every row tile below -> tile L_dd^-T.
-//                          Replaces _panel_kernel_inplace (135), launched by
-//                          _panel_call (162) from panel_inplace (184).
 //   K18 zero_upper         the strict upper of listed (bm x bm) tiles zeroed:
 //                          diagonal tiles masked, strictly-upper tiles written
 //                          without being read, so NaN there never reaches the
 //                          factor.  Replaces _tril_kernel (201), launched by
 //                          _tril_call (212) from zero_upper_inplace (229).
+//
+// The third, K17 panel_inplace (the 256-wide column panel factored in place),
+// lives in panel.cu beside K15 panel_factor, whose two kernels it shares.
 //
 // JAX passes the tile lists as scalar prefetch; here they are int32 arrays in
 // device memory that each block reads for itself (the wrapper builds them once
@@ -36,8 +33,7 @@
 // tile overlaps the source columns (the schedule's targets lie strictly right
 // of them) and each target element is written by one block only; S is not __restrict__, since
 // the kernel reads, by cp.async, the buffer other blocks write (as K9,
-// fleet.cu).  K17 is panel.cuh's panel on S: the diagonal kernel, then the
-// row kernel, in stream order, one counted launch.
+// fleet.cu).
 //
 // What bounds them on the H100, per n = 16384 factorization (w = 512, b =
 // 256): K16 ~1.5e12 FLOP in 63 calls (the 5456 wide 512-tiles and 1024 narrow
@@ -45,17 +41,17 @@
 // 67 TFLOP/s FP32, far above its bytes: compute bound.  Each call's k is only
 // 256 or 512 (8 or 16 slices), so the ring's fill and the epilogue's
 // read-modify-write weigh more than in K5, and the last calls' grids (4-48
-// tiles of 128) leave most SMs idle.  K17 3.4e10 FLOP (0.51 ms), but each of
-// its 64 diagonal tiles is a chain of 4 dependent 64-wide steps on one SM:
-// latency, ~0.5 ms a panel.  K18 must write the strict upper, n (n - 1) / 2
+// tiles of 128) leave most SMs idle.  K18 must write the strict upper, n (n - 1) / 2
 // floats = 0.54 GB: 0.16 ms at 3.35 TB/s, bytes bound (it reads and writes
 // the diagonal tiles whole, ~9 % more bytes than that).
 #include <cuda_runtime.h>
 
-#include "panel.cuh"
 #include "tc_tile.cuh"
 
 namespace gpr {
+
+constexpr int kZeroThreads = 256;  // K18's block: a float4 a thread
+constexpr int kZeroTile = 64;      // K18's tiles are multiples of this
 
 // grid: T (bm / 128)^2 blocks; block (t, a, b) the 128 x 128 tile (a, b) of
 // list tile t; dynamic shared memory kTcSmem.
@@ -102,27 +98,13 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 }
 
-// one block, the diagonal tile at (c0, c0): factor in place, W = L_dd^-1
-__global__ void __launch_bounds__(kThreads) panel_inplace_diag(float* S, int n, int c0, float* W) {
-  __shared__ LeafSmem sm;
-  panel_diag(S + (size_t)c0 * (n + 1), (size_t)n, W, sm);
-}
-
-// grid: (n - c0 - 256) / 64 blocks, block g the rows c0 + 256 + 64 g .. in place
-__global__ void __launch_bounds__(kThreads) panel_inplace_rows(float* S, int n, int c0,
-                                                               const float* W) {
-  __shared__ TileSmem sm;
-  float* R = S + (size_t)(c0 + kPanel + blockIdx.x * kTile) * n + c0;
-  panel_row_strip(R, (size_t)n, R, (size_t)n, W, sm);
-}
-
-// grid: T bm^2 / (4 kThreads) blocks, each thread one float4 of list tile t
-__global__ void __launch_bounds__(kThreads)
+// grid: T bm^2 / (4 kZeroThreads) blocks, each thread one float4 of list tile t
+__global__ void __launch_bounds__(kZeroThreads)
     zero_upper(float* S, int n, const int* __restrict__ ti, const int* __restrict__ tj,
                const int* __restrict__ dg, int bm) {
-  const int per = bm * bm / (4 * kThreads);
+  const int per = bm * bm / (4 * kZeroThreads);
   const int t = blockIdx.x / per;
-  const int e = (blockIdx.x % per) * kThreads + threadIdx.x;
+  const int e = (blockIdx.x % per) * kZeroThreads + threadIdx.x;
   const int r = e / (bm / 4), c = e % (bm / 4) * 4;
   float4* p = reinterpret_cast<float4*>(S + (size_t)(ti[t] * bm + r) * n + tj[t] * bm + c);
   if (dg[t]) {
@@ -160,30 +142,17 @@ extern "C" int gpr_rank_update_tiles(float* S, int n, const int* rows, const int
   return (int)cudaGetLastError();
 }
 
-// S: (n, n) contiguous, n % 256 == 0; W: a (256, 256) float scratch.
-extern "C" int gpr_panel_inplace(float* S, int n, int c0t, float* W, void* stream) {
-  using namespace gpr;
-  const int c0 = c0t * kPanel;
-  if (n < kPanel || n % kPanel || c0t < 0 || c0 >= n) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  panel_inplace_diag<<<1, kThreads, 0, s>>>(S, n, c0, W);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || c0 + kPanel == n) return (int)err;
-  panel_inplace_rows<<<(n - c0 - kPanel) / kTile, kThreads, 0, s>>>(S, n, c0, W);
-  return (int)cudaGetLastError();
-}
-
 // S: (n, n) contiguous and 16-byte aligned; ti, tj, dg (T): int32 tile
 // coordinates in units of bm and 1 for a diagonal tile, in device memory.
 // n % bm == 0, bm % 64 == 0.
 extern "C" int gpr_zero_upper(float* S, int n, const int* ti, const int* tj, const int* dg, int T,
                               int bm, void* stream) {
   using namespace gpr;
-  const long long per = (long long)bm * bm / (4 * kThreads);
-  if (n < 1 || T < 1 || bm < kTile || bm % kTile || n % bm || per * T > 0x7fffffffLL ||
+  const long long per = (long long)bm * bm / (4 * kZeroThreads);
+  if (n < 1 || T < 1 || bm < kZeroTile || bm % kZeroTile || n % bm || per * T > 0x7fffffffLL ||
       reinterpret_cast<size_t>(S) % 16)
     return (int)cudaErrorInvalidValue;
-  zero_upper<<<(int)(per * T), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(S, n, ti, tj, dg,
+  zero_upper<<<(int)(per * T), kZeroThreads, 0, static_cast<cudaStream_t>(stream)>>>(S, n, ti, tj, dg,
                                                                                  bm);
   return (int)cudaGetLastError();
 }

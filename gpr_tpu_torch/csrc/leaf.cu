@@ -46,28 +46,53 @@
 // non-positive or NaN pivot poisons every later diagonal block and L[-1, -1]
 // is NaN.  Sums are 32-term tile products in a fixed order, no atomics.
 //
-// K13 and K14 keep the first design: the leaf stays in device memory (L2
-// holds it) and one cooperative launch of a persistent grid walks it, with a
+// K13: K12's launch, then W = L^-1 by blocks over the whole card, in stream
+// order, one counted launch.  The factor is K12's kernel
+// itself, so K13's L is K12's bit for bit; it leaves L in the output (and in
+// L2), and its workspace, dead once the cluster is done, is the inverse's
+// scratch.  The inverse is kept off the factor's chain (a warp's 32 pivots
+// and the barrier, ~19.5k cycles a step) and out of the cluster: a 1024 leaf
+// fills 225,920 of the 227 KB a CTA may hold.  By the identity K11 uses
+// (tri_inv.cuh; JAX's pallas_solve.py:213-227)
+//
+//   inv([[A, 0], [C, D]]) = [[inv A, 0], [-inv(D) C inv(A), inv D]]:
+//
+//   leaf_inv_base  the s / 64 diagonal blocks of 64, a CTA each, in shared
+//                  memory: its two 32-wide diagonal blocks a warp each (lane
+//                  i a row of the block and of its inverse), then the level
+//                  h = 32 below, four outputs a thread;
+//   then, for h = 64, 128, .. < s, the pairs of h-wide inverted blocks A
+//   (at c0 = 2 p h) and D (at r0 = c0 + h, hd <= h wide) joined in two
+//   kernels:
+//   leaf_inv_t     T = C inv(A), C = L[r0 .., c0 ..], into the scratch at
+//                  W_CA's coordinates, a block a 64x64 output tile, the sum
+//                  from row j0 of inv(A) (inv(A) is 0 above);
+//   leaf_inv_x     W_CA = -inv(D) T, a block a 64x64 tile, the sum up to the
+//                  tile's last row (inv(D) is 0 right of it); the block also
+//                  writes the tile's mirror in W's strict upper as exact
+//                  zeros, so the levels zero W's upper between them.
+// Cutting rows as well as columns gives a 1024 leaf 64 blocks a kernel at h =
+// 512 and 32 at 256 (K11's 64-column blocks would give 8 and 8).  64x64
+// register tiles (4x4 a thread) over 32-deep chunks staged through shared
+// memory, the next chunk's loads in flight while the block computes, each
+// chunk's partial folded into an FP32 running tile; the zero halves of the
+// triangular operands skipped.  A launch is 2 + 2 log2(s / 64) kernels, 10
+// at s = 1024.
+// C lies strictly below the diagonal and the diagonal blocks are staged
+// through a mask, so L's strict upper is never read.
+//
+// K14 keeps the first design: the leaf stays in device memory (L2 holds it)
+// and one cooperative launch of a persistent grid walks it (leaf.cuh), with a
 // grid-wide barrier between dependent phases; a barrier that waits ~9 s traps
-// rather than hang the card.  The diagonal block is 64, one register tile:
-//
-//   factor (K13), right-looking, for k = 0 .. nb - 1:
-//     diagonal   one block: L_kk = chol(A_kk) and V_k = L_kk^-1 in shared memory
-//                (crout.cuh: crout_sweep, tri_inverse, as K7-K9)
-//     column     L_ik = A_ik V_k^T for i > k, a tile per block
-//     trailing   the lower 64x64 tiles of A22 -= L21 L21^T (gram_tile.cuh:
-//                syrk_tile, K9's tile); the block that updates the next
-//                diagonal tile factors it in the same phase
-//   inverse (K13, K14), by block doubling over the 64-tiles: at width w (1, 2,
-//   4, ...) each pair of ranges A = [a0, a0 + w), C = [a0 + w, a0 + 2w) of
-//   tiles, whose inverses W_A and W_C are known, gets
+// rather than hang the card.  It inverts the 64-wide diagonal tiles, a block
+// each (crout.cuh: tri_inverse), then doubles over the 64-tiles: at width w
+// (1, 2, 4, ...) each pair of ranges A = [a0, a0 + w), C = [a0 + w, a0 + 2w)
+// of tiles, whose inverses W_A and W_C are known, gets
 //     W_CA = -W_C (L_CA W_A)
-//   in two phases: X^T = -(L_CA W_A)^T into W's strict upper (scratch, zeroed
-//   at the end), then W_CA = W_C (-X).  Every product skips the zero tiles of
-//   its triangular factor.  K14 first inverts the diagonal tiles, a block each.
-//
-// Every sum of K13 and K14 runs in two levels (partials of 128 terms,
-// gram_tile.cuh: fold_update), as K9 and K16 do.
+// in two phases: X^T = -(L_CA W_A)^T into W's strict upper (scratch, zeroed
+// at the end), then W_CA = W_C (-X).  Every product skips the zero tiles of
+// its triangular factor, and every sum runs in two levels (partials of 128
+// terms, gram_tile.cuh: fold_update), as K9 and K16 do.
 //
 // Contracts kept from the TPU kernels:
 //   * only the lower triangle of the input is read: its strict upper may hold
@@ -75,9 +100,9 @@
 //     there);
 //   * the outputs have an exactly-zero strict upper triangle;
 //   * a non-positive (or NaN) pivot gives NaN through sqrtf with no clamp
-//     (crout.cuh, chol.cuh) and the NaN reaches every later block, so
-//     L[-1, -1] is NaN and W is not finite: the caller's O(1) check and
-//     jitter retry work.
+//     (chol.cuh) and the NaN reaches every later block, so L[-1, -1] is NaN
+//     and W is not finite (1 / L_ii and the products): the caller's O(1)
+//     check and jitter retry work.
 // K12 and K13 may factor in place (L the same view as A); W shares no memory
 // with A or L.
 //
@@ -85,50 +110,26 @@
 // 0.36 / 0.72 GFLOP at s = 1024, 5.3 / 10.7 us at 67 TFLOP/s FP32, against
 // 4 (s(s+1)/2 + s^2) bytes (4 (s(s+1)/2 + 2 s^2) for K13), 2.7-4.2 us at
 // 3.35 TB/s.  In practice K12's pace is its chain of nt = 32 dependent
-// diagonal steps (a warp's 32 pivots each, ~260 cycles a pivot in K19), and
-// K13's the nb = 16 64-wide steps on one block each with ~2 nb + 2 log2(nb)
-// grid barriers between them: latency, not bytes or FLOP.  Plain FP32 FMA.
+// diagonal steps (a warp's 32 pivots each, ~260 cycles a pivot in K19);
+// K13's is K12's plus its inverse's 9 dependent kernels (a launch's latency
+// each; the deepest tile of a level, h / 32 chunks of 32 x 64 x 64 FMA on one
+// SM, 8 us at h = 512); K14's
+// the nb = 16 64-wide steps with ~2 log2(nb) grid barriers between them:
+// latency, not bytes or FLOP.  Plain FP32 FMA.
 #include <cuda_runtime.h>
 
 #include "chol.cuh"
 #include "leaf.cuh"
+#include "tri_inv.cuh"
 
 namespace gpr {
 
-// grid: cooperative, at most as many blocks as resident (leaf.cuh: leaf_body).
-template <bool FACTOR, bool INVERSE>
+// K14: grid cooperative, at most as many blocks as resident (leaf.cuh: tri_inv_body).
 __global__ void __launch_bounds__(kThreads)
-    leaf_kernel(const float* A, size_t lda, float* L, size_t ldl, float* W, size_t ldw, float* V,
-                size_t ldv, long long v_step, int s, unsigned* bar) {
+    tri_inv_leaf_kernel(const float* L, size_t ldl, float* W, size_t ldw, int s, unsigned* bar) {
   __shared__ LeafSmem sm;
-  leaf_body<FACTOR, INVERSE>(A, lda, L, ldl, W, ldw, V, ldv, v_step, s, bar, sm);
+  tri_inv_body(L, ldl, W, ldw, s, bar, sm);
 }
-
-template <bool FACTOR, bool INVERSE>
-int launch_leaf(const float* A, int lda, float* L, int ldl, float* W, int ldw, float* V, int ldv,
-                long long v_step, int s, unsigned* bar, void* stream) {
-  if (s < kLeafBlock || s % kLeafBlock || s > kLeafMax || ldl < s || (FACTOR && lda < s) ||
-      (INVERSE && ldw < s))
-    return (int)cudaErrorInvalidValue;
-  auto kernel = leaf_kernel<FACTOR, INVERSE>;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-  if (err != cudaSuccess) return (int)err;
-  const int nb = s / kLeafBlock;
-  const int most = nb * (nb - 1) / 2 > 1 ? nb * (nb - 1) / 2 : 1;  // the widest phase's tiles
-  const int grid = per_sm * sms < most ? per_sm * sms : most;
-  if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  size_t lda_ = (size_t)lda, ldl_ = (size_t)ldl, ldw_ = (size_t)ldw, ldv_ = (size_t)ldv;
-  void* args[] = {&A, &lda_, &L, &ldl_, &W, &ldw_, &V, &ldv_, &v_step, &s, &bar};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid), dim3(kThreads), args, 0,
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
 
 // ---- K12: the leaf in one cluster ----------------------------------------
 
@@ -314,6 +315,182 @@ struct LeafClusterLaunch {
 
 inline bool leaf_cluster_size_ok(int s) { return s >= 2 * kCholNb && s % (2 * kCholNb) == 0 && s <= kLeafMax; }
 
+// ---- K13: W = L^-1 of the factor, over the card ----------------------------
+
+constexpr int kInvBase = 2 * kInvNb;      // 64: the blocks inverted whole in one CTA
+constexpr int kInvBaseLd = kInvBase + 1;  // a row of the CTA's copies of L and W
+// Shared memory (floats) of leaf_inv_base: the block of L, the block of W,
+// and the warps' 32x32 inverses (later the level's T).
+constexpr int kInvBaseFloats = 2 * kInvBase * kInvBaseLd + kInvBase / kInvNb * kInvNb * (kInvNb + 1);
+
+// The doubling level h = 32 inside leaf_inv_base's block (A its first 32
+// rows and columns, D its last): T = C inv(A) into Ts, then W_CA = -inv(D) T
+// into Ws.  A thread takes CPT adjacent outputs of a row and sums over the
+// whole depth h: the entries of inv(A) above its diagonal and of inv(D)
+// right of it are exact zeros, which leave the sums as they are.
+__device__ __forceinline__ void leaf_inv_base_level(const float* Ls, float* Ws, float* Ts) {
+  constexpr int h = kInvNb, CPT = h * h / kInvThreads, per_row = h / CPT;
+  const int r = threadIdx.x / per_row, c = threadIdx.x % per_row * CPT, c0 = 0, r0 = h;
+  float t[CPT] = {};
+  for (int k = 0; k < h; ++k) {  // T[r][c ..] = sum_k C[r][k] inv(A)[k][c ..]
+    const float a = Ls[(r0 + r) * kInvBaseLd + c0 + k];
+    const float* B = Ws + (c0 + k) * kInvBaseLd + c0 + c;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) t[j] = fmaf(a, B[j], t[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) Ts[r * h + c + j] = t[j];
+  __syncthreads();
+  float x[CPT] = {};
+  for (int k = 0; k < h; ++k) {  // X[r][c ..] = -sum_k inv(D)[r][k] T[k][c ..]
+    const float a = Ws[(r0 + r) * kInvBaseLd + r0 + k];
+    const float* B = Ts + k * h + c;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) x[j] = fmaf(a, B[j], x[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) Ws[(r0 + r) * kInvBaseLd + c0 + c + j] = -x[j];
+  __syncthreads();
+}
+
+// grid s / 64; block (256); dynamic shared memory kInvBaseFloats floats.
+// CTA q inverts the 64-wide diagonal block q of L into W's, exact zeros above
+// its diagonal: the block of L staged in shared memory, two warps its 32-wide
+// diagonal blocks (warp_tri_inv32), then the doubling level h = 32 in shared
+// memory, X = -inv(D) (C inv(A)), four outputs a thread (sums of 32 terms, a
+// partial of the first level).
+__global__ void __launch_bounds__(kInvThreads)
+    leaf_inv_base(const float* __restrict__ L, int ldl, float* __restrict__ W, int ldw) {
+  extern __shared__ __align__(16) float ism[];
+  float* Ls = ism;                               // the block of L, its lower triangle
+  float* Ws = Ls + kInvBase * kInvBaseLd;        // the block of W
+  float(*sb)[kInvNb + 1] = reinterpret_cast<float(*)[kInvNb + 1]>(Ws + kInvBase * kInvBaseLd);
+  float* Ts = Ws + kInvBase * kInvBaseLd;        // T, over the warps' buffers once they are read
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t d0 = (size_t)blockIdx.x * kInvBase;
+  constexpr int kB = 8, kBatches = kInvBase * kInvBase / (kB * kInvThreads);  // eight loads a thread in flight
+  for (int b0 = 0; b0 < kBatches; ++b0) {
+    float v[kB];
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      const int e = (b0 * kB + u) * kInvThreads + threadIdx.x, r = e / kInvBase, c = e % kInvBase;
+      v[u] = c <= r ? L[(d0 + r) * ldl + d0 + c] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      const int e = (b0 * kB + u) * kInvThreads + threadIdx.x, r = e / kInvBase, c = e % kInvBase;
+      Ls[r * kInvBaseLd + c] = v[u];
+      Ws[r * kInvBaseLd + c] = 0.0f;
+    }
+  }
+  __syncthreads();
+  if (warp < kInvBase / kInvNb) {
+    float(*sw)[kInvNb + 1] = sb + warp * kInvNb;
+    warp_tri_inv32(Ls + warp * kInvNb * (kInvBaseLd + 1), kInvBaseLd, kInvNb, sw);
+    for (int r = 0; r < kInvNb; ++r) Ws[(warp * kInvNb + r) * kInvBaseLd + warp * kInvNb + lane] = sw[r][lane];
+  }
+  __syncthreads();  // the 32-wide inverses are in Ws; Ts is free
+  leaf_inv_base_level(Ls, Ws, Ts);
+  for (int e = threadIdx.x; e < kInvBase * kInvBase; e += kInvThreads) {
+    const int r = e / kInvBase, c = e % kInvBase;
+    W[(d0 + r) * ldw + d0 + c] = Ws[r * kInvBaseLd + c];
+  }
+}
+
+// Block (x, y) of a level-h kernel: pair y joins A, the h-wide block at c0 =
+// 2 y h, and D, the hd-wide block at r0 = c0 + h (hd < h for a ragged last
+// pair), and the block takes the output tile at rows i0, columns j0 (jw wide).
+struct LeafInvTile {
+  int c0, r0, hd, i0, j0, jw;
+  __device__ __forceinline__ LeafInvTile(int s, int h) {
+    const int cbs = (h + kInvCb - 1) / kInvCb;
+    c0 = 2 * (int)blockIdx.y * h;
+    r0 = c0 + h;
+    hd = min(h, s - r0);
+    i0 = (int)blockIdx.x / cbs * kInvCb;
+    j0 = (int)blockIdx.x % cbs * kInvCb;
+    jw = min(kInvCb, h - j0);
+  }
+};
+
+// out[r][c] = sign acc for the rows < rows and columns < cols of a 64x64
+// tile, thread (ty, tx) rows 4 ty .., columns 4 tx ..
+__device__ __forceinline__ void leaf_inv_store(float* out, size_t ld, const float acc[4][4], int rows, int cols,
+                                               float sign) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int r = 4 * ty + a;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (4 * tx + b < cols) out[(size_t)r * ld + 4 * tx + b] = sign * acc[a][b];
+  }
+}
+
+// grid (ceil(h / 64)^2, pairs), pairs = ceil((s - h) / 2h): T = C inv(A) into
+// the scratch T (row stride s) at the coordinates of W_CA.  The next chunk's
+// loads are in flight while the block computes on this one.
+__global__ void __launch_bounds__(kInvThreads)
+    leaf_inv_t(const float* __restrict__ L, int ldl, const float* __restrict__ W, int ldw, float* __restrict__ T,
+               int s, int h) {
+  __shared__ __align__(16) float As[kInvK * kInvLd];  // C, transposed
+  __shared__ __align__(16) float Bs[kInvK * kInvLd];  // rows of inv(A)
+  const LeafInvTile t(s, h);
+  if (t.i0 >= t.hd) return;  // block-uniform, before any barrier
+  const float* C = L + (size_t)(t.r0 + t.i0) * ldl + t.c0;
+  const float* IA = W + (size_t)t.c0 * ldw + t.c0 + t.j0;
+  float acc[4][4] = {}, va[8], vb[8];
+  inv_load_t(va, C + t.j0, (size_t)ldl, t.hd - t.i0, h - t.j0);  // inv(A)[k][j] = 0 for k < j
+  inv_load(vb, IA + (size_t)t.j0 * ldw, (size_t)ldw, h - t.j0, t.jw);
+  for (int k0 = t.j0; k0 < h; k0 += kInvK) {
+    __syncthreads();
+    inv_put_t(As, va);
+    inv_put(Bs, vb);
+    __syncthreads();
+    const int k1 = k0 + kInvK;
+    if (k1 < h) {
+      inv_load_t(va, C + k1, (size_t)ldl, t.hd - t.i0, h - k1);
+      inv_load(vb, IA + (size_t)k1 * ldw, (size_t)ldw, h - k1, t.jw);
+    }
+    inv_chunk(As, Bs, acc);
+  }
+  leaf_inv_store(T + (size_t)(t.r0 + t.i0) * s + t.c0 + t.j0, (size_t)s, acc, t.hd - t.i0, t.jw, 1.0f);
+}
+
+// grid as leaf_inv_t: W_CA = -inv(D) T into W, and the tile's mirror in W's
+// strict upper (rows c0 + j0 .., columns r0 + i0 ..) as exact zeros.  W is
+// read (inv(D)) and written (W_CA and the mirror) in three disjoint regions.
+__global__ void __launch_bounds__(kInvThreads)
+    leaf_inv_x(const float* __restrict__ T, float* W, int ldw, int s, int h) {
+  __shared__ __align__(16) float As[kInvK * kInvLd];  // inv(D), transposed
+  __shared__ __align__(16) float Bs[kInvK * kInvLd];  // rows of T
+  const LeafInvTile t(s, h);
+  if (t.i0 >= t.hd) return;
+  const int kend = min(t.i0 + kInvCb, t.hd);  // inv(D)[i][k] = 0 for k > i
+  const float* ID = W + (size_t)(t.r0 + t.i0) * ldw + t.r0;
+  const float* Tc = T + (size_t)t.r0 * s + t.c0 + t.j0;
+  float acc[4][4] = {}, va[8], vb[8];
+  inv_load_t(va, ID, (size_t)ldw, t.hd - t.i0, kend);
+  inv_load(vb, Tc, (size_t)s, kend, t.jw);
+  for (int k0 = 0; k0 < kend; k0 += kInvK) {
+    __syncthreads();
+    inv_put_t(As, va);
+    inv_put(Bs, vb);
+    __syncthreads();
+    const int k1 = k0 + kInvK;
+    if (k1 < kend) {
+      inv_load_t(va, ID + k1, (size_t)ldw, t.hd - t.i0, kend - k1);
+      inv_load(vb, Tc + (size_t)k1 * s, (size_t)s, kend - k1, t.jw);
+    }
+    inv_chunk(As, Bs, acc);
+  }
+  leaf_inv_store(W + (size_t)(t.r0 + t.i0) * ldw + t.c0 + t.j0, (size_t)ldw, acc, t.hd - t.i0, t.jw, -1.0f);
+  const int zc = min(kInvCb, t.hd - t.i0);
+  for (int e = threadIdx.x; e < t.jw * kInvCb; e += kInvThreads)
+    if (e % kInvCb < zc) W[(size_t)(t.c0 + t.j0 + e / kInvCb) * ldw + t.r0 + t.i0 + e % kInvCb] = 0.0f;
+}
+
 }  // namespace gpr
 
 // A, L: (s, s) row-major views, row strides lda and ldl (L may be A); WS: a
@@ -337,16 +514,51 @@ extern "C" int gpr_leaf_chol_clusters(int s, int* out) {
   return (int)cudaOccupancyMaxActiveClusters(out, gpr::leaf_chol_cluster, &launch.cfg);
 }
 
-// As gpr_leaf_chol; W: (s, s), row stride ldw, sharing no memory with A or L.
-extern "C" int gpr_leaf_chol_wi(const float* A, int lda, float* L, int ldl, float* W, int ldw,
-                                int s, unsigned* bar, void* stream) {
-  const long long v_step = (long long)gpr::kLeafBlock * (ldw + 1);
-  return gpr::launch_leaf<true, true>(A, lda, L, ldl, W, ldw, W, ldw, v_step, s, bar, stream);
+// As gpr_leaf_chol, then W = L^-1: W (s, s), row stride ldw, sharing no memory
+// with A, L or WS; WS K12's workspace, the inverse's scratch after the factor.
+// 2 + 2 log2(s / 64) kernels in stream order.
+extern "C" int gpr_leaf_chol_wi(const float* A, int lda, float* L, int ldl, float* W, int ldw, float* WS, int s,
+                                void* stream) {
+  using namespace gpr;
+  if (!leaf_cluster_size_ok(s) || lda < s || ldl < s || ldw < s) return (int)cudaErrorInvalidValue;
+  const int rc = gpr_leaf_chol(A, lda, L, ldl, WS, s, stream);
+  if (rc != 0) return rc;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int smem = kInvBaseFloats * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(leaf_inv_base, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  leaf_inv_base<<<s / kInvBase, kInvThreads, smem, st>>>(L, ldl, W, ldw);
+  err = cudaGetLastError();
+  for (int h = kInvBase; h < s && err == cudaSuccess; h *= 2) {
+    const int pairs = (s - h + 2 * h - 1) / (2 * h), cbs = (h + kInvCb - 1) / kInvCb;
+    leaf_inv_t<<<dim3(cbs * cbs, pairs), kInvThreads, 0, st>>>(L, ldl, W, ldw, WS, s, h);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) break;
+    leaf_inv_x<<<dim3(cbs * cbs, pairs), kInvThreads, 0, st>>>(WS, W, ldw, s, h);
+    err = cudaGetLastError();
+  }
+  return (int)err;
 }
 
-// L: (s, s) lower-triangular (only its lower triangle is read), W: (s, s).
-extern "C" int gpr_tri_inv_leaf(const float* L, int ldl, float* W, int ldw, int s, unsigned* bar,
-                                void* stream) {
-  return gpr::launch_leaf<false, true>(nullptr, 0, const_cast<float*>(L), ldl, W, ldw, nullptr, 0,
-                                       0, s, bar, stream);
+// L: (s, s) lower-triangular (only its lower triangle is read), W: (s, s);
+// bar: K14's grid barrier, two zeros.  One cooperative launch.
+extern "C" int gpr_tri_inv_leaf(const float* L, int ldl, float* W, int ldw, int s, unsigned* bar, void* stream) {
+  using namespace gpr;
+  if (s < kLeafBlock || s % kLeafBlock || s > kLeafMax || ldl < s || ldw < s) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tri_inv_leaf_kernel, kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  const int nb = s / kLeafBlock;
+  const int most = nb * (nb - 1) / 2 > 1 ? nb * (nb - 1) / 2 : 1;  // the widest phase's tiles
+  const int grid = per_sm * sms < most ? per_sm * sms : most;
+  if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  size_t ldl_ = (size_t)ldl, ldw_ = (size_t)ldw;
+  void* args[] = {&L, &ldl_, &W, &ldw_, &s, &bar};
+  err = cudaLaunchCooperativeKernel((const void*)tri_inv_leaf_kernel, dim3(grid), dim3(kThreads), args, 0,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }

@@ -1,12 +1,11 @@
-// The whole-leaf Cholesky walk of K12-K14 (leaf.cu) as device code, so that
-// the diagonal tile of K15 panel_factor (panel.cu) and K17 panel_inplace
-// (inplace.cu) runs the same factor and inverse (panel.cuh): the 64-wide
-// diagonal step, the staged tile product and the right-looking factor with
-// block-doubling inverse.  leaf.cu's header explains the scheme.
+// K14 tri_inv_leaf's walk (leaf.cu): W = L^-1 of a whole leaf on one
+// cooperative launch of a persistent grid, the leaf in device memory (L2
+// holds it), 64-wide diagonal blocks inverted a block each, then block
+// doubling with a grid-wide barrier between dependent phases.  leaf.cu's
+// header explains the scheme.
 //
 // Every function is called by all kThreads threads of every block of the
-// grid.  leaf_body's grid barriers (grid_sync) need a cooperative launch, or a
-// grid of one block, where they are block barriers and `bar` is not read.
+// grid; tri_inv_body's grid barriers (grid_sync) need a cooperative launch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -23,7 +22,7 @@ constexpr int kLeafMax = 1024;
 constexpr int kDiagLd = kLeafBlock | 1;
 constexpr long long kBarrierTimeout = 1LL << 34;  // SM cycles, ~9 s
 
-union LeafSmem {  // the diagonal step's two tiles, or a product's staging
+union LeafSmem {  // a diagonal tile and its inverse, or a product's staging
   float diag[2 * kLeafBlock * kDiagLd];
   TileSmem tile;
 };
@@ -101,21 +100,6 @@ __device__ __forceinline__ void store_tile(float* out, size_t ld, const float ac
     for (int c = 0; c < kPer; ++c) out[(size_t)(ty * kPer + a) * ld + tx * kPer + c] = sign * acc[a][c];
 }
 
-// The diagonal tile k of L -> its factor, in place with an exact-zero upper,
-// and Vk = its inverse (exact-zero upper).  Reads the tile's lower triangle.
-__device__ inline void diag_step(float* L, size_t ldl, float* Vk, size_t ldv, int k, LeafSmem& sm) {
-  float* S = sm.diag;
-  float* Ws = S + kLeafBlock * kDiagLd;
-  float* Lkk = L + (size_t)k * kLeafBlock * (ldl + 1);
-  __syncthreads();  // the tile's last writes and the shared memory's last reads
-  load_lower(S, kDiagLd, Lkk, ldl, kLeafBlock);
-  crout_sweep(S, kDiagLd, kLeafBlock);
-  tri_inverse(S, Ws, kDiagLd, kLeafBlock);
-  store_lower(S, kDiagLd, Lkk, ldl, kLeafBlock);
-  store_lower(Ws, kDiagLd, Vk, ldv, kLeafBlock);
-  __syncthreads();
-}
-
 // W_kk = inv(tril(L_kk)), exact-zero upper (K14's diagonal tiles).
 __device__ inline void invert_diag(const float* L, size_t ldl, float* W, size_t ldw, int k,
                                    LeafSmem& sm) {
@@ -128,14 +112,10 @@ __device__ inline void invert_diag(const float* L, size_t ldl, float* W, size_t 
   __syncthreads();
 }
 
-// FACTOR: L = chol(lower of A) (K12; with INVERSE, K13).  V_k, the inverse of
-// diagonal tile k, goes to V + k v_step (K12: one reused 64x64 scratch tile,
-// v_step 0; K13: W's diagonal tile).  INVERSE: W = L^-1 (K14 alone: from the
-// lower triangle of L).  Run by every block of the grid.
-template <bool FACTOR, bool INVERSE>
-__device__ inline void leaf_body(const float* A, size_t lda, float* L, size_t ldl, float* W,
-                                 size_t ldw, float* V, size_t ldv, long long v_step, int s,
-                                 unsigned* bar, LeafSmem& sm) {
+// W = L^-1 of the lower triangle of L (K14), W's strict upper exactly 0.
+// Run by every block of the grid.
+__device__ inline void tri_inv_body(const float* L, size_t ldl, float* W, size_t ldw, int s, unsigned* bar,
+                                    LeafSmem& sm) {
   constexpr int b = kLeafBlock;
   const int nb = s / b;
   const int G = gridDim.x;
@@ -143,88 +123,38 @@ __device__ inline void leaf_body(const float* A, size_t lda, float* L, size_t ld
   const size_t tid = (size_t)g * kThreads + threadIdx.x;
   const size_t nthreads = (size_t)G * kThreads;
 
-  if (FACTOR) {
-    // L = the lower triangle of A, exact-zero strict upper (A may be L)
-    for (size_t e = tid; e < (size_t)s * s; e += nthreads) {
-      const int r = (int)(e / s), c = (int)(e % s);
-      if (c > r)
-        L[r * ldl + c] = 0.0f;
-      else if (A != L)
-        L[r * ldl + c] = A[r * lda + c];
+  for (int k = g; k < nb; k += G) invert_diag(L, ldl, W, ldw, k, sm);
+  grid_sync(bar);
+  for (int w = 1; w < nb; w *= 2) {
+    const int items = (nb + 2 * w - 1) / (2 * w) * w * w;
+    // X^T(c, r) = -sum_t W_A[t, c] L_CA[r, t] into W[A rows, C columns]
+    for (int it = g; it < items; it += G) {
+      const int a0 = it / (w * w) * 2 * w, c0 = a0 + w;
+      const int ci = it % (w * w) / w, ri = it % w;
+      if (c0 + ri >= nb) continue;
+      const float* WA = W + (size_t)a0 * b * ldw + (size_t)a0 * b;
+      const float* LCA = L + (size_t)(c0 + ri) * b * ldl + (size_t)a0 * b;
+      float acc[kPer][kPer] = {};
+      tile_product<true, false>(WA + ci * b, ldw, LCA, ldl, ci * b, w * b, sm.tile, acc);
+      store_tile(W + (size_t)(a0 + ci) * b * ldw + (size_t)(c0 + ri) * b, ldw, acc, 1.0f);
     }
     grid_sync(bar);
-    if (g == 0) diag_step(L, ldl, V, ldv, 0, sm);
-    grid_sync(bar);
-    for (int k = 0; k + 1 < nb; ++k) {
-      const float* Vk = V + k * v_step;
-      for (int i = k + 1 + g; i < nb; i += G) {  // L_ik = A_ik V_k^T
-        float* Lik = L + (size_t)i * b * ldl + (size_t)k * b;
-        float acc[kPer][kPer] = {};
-        tile_product<false, false>(Lik, ldl, Vk, ldv, 0, b, sm.tile, acc);
-        store_tile(Lik, ldl, acc, -1.0f);
-      }
-      grid_sync(bar);
-      // the lower tiles of A22 -= L21 L21^T; tile 0 is the next diagonal tile,
-      // which block 0 updates and factors while the others take the rest
-      const int m = s - (k + 1) * b;
-      const int nt = nb - k - 1;
-      const int T = nt * (nt + 1) / 2;
-      float* A22 = L + (size_t)(k + 1) * b * (ldl + 1);
-      const float* L21 = L + (size_t)(k + 1) * b * ldl + (size_t)k * b;
-      if (g == 0) {
-        syrk_tile(A22, ldl, L21, ldl, A22, ldl, m, b, 0, 0, true, sm.tile);
-        diag_step(L, ldl, V + (k + 1) * v_step, ldv, k + 1, sm);
-      }
-      if (G == 1 || g > 0) {
-        const int workers = G > 1 ? G - 1 : 1;
-        for (int t = 1 + (G > 1 ? g - 1 : 0); t < T; t += workers) {
-          int i = (int)((sqrtf(8.0f * (float)t + 1.0f) - 1.0f) * 0.5f);
-          while (i * (i + 1) / 2 > t) --i;
-          while ((i + 1) * (i + 2) / 2 <= t) ++i;
-          __syncthreads();
-          syrk_tile(A22, ldl, L21, ldl, A22, ldl, m, b, i, t - i * (i + 1) / 2, true, sm.tile);
-        }
-      }
-      grid_sync(bar);
+    // W_CA(r, c) = sum_t W_C[r, t] X^T(c, t), t up to the diagonal of W_C
+    for (int it = g; it < items; it += G) {
+      const int a0 = it / (w * w) * 2 * w, c0 = a0 + w;
+      const int ci = it % (w * w) / w, ri = it % w;
+      if (c0 + ri >= nb) continue;
+      const float* WC = W + (size_t)(c0 + ri) * b * ldw + (size_t)c0 * b;
+      const float* XT = W + (size_t)(a0 + ci) * b * ldw + (size_t)c0 * b;
+      float acc[kPer][kPer] = {};
+      tile_product<false, false>(WC, ldw, XT, ldw, 0, (ri + 1) * b, sm.tile, acc);
+      store_tile(W + (size_t)(c0 + ri) * b * ldw + (size_t)(a0 + ci) * b, ldw, acc, -1.0f);
     }
+    grid_sync(bar);
   }
-
-  if (INVERSE) {
-    if (!FACTOR) {
-      for (int k = g; k < nb; k += G) invert_diag(L, ldl, W, ldw, k, sm);
-      grid_sync(bar);
-    }
-    for (int w = 1; w < nb; w *= 2) {
-      const int items = (nb + 2 * w - 1) / (2 * w) * w * w;
-      // X^T(c, r) = -sum_t W_A[t, c] L_CA[r, t] into W[A rows, C columns]
-      for (int it = g; it < items; it += G) {
-        const int a0 = it / (w * w) * 2 * w, c0 = a0 + w;
-        const int ci = it % (w * w) / w, ri = it % w;
-        if (c0 + ri >= nb) continue;
-        const float* WA = W + (size_t)a0 * b * ldw + (size_t)a0 * b;
-        const float* LCA = L + (size_t)(c0 + ri) * b * ldl + (size_t)a0 * b;
-        float acc[kPer][kPer] = {};
-        tile_product<true, false>(WA + ci * b, ldw, LCA, ldl, ci * b, w * b, sm.tile, acc);
-        store_tile(W + (size_t)(a0 + ci) * b * ldw + (size_t)(c0 + ri) * b, ldw, acc, 1.0f);
-      }
-      grid_sync(bar);
-      // W_CA(r, c) = sum_t W_C[r, t] X^T(c, t), t up to the diagonal of W_C
-      for (int it = g; it < items; it += G) {
-        const int a0 = it / (w * w) * 2 * w, c0 = a0 + w;
-        const int ci = it % (w * w) / w, ri = it % w;
-        if (c0 + ri >= nb) continue;
-        const float* WC = W + (size_t)(c0 + ri) * b * ldw + (size_t)c0 * b;
-        const float* XT = W + (size_t)(a0 + ci) * b * ldw + (size_t)c0 * b;
-        float acc[kPer][kPer] = {};
-        tile_product<false, false>(WC, ldw, XT, ldw, 0, (ri + 1) * b, sm.tile, acc);
-        store_tile(W + (size_t)(c0 + ri) * b * ldw + (size_t)(a0 + ci) * b, ldw, acc, -1.0f);
-      }
-      grid_sync(bar);
-    }
-    for (size_t e = tid; e < (size_t)s * s; e += nthreads) {  // exact-zero strict upper
-      const int r = (int)(e / s), c = (int)(e % s);
-      if (c > r) W[r * ldw + c] = 0.0f;
-    }
+  for (size_t e = tid; e < (size_t)s * s; e += nthreads) {  // exact-zero strict upper
+    const int r = (int)(e / s), c = (int)(e % s);
+    if (c > r) W[r * ldw + c] = 0.0f;
   }
 }
 

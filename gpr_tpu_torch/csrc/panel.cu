@@ -1,16 +1,25 @@
 // K15 panel_factor: one (n, 256) Cholesky column panel [D; A21] -> [L_dd; L21],
 // L_dd = chol(D) with D read from its upper triangle (as rows), L21 = A21
-// L_dd^-T (gpr_tpu_torch/ops/panel.py).
+// L_dd^-T, out of place (gpr_tpu_torch/ops/panel.py).  K17 panel_inplace: the
+// same on the 256-wide column panel at tile column c0t of an (n, n) row-major
+// buffer S, in place, D read from its lower triangle (its strict upper may
+// hold NaN or junk and comes back exactly 0; gpr_tpu_torch/ops/inplace_chol.py).
 //
-// Replaces the TPU kernel gpr_tpu/ops/pallas_panel.py::_panel_kernel (line
-// 143), launched by panel_factor (163) for each panel of cholesky_panels and
-// cholesky_left_panels (190, 220).  It computes what that kernel computes, not
-// its blocking.  One launch is two kernels in stream order:
+// K15 replaces the TPU kernel gpr_tpu/ops/pallas_panel.py::_panel_kernel
+// (line 143), launched by panel_factor (163) for each panel of
+// cholesky_panels and cholesky_left_panels (190, 220); K17 replaces
+// gpr_tpu/ops/inplace_chol.py::_panel_kernel_inplace (135), launched by
+// _panel_call (162) from panel_inplace (184).  They compute what those
+// kernels compute, not their blocking (the TPU factors D in VMEM on grid
+// step 0 and turns each row tile into R_t U^-1 on the later steps of its
+// sequential grid).  Each launch is two kernels in stream order, one counted
+// launch, the rows needing W, which exists only when D is done:
 //
 //   panel_diag_cluster  D on one 8-CTA thread-block cluster, as K19 factors a
-//                       256 tile (chol.cuh: tile_chol_factor; D's upper
-//                       triangle read as rows of the strided panel, a block
-//                       column of 32 a CTA, a warp a diagonal block), then
+//   (K15) and           256 tile (chol.cuh: tile_chol_factor; a block column
+//   panel_inplace_diag  of 32 a CTA, a warp a diagonal block; K15 reads D's
+//   (K17)               upper triangle as rows of the strided panel, K17 its
+//                       lower triangle, a warp 32 columns of a row), then
 //                       W = L_dd^-1 while L_dd is still in shared memory: each
 //                       CTA b inverts its diagonal block V_b = L_bb^-1 on one
 //                       warp (forward substitution, a lane a column) and
@@ -21,38 +30,48 @@
 //                       of W^T to the (256, 256) scratch, with W's zeros; only the V_i come
 //                       from the other CTAs, after a cluster barrier (V_7's
 //                       its own, awaited at the last step).
-//                       L_dd goes to the output's top tile, exact zeros above
-//                       its diagonal;
+//                       L_dd goes to the output's top tile (K17: D itself),
+//                       exact zeros above its diagonal.  K17 is in place
+//                       because each CTA reads and writes only its own block
+//                       columns of D (with the upper read, a CTA would read
+//                       other CTAs' columns, which is why K15 is out of
+//                       place);
 //   panel_factor_rows   L21 = A21 W^T for every 32 rows, one block each (248
-//                       blocks for the 7936 rows below the first panel of
-//                       n = 8192, two to an SM): the block's rows read once
-//                       into shared memory, W^T streamed from L2 in 32-deep
-//                       chunks through three-stage cp.async rings; the four
-//                       64-column output tiles (tile j needs depth [0, 64 (j +
-//                       1)), W being lower triangular) shared by two pairs of
-//                       warps, tiles 3 and 0, 2 and 1, 320 deep each; 4x8
-//                       register tiles; sums in two levels (128-term partials),
-//                       FP32 FMA.
+//   (K15) and           blocks for the 7936 rows below the first panel of
+//   panel_inplace_rows  n = 8192, two to an SM): the block's rows read once
+//   (K17)               into shared memory before its first store (so K17
+//                       rewrites them in place), W^T streamed from L2 in
+//                       32-deep chunks through three-stage cp.async rings; the
+//                       four 64-column output tiles (tile j needs depth [0, 64
+//                       (j + 1)), W being lower triangular) shared by two
+//                       pairs of warps, tiles 3 and 0, 2 and 1, 320 deep each;
+//                       4x8 register tiles; sums in two levels (128-term
+//                       partials), FP32 FMA.
 //
-// The input is read, never written.  A non-positive (or NaN) pivot gives NaN
-// through sqrtf with no clamp (chol.cuh); it reaches W's later rows and so
-// every row of L21, and through the schedules' products every later panel.
-// Sums have a fixed order and there are no atomics: a call is deterministic.
+// K15 reads its input, never writes it; K17 rewrites only its panel of S.  A
+// non-positive (or NaN) pivot gives NaN through sqrtf with no clamp
+// (chol.cuh); it reaches W's later rows and so every row of L21, and through
+// the schedules' products every later panel, so the factor's L[-1, -1] is
+// NaN.  Sums have a fixed order and there are no atomics: a call is
+// deterministic.
 //
-// What bounds it on the H100, per panel of n rows: 256^3 / 3 FLOP for D and
+// What bounds them on the H100, per panel of n rows: 256^3 / 3 FLOP for D and
 // (n - 256) 256^2 for the rows' triangular solve (the products with W do 1.25x
 // that), against 2 n 256 4 bytes read and written: at n = 8192, 0.53 GFLOP
 // (7.9 us at 67 TFLOP/s FP32) against 16.8 MB (5.0 us at 3.35 TB/s).  The
 // diagonal kernel is a chain of 8 dependent 32-wide diagonal steps on 8 SMs
 // (K19's pace at n = 256, ~0.075 ms) while the rest of the card idles; the
-// rows kernel is one wave of FP32 FMA over the card.
+// rows kernel is one wave of FP32 FMA over the card.  K17's 64 panels of an
+// n = 16384 factorization take 64 such chains.
 #include <cuda_runtime.h>
 
 #include "chol.cuh"
-#include "panel.cuh"
 
 namespace gpr {
 
+constexpr int kPanel = 256;                     // the panel width b (pallas_panel.py: tile)
+constexpr int kPanelTile = 64;                  // the rows kernel's output column tile
+constexpr int kPanelRows = kPanel / kPanelTile;  // its column tiles
 constexpr int kPanelBlocks = kPanel / kCholNb;  // 8 block columns, a CTA each
 constexpr int kPanelRowTile = 32;               // rows of a rows-kernel block
 // The workspace (floats): the factor's kPanelBlocks - 1 panel slots, then
@@ -133,8 +152,11 @@ __device__ __forceinline__ void panel_stage(float* buf, const float* WS, int m) 
   cp_async_commit();
 }
 
-// grid (8) as one cluster of 8; block (256); dynamic shared memory
-// kCholSmemBytes.  W: (256, 256) scratch for W^T; WS: the workspace (gpr_panel_factor).
+// Run by every thread of the diagonal kernels: grid (8) as one cluster of 8;
+// block (256); dynamic shared memory kCholSmemBytes.  P: D, row stride ldp,
+// read from its upper triangle (LOWER: its lower one); out: L_dd, row stride
+// ldo (may be P with LOWER); W: (256, 256) scratch for W^T; WS: the workspace
+// (gpr_panel_factor).
 //
 // W's block column b, right-looking over the block rows m = b .. 7: W_mb =
 // -V_m T_m (W_bb = V_b), then T_i += L_im W_mb for every i > m at once, warp
@@ -144,12 +166,11 @@ __device__ __forceinline__ void panel_stage(float* buf, const float* WS, int m) 
 // V_6 (phase A); V_7, whose block the factor ends with, has a phase of its
 // own (B), awaited only before the last step, so that CTA 7's last factor
 // and inverse overlap the others' steps.
-__global__ void __launch_bounds__(kCholThreads, 1)
-    panel_diag_cluster(const float* __restrict__ P, size_t ldp, float* __restrict__ out, float* __restrict__ W,
-                       float* __restrict__ WS) {
-  extern __shared__ __align__(16) float smem[];
+template <bool LOWER>
+__device__ __forceinline__ void panel_diag_body(const float* P, size_t ldp, float* out, size_t ldo, float* W,
+                                                float* WS, float* smem) {
   int own[2], no;
-  tile_chol_factor<1>(P, ldp, WS, kPanel, smem, own, &no);
+  tile_chol_factor<1, LOWER>(P, ldp, WS, kPanel, smem, own, &no);
   const int b = own[0], lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   constexpr int kLast = kPanelBlocks - 1;
   float* Lb = smem + col_offset(b, kPanelBlocks);  // block column b, its diagonal block on top
@@ -166,7 +187,7 @@ __global__ void __launch_bounds__(kCholThreads, 1)
     __threadfence();  // V_b is published before this thread's arrive
   }
   __syncthreads();
-  store_column(out, kPanel, kPanel, b, kPanelBlocks, Lb);
+  store_column(out, ldo, kPanel, b, kPanelBlocks, Lb);
   __syncthreads();  // the block column is read: its shared memory holds the staging buffers from here
 
   if (b == kLast) {  // no rows below: W_77 = V_7
@@ -250,6 +271,21 @@ __global__ void __launch_bounds__(kCholThreads, 1)
   }
 }
 
+// K15's diagonal kernel: D the top of the panel P, L_dd the top of out.
+__global__ void __launch_bounds__(kCholThreads, 1)
+    panel_diag_cluster(const float* __restrict__ P, size_t ldp, float* __restrict__ out, float* __restrict__ W,
+                       float* __restrict__ WS) {
+  extern __shared__ __align__(16) float smem[];
+  panel_diag_body<false>(P, ldp, out, kPanel, W, WS, smem);
+}
+
+// K17's diagonal kernel: D, row stride ld, factored in place.
+__global__ void __launch_bounds__(kCholThreads, 1)
+    panel_inplace_diag(float* D, size_t ld, float* __restrict__ W, float* __restrict__ WS) {
+  extern __shared__ __align__(16) float smem[];
+  panel_diag_body<true>(D, ld, D, ld, W, WS, smem);
+}
+
 // The rows kernel: 128 threads, two pairs of warps.  Pair 0 takes output
 // column tiles 3 then 0, pair 1 tiles 2 then 1 (tile j needs depth [0, 64 (j
 // + 1)) of W^T, W being lower triangular): 320 deep each, in ten 32-deep
@@ -261,13 +297,13 @@ constexpr int kRowDepth = 32;
 constexpr int kRowStages = 3;
 constexpr int kRowSteps = 10;
 constexpr int kRowALd = kPanelRowTile + 4;
-constexpr int kRowWLd = kTile + 4;
+constexpr int kRowWLd = kPanelTile + 4;
 constexpr int kRowChunk = kRowDepth * kRowWLd;
 constexpr int kRowSmemBytes = (kPanel * kRowALd + 2 * kRowStages * kRowChunk) * (int)sizeof(float);
 
 // Pair p's chunk g: its column tile j and depth t0.
 __device__ __forceinline__ void row_chunk(int p, int g, int* j, int* t0) {
-  const int first = kPanelRows - 1 - p, n1 = (first + 1) * kTile / kRowDepth;  // 8 or 6 chunks
+  const int first = kPanelRows - 1 - p, n1 = (first + 1) * kPanelTile / kRowDepth;  // 8 or 6 chunks
   *j = g < n1 ? first : kPanelRows - 1 - first;
   *t0 = (g < n1 ? g : g - n1) * kRowDepth;
 }
@@ -277,27 +313,27 @@ __device__ __forceinline__ void row_chunk(int p, int g, int* j, int* t0) {
 // (empty past the last chunk).
 __device__ __forceinline__ void row_stage(const float* Wt, float* sW, int g) {
   if (g < kRowSteps)
-    for (int e = threadIdx.x; e < 2 * kRowDepth * kTile / 4; e += kRowThreads) {
-      const int p = e / (kRowDepth * kTile / 4), q = e % (kRowDepth * kTile / 4), kk = q / 16, part = q % 16;
+    for (int e = threadIdx.x; e < 2 * kRowDepth * kPanelTile / 4; e += kRowThreads) {
+      const int p = e / (kRowDepth * kPanelTile / 4), q = e % (kRowDepth * kPanelTile / 4), kk = q / 16, part = q % 16;
       int j, t0;
       row_chunk(p, g, &j, &t0);
       cp_async16(sW + (p * kRowStages + g % kRowStages) * kRowChunk + kk * kRowWLd + 4 * part,
-                 Wt + (size_t)(t0 + kk) * kPanel + kTile * j + 4 * part);
+                 Wt + (size_t)(t0 + kk) * kPanel + kPanelTile * j + 4 * part);
     }
   cp_async_commit();
 }
 
-// grid: (n - 256) / 32 blocks, block g the rows 256 + 32 g ..; block (128);
-// dynamic shared memory kRowSmemBytes.  L21 = A21 W^T, Wt = W^T.  The
-// block's rows are read once into shared memory, so the rows could be
-// rewritten in place.  In a pair, thread (rg, cg) takes rows 4 rg .. + 3 and
+// Run by every thread of the rows kernels: grid (n - 256) / 32 blocks, block
+// g the rows 256 + 32 g .. of P (row stride ldp) into the same rows of out
+// (row stride ldo); block (128); dynamic shared memory kRowSmemBytes.  L21 =
+// A21 W^T, Wt = W^T.  The block's rows are read once into shared memory
+// before its first store, so out may be P (K17).  In a pair, thread (rg, cg) takes rows 4 rg .. + 3 and
 // columns 8 cg .. + 7 of the pair's 32x64 output tile: a step of depth one is
 // three 16-byte shared loads for 32 FMAs (shared memory serves a 16-byte load
 // of a warp in four passes: those loads, not the FMAs, set the pace);
 // 128-term partials folded into the sum.
-__global__ void __launch_bounds__(kRowThreads)
-    panel_factor_rows(const float* __restrict__ P, size_t ldp, float* __restrict__ out, const float* __restrict__ Wt) {
-  extern __shared__ __align__(16) float smem[];
+__device__ __forceinline__ void panel_rows_body(const float* P, size_t ldp, float* out, size_t ldo, const float* Wt,
+                                                float* smem) {
   float* sA = smem;
   float* sW = smem + kPanel * kRowALd;
   const size_t r0 = kPanel + (size_t)blockIdx.x * kPanelRowTile;
@@ -332,7 +368,7 @@ __global__ void __launch_bounds__(kRowThreads)
         for (int y = 0; y < 8; ++y) part[x][y] = fmaf(av[x], bv[y], part[x][y]);
     }
     __syncthreads();  // the slot is read before chunk g + 3 refills it
-    const bool last = t0 + kRowDepth == (j + 1) * kTile;
+    const bool last = t0 + kRowDepth == (j + 1) * kPanelTile;
     if (last || (t0 / kRowDepth) % 4 == 3)
 #pragma unroll
       for (int x = 0; x < 4; ++x)
@@ -344,7 +380,7 @@ __global__ void __launch_bounds__(kRowThreads)
     if (last) {
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
-        float* dst = out + (r0 + 4 * rg + x) * kPanel + kTile * j + 8 * cg;
+        float* dst = out + (r0 + 4 * rg + x) * ldo + kPanelTile * j + 8 * cg;
         *reinterpret_cast<float4*>(dst) = make_float4(acc[x][0], acc[x][1], acc[x][2], acc[x][3]);
         *reinterpret_cast<float4*>(dst + 4) = make_float4(acc[x][4], acc[x][5], acc[x][6], acc[x][7]);
 #pragma unroll
@@ -355,18 +391,25 @@ __global__ void __launch_bounds__(kRowThreads)
   cp_async_wait<0>();
 }
 
-}  // namespace gpr
+// K15's rows kernel: out (n, 256) contiguous.
+__global__ void __launch_bounds__(kRowThreads)
+    panel_factor_rows(const float* __restrict__ P, size_t ldp, float* __restrict__ out, const float* __restrict__ Wt) {
+  extern __shared__ __align__(16) float smem[];
+  panel_rows_body(P, ldp, out, kPanel, Wt, smem);
+}
 
-// P: (n, 256) row stride ldp (read only); out: (n, 256) contiguous, sharing no
-// memory with P; W: a (256, 256) float scratch (it receives W^T); WS: a workspace of
-// 7 * 32 * 480 + 8 * 1024 floats.  n % 256 == 0.
-extern "C" int gpr_panel_factor(const float* P, int ldp, float* out, float* W, float* WS, int n, void* stream) {
-  using namespace gpr;
-  if (n < kPanel || n % kPanel || ldp < kPanel) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(panel_diag_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kCholSmemBytes);
-  if (err != cudaSuccess) return (int)err;
+// K17's rows kernel: the panel's rows below D (the top of P, row stride ld),
+// in place.
+__global__ void __launch_bounds__(kRowThreads) panel_inplace_rows(float* P, size_t ld, const float* __restrict__ Wt) {
+  extern __shared__ __align__(16) float smem[];
+  panel_rows_body(P, ld, P, ld, Wt, smem);
+}
+
+// One 8-CTA cluster of a diagonal kernel on stream s.
+template <class... Exp, class... Act>
+cudaError_t launch_panel_diag(void (*kernel)(Exp...), cudaStream_t s, Act... args) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kCholSmemBytes);
+  if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = kCholCluster;
@@ -379,11 +422,40 @@ extern "C" int gpr_panel_factor(const float* P, int ldp, float* out, float* W, f
   cfg.stream = s;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, panel_diag_cluster, P, (size_t)ldp, out, W, WS);
-  if (err == cudaSuccess) err = cudaGetLastError();
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+}  // namespace gpr
+
+// P: (n, 256) row stride ldp (read only); out: (n, 256) contiguous, sharing no
+// memory with P; W: a (256, 256) float scratch (it receives W^T); WS: a workspace of
+// 7 * 32 * 480 + 8 * 1024 floats.  n % 256 == 0.
+extern "C" int gpr_panel_factor(const float* P, int ldp, float* out, float* W, float* WS, int n, void* stream) {
+  using namespace gpr;
+  if (n < kPanel || n % kPanel || ldp < kPanel) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_panel_diag(panel_diag_cluster, s, P, (size_t)ldp, out, W, WS);
   if (err != cudaSuccess || n == kPanel) return (int)err;
   err = cudaFuncSetAttribute(panel_factor_rows, cudaFuncAttributeMaxDynamicSharedMemorySize, kRowSmemBytes);
   if (err != cudaSuccess) return (int)err;
   panel_factor_rows<<<(n - kPanel) / kPanelRowTile, kRowThreads, kRowSmemBytes, s>>>(P, (size_t)ldp, out, W);
+  return (int)cudaGetLastError();
+}
+
+// S: (n, n) contiguous and 16-byte aligned, n % 256 == 0, 0 <= c0t < n / 256;
+// W and WS as gpr_panel_factor's.
+extern "C" int gpr_panel_inplace(float* S, int n, int c0t, float* W, float* WS, void* stream) {
+  using namespace gpr;
+  const int c0 = c0t * kPanel;
+  if (n < kPanel || n % kPanel || c0t < 0 || c0 >= n || reinterpret_cast<size_t>(S) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* D = S + (size_t)c0 * (n + 1);
+  cudaError_t err = launch_panel_diag(panel_inplace_diag, s, D, (size_t)n, W, WS);
+  if (err != cudaSuccess || c0 + kPanel == n) return (int)err;
+  err = cudaFuncSetAttribute(panel_inplace_rows, cudaFuncAttributeMaxDynamicSharedMemorySize, kRowSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  panel_inplace_rows<<<(n - c0 - kPanel) / kPanelRowTile, kRowThreads, kRowSmemBytes, s>>>(D, (size_t)n, W);
   return (int)cudaGetLastError();
 }

@@ -58,6 +58,8 @@
 //                  the port).  The zero halves of the triangular operands are
 //                  skipped: T's column block j0 sums from row j0 of inv(A), X's
 //                  row block i0 up to column i0 + 63 of inv(D).
+// The warp's block inverse and the staged product tile live in tri_inv.cuh,
+// which K13 leaf_chol_wi (leaf.cu) shares for the inverse of a whole leaf.
 // One counted launch runs 1 + log2(bs / 32) kernels in stream order (five at
 // bs = 512).  L's strict upper is never read: the diagonal blocks are staged
 // through a mask and C lies strictly below the diagonal.  A NaN on a pivot
@@ -69,6 +71,8 @@
 // the FLOP are few, and the levels are short, so the time is the five
 // kernels' latency and the last level's single wave of 128 blocks.
 #include <cuda_runtime.h>
+
+#include "tri_inv.cuh"
 
 namespace gpr {
 
@@ -252,19 +256,10 @@ cudaError_t narrow_subst_row(const float* L, const float* W, const float* src, f
 }
 
 constexpr int kInvMaxTile = 512;
-constexpr int kInvNb = 32;          // diagonal block width, the longest dependent chain
-constexpr int kInvDiagWarps = 4;    // diagonal blocks of one CTA
-constexpr int kInvCb = 64;          // output tile of a level: 64 x 64, 4 x 4 a thread
-constexpr int kInvK = 32;           // depth of a staged chunk, the first level of every sum
-constexpr int kInvThreads = 256;
-constexpr int kInvLd = kInvCb + 4;  // shared row: 16-byte aligned float4 reads
 
 // grid ceil(nb * nblk / 4), nblk = ceil(bs / 32); warp g the diagonal block
-// b = g % nblk of tile g / nblk.  Lane i holds row i of L_bb (its lower
-// triangle, padded with I past a ragged block's width w) and of its
-// inverse; row m of the inverse is final once scaled by 1 / L[m][m], then
-// every lower row subtracts L[i][m] times it (moved by shuffles).  Entries
-// above the diagonal are never touched and stay exactly 0.
+// b = g % nblk of tile g / nblk (tri_inv.cuh: warp_tri_inv32, a ragged last
+// block padded with I past its width w), stored with the zeros right of it.
 __global__ void __launch_bounds__(kInvDiagWarps * 32)
     tri_inv_diag(const float* L, int ld, float* W, int nb, int bs) {
   __shared__ float sm[kInvDiagWarps][kInvNb][kInvNb + 1];
@@ -273,91 +268,13 @@ __global__ void __launch_bounds__(kInvDiagWarps * 32)
   const int g = blockIdx.x * kInvDiagWarps + warp;
   if (g >= nb * nblk) return;  // warp-uniform: the warps share no barrier
   const int tile = g / nblk, c0 = (g % nblk) * kInvNb, w = min(kInvNb, bs - c0);
-  const float* T = L + (size_t)(tile * bs + c0) * ld + tile * bs + c0;
   float(*s)[kInvNb + 1] = sm[warp];
-  // rows r coalesced along the lanes; the strict upper is masked, not read
-  for (int r = 0; r < kInvNb; ++r)
-    s[r][lane] = (r < w && lane < w) ? (lane <= r ? T[(size_t)r * ld + lane] : 0.0f)
-                                     : (lane == r ? 1.0f : 0.0f);
-  __syncwarp();
-  float a[kInvNb], v[kInvNb];
-#pragma unroll
-  for (int m = 0; m < kInvNb; ++m) {
-    a[m] = s[lane][m];
-    v[m] = (m == lane) ? 1.0f : 0.0f;
-  }
-#pragma unroll
-  for (int m = 0; m < kInvNb; ++m) {
-    const float sc = (lane == m) ? 1.0f / a[m] : 1.0f;
-#pragma unroll
-    for (int c = 0; c <= m; ++c) {
-      v[c] *= sc;
-      const float wmc = __shfl_sync(0xffffffffu, v[c], m);
-      if (lane > m) v[c] = fmaf(-a[m], wmc, v[c]);
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int m = 0; m < kInvNb; ++m) s[lane][m] = v[m];
-  __syncwarp();
+  warp_tri_inv32(L + (size_t)(tile * bs + c0) * ld + tile * bs + c0, ld, w, s);
   float* Wr = W + (size_t)tile * bs * bs + (size_t)c0 * bs;
   for (int r = 0; r < w; ++r) {
     if (lane < w) Wr[(size_t)r * bs + c0 + lane] = s[r][lane];
     for (int c = c0 + w + lane; c < bs; c += 32) Wr[(size_t)r * bs + c] = 0.0f;
   }
-}
-
-// As[k][r] = M[r][k] for r < rows, k < cols of the row-major M (row stride
-// ld), 0 elsewhere; 64 rows x 32 columns, each warp one row at a time
-// (coalesced), the eight loads of a thread in flight before any is stored.
-__device__ __forceinline__ void inv_stage_t(float* As, const float* M, size_t ld, int rows, int cols) {
-  float v[8];
-#pragma unroll
-  for (int u = 0; u < 8; ++u) {
-    const int e = threadIdx.x + u * kInvThreads, r = e / kInvK, k = e % kInvK;
-    v[u] = (r < rows && k < cols) ? M[(size_t)r * ld + k] : 0.0f;
-  }
-#pragma unroll
-  for (int u = 0; u < 8; ++u) {
-    const int e = threadIdx.x + u * kInvThreads;
-    As[(e % kInvK) * kInvLd + e / kInvK] = v[u];
-  }
-}
-
-// Bs[k][c] = M[k][c] for k < rows, c < cols, 0 elsewhere; 32 rows x 64 columns.
-__device__ __forceinline__ void inv_stage(float* Bs, const float* M, size_t ld, int rows, int cols) {
-  float v[8];
-#pragma unroll
-  for (int u = 0; u < 8; ++u) {
-    const int e = threadIdx.x + u * kInvThreads, k = e / kInvCb, c = e % kInvCb;
-    v[u] = (k < rows && c < cols) ? M[(size_t)k * ld + c] : 0.0f;
-  }
-#pragma unroll
-  for (int u = 0; u < 8; ++u) {
-    const int e = threadIdx.x + u * kInvThreads;
-    Bs[(e / kInvCb) * kInvLd + e % kInvCb] = v[u];
-  }
-}
-
-// acc[a][b] += sum_{k < 32} As[k][4 ty + a] Bs[k][4 tx + b], the chunk's 32
-// terms summed apart first (the first level of the sum).
-__device__ __forceinline__ void inv_chunk(const float* As, const float* Bs, float acc[4][4]) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float part[4][4] = {};
-#pragma unroll 8
-  for (int k = 0; k < kInvK; ++k) {
-    const float4 a = *reinterpret_cast<const float4*>(&As[k * kInvLd + 4 * ty]);
-    const float4 b = *reinterpret_cast<const float4*>(&Bs[k * kInvLd + 4 * tx]);
-    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) part[i][j] = fmaf(av[i], bv[j], part[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
 }
 
 // grid (pairs * ceil(h / 64), nb), pairs = ceil((bs - h) / 2h); dynamic

@@ -210,9 +210,10 @@ DIAG_TRI_INV = Kernel("diag_tri_inv", "gpr_diag_tri_inv", "solve.cu", "pallas_so
 # (A, lda, L, ldl, WS, s): WS the published tiles' workspace; one cluster of s / 64 CTAs
 LEAF_CHOL = Kernel("leaf_chol", "gpr_leaf_chol", "leaf.cu", "pallas_leaf.py:47",
                    [_P, _I, _P, _I, _P, _I])
-# (A, lda, L, ldl, W, ldw, s, barrier)
+# (A, lda, L, ldl, W, ldw, WS, s): K12's cluster factor, then W = L^-1 in 2 + 2 log2(s / 32)
+# kernels in stream order (WS their scratch), one launch
 LEAF_CHOL_WI = Kernel("leaf_chol_wi", "gpr_leaf_chol_wi", "leaf.cu", "pallas_leaf.py:118",
-                      [_P, _I, _P, _I, _P, _I, _I, _P])
+                      [_P, _I, _P, _I, _P, _I, _P, _I])
 # (L, ldl, W, ldw, s, barrier)
 TRI_INV_LEAF = Kernel("tri_inv_leaf", "gpr_tri_inv_leaf", "leaf.cu", "pallas_leaf.py:239",
                       [_P, _I, _P, _I, _I, _P])
@@ -224,9 +225,10 @@ PANEL_FACTOR = Kernel("panel_factor", "gpr_panel_factor", "panel.cu", "pallas_pa
 # (S, n, rows, cols, kcols, T, ks, bm, bk)
 RANK_UPDATE_TILES = Kernel("rank_update_tiles", "gpr_rank_update_tiles", "inplace.cu",
                            "inplace_chol.py:53", [_P, _I, _P, _P, _P, _I, _I, _I, _I])
-# (S, n, c0t, W): two kernels in stream order, one launch
-PANEL_INPLACE = Kernel("panel_inplace", "gpr_panel_inplace", "inplace.cu", "inplace_chol.py:135",
-                       [_P, _I, _I, _P])
+# (S, n, c0t, W, WS): K15's two kernels on the panel of S in place (the diagonal tile on a
+# cluster, the rows), one launch
+PANEL_INPLACE = Kernel("panel_inplace", "gpr_panel_inplace", "panel.cu", "inplace_chol.py:135",
+                       [_P, _I, _I, _P, _P])
 # (S, n, ti, tj, dg, T, bm)
 ZERO_UPPER = Kernel("zero_upper", "gpr_zero_upper", "inplace.cu", "inplace_chol.py:201",
                     [_P, _I, _P, _P, _P, _I, _I])

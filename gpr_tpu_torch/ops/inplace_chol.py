@@ -23,9 +23,11 @@ for an (n, w, b) are built once per device and cached there (JAX passes them
 as scalar prefetch), so the 63 K16 calls of an n = 16384 factorization copy
 nothing from the host.
 
-Each function launches its hand-written CUDA kernel (``csrc/inplace.cu``; K16
-on the 3xTF32 tensor-core tile of ``csrc/tc_tile.cuh``) for a CUDA float32
-buffer, raises for another CUDA dtype, and runs its plain torch version
+Each function launches its hand-written CUDA kernel (``csrc/inplace.cu``: K16
+on the 3xTF32 tensor-core tile of ``csrc/tc_tile.cuh``, K18; ``csrc/panel.cu``:
+K17 on K15's two kernels, the diagonal tile factored and inverted on one
+8-CTA thread-block cluster, then the rows below in 32-row blocks) for a CUDA
+float32 buffer, raises for another CUDA dtype, and runs its plain torch version
 (``*_reference``: tile-list ``addmm_`` updates, ``cholesky_ex`` +
 ``solve_triangular`` for the panel, ``tril_``) for a CPU tensor.  Contracts,
 as JAX's: only the lower triangle of A is read (NaN or junk above it leaves
@@ -41,7 +43,7 @@ import numpy as np
 import torch
 
 from . import _cuda
-from .panel import TILE
+from .panel import TILE, WORKSPACE
 
 WIDE = 512  # the trailing update's tile and zero_upper's (inplace_chol.py: st)
 
@@ -132,6 +134,20 @@ def panel_inplace_reference(S: torch.Tensor, c0t: int, *, b: int = TILE) -> torc
     return S
 
 
+def _panel_scratch(device: torch.device) -> torch.Tensor:
+    """K17's scratch: W^T of the diagonal tile (TILE x TILE), then the
+    diagonal kernel's workspace (csrc/panel.cu, as K15's)."""
+    return torch.empty(TILE * TILE + WORKSPACE, dtype=torch.float32, device=device)
+
+
+def _panel_inplace(S: torch.Tensor, c0t: int, scratch: torch.Tensor) -> None:
+    """K17 on the card on a checked buffer, with a scratch from :func:`_panel_scratch`."""
+    if S.data_ptr() % 16:  # the rows kernel stores float4s
+        raise ValueError("panel_inplace: the kernel needs S 16-byte aligned")
+    _cuda.PANEL_INPLACE.launch(S.device, S.data_ptr(), S.shape[0], int(c0t), scratch.data_ptr(),
+                               scratch.data_ptr() + 4 * TILE * TILE)
+
+
 def panel_inplace(S: torch.Tensor, c0t: int, *, b: int = TILE, sw: int = 8) -> torch.Tensor:
     """K17: factor the column panel at tile column ``c0t`` in place; returns
     S.  The diagonal (b, b) tile is factored from its lower triangle (its
@@ -146,8 +162,7 @@ def panel_inplace(S: torch.Tensor, c0t: int, *, b: int = TILE, sw: int = 8) -> t
         return panel_inplace_reference(S, c0t, b=b)
     if b != TILE:
         raise ValueError(f"panel_inplace: the kernel takes b = {TILE}, got {b}")
-    W = torch.empty((b, b), dtype=torch.float32, device=S.device)
-    _cuda.PANEL_INPLACE.launch(S.device, S.data_ptr(), n, int(c0t), W.data_ptr())
+    _panel_inplace(S, c0t, _panel_scratch(S.device))
     return S
 
 
@@ -226,9 +241,17 @@ def cholesky_inplace(A: torch.Tensor, *, w: int = WIDE, b: int = TILE) -> torch.
             "and w a multiple of 512 when w > 512"
         )
     S = A.clone(memory_format=torch.contiguous_format)
+    _check_buffer("cholesky_inplace", S)
+    if S.device.type == "cuda" and b != TILE:
+        raise ValueError(f"cholesky_inplace: the kernel takes b = {TILE}, got {b}")
+    # one K17 scratch for the factorization's n / b panels
+    scratch = _panel_scratch(S.device) if S.device.type == "cuda" else None
     for step in schedule(n, w, b, S.device):
         if step[0] == "panel":
-            panel_inplace(S, step[1], b=b)
+            if scratch is None:
+                panel_inplace_reference(S, step[1], b=b)
+            else:
+                _panel_inplace(S, step[1], scratch)
         else:
             _, rows, cols, kcols, bm = step
             _rank_update_tiles(S, rows, cols, kcols, bm, bm)

@@ -15,9 +15,11 @@ version (``*_reference``) for a CPU tensor of any dtype, as JAX runs its
 kernels in interpret mode on the CPU.  K12 holds the leaf in the shared
 memory of one thread-block cluster of n / 64 CTAs (16 at n = 1024, a
 non-portable size; :func:`max_active_clusters` asks the card how many it
-places) and walks 32-wide diagonal blocks; K13 and K14 walk 64-wide diagonal
-blocks on a cooperative grid.  The plain versions walk 64-wide diagonal
-blocks: the diagonal block by ``torch.linalg.cholesky_ex`` (NaN where it
+places) and walks 32-wide diagonal blocks; K13 is K12's factor, then W by
+blocks over the whole card (the 64-wide diagonal blocks a CTA each, then a
+doubling level a kernel pair); K14 walks 64-wide diagonal blocks on a
+cooperative grid.  The plain versions walk 64-wide diagonal blocks: the
+diagonal block by ``torch.linalg.cholesky_ex`` (NaN where it
 fails) and its inverse by a triangular solve, the column solve and trailing
 update by products, and W by K13's block doubling
 (``_inverse_from_blocks``).
@@ -36,7 +38,7 @@ import torch
 
 from . import _cuda
 
-BLOCK = 64  # csrc/leaf.cuh: kLeafBlock, K13's and K14's diagonal block and the plain versions'
+BLOCK = 64  # csrc/leaf.cuh: kLeafBlock, K14's diagonal block and the plain versions'
 ALIGN = 256  # the JAX package's shape gate: its 256-wide diagonal block
 MAX_N = 1024  # the largest leaf (JAX: the whole leaf in VMEM)
 CLUSTER_BLOCK = 32  # csrc/chol.cuh: kCholNb, K12's diagonal block
@@ -135,12 +137,8 @@ def leaf_cholesky(A: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.
         return L if out is None else out.copy_(L)
     _kernel_dtype("leaf_cholesky", A)
     out = _new(A) if out is None else out
-    # the published tiles of every panel (nt x nt slots of 32 x 32) and scales
-    nt = n // CLUSTER_BLOCK
-    ws = torch.empty(nt * (nt * CLUSTER_BLOCK * CLUSTER_BLOCK + CLUSTER_BLOCK), dtype=torch.float32,
-                     device=A.device)
     _cuda.LEAF_CHOL.launch(A.device, A.data_ptr(), A.stride(0), out.data_ptr(), out.stride(0),
-                           ws.data_ptr(), n)
+                           _workspace(A).data_ptr(), n)
     return out
 
 
@@ -164,9 +162,9 @@ def leaf_cholesky_wi(A: torch.Tensor, out: Optional[torch.Tensor] = None):
         return (L if out is None else out.copy_(L)), W
     _kernel_dtype("leaf_cholesky_wi", A)
     out = _new(A) if out is None else out
-    W, bar = _new(A), _barrier(A)
+    W = _new(A)
     _cuda.LEAF_CHOL_WI.launch(A.device, A.data_ptr(), A.stride(0), out.data_ptr(), out.stride(0),
-                              W.data_ptr(), W.stride(0), n, bar.data_ptr())
+                              W.data_ptr(), W.stride(0), _workspace(A).data_ptr(), n)
     return out, W
 
 
@@ -187,8 +185,16 @@ def _new(A):
     return torch.empty(A.shape, dtype=torch.float32, device=A.device)
 
 
+def _workspace(A):
+    # K12's published tiles of every panel (nt x nt slots of 32 x 32) and their
+    # scales; K13's inverse takes it as scratch after the factor
+    nt = A.shape[0] // CLUSTER_BLOCK
+    return torch.empty(nt * (nt * CLUSTER_BLOCK * CLUSTER_BLOCK + CLUSTER_BLOCK), dtype=torch.float32,
+                       device=A.device)
+
+
 def _barrier(A):
-    # K13's and K14's grid barrier: an arrival count and a generation, zero at launch
+    # K14's grid barrier: an arrival count and a generation, zero at launch
     return torch.zeros(2, dtype=torch.int32, device=A.device)
 
 

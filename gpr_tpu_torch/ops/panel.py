@@ -6,7 +6,7 @@ Mirrors gpr_tpu/ops/pallas_panel.py: ``panel_factor`` (163; kernel
 ``cholesky_panels`` (190) and ``cholesky_left_panels`` (220).  As in JAX the
 schedules are not dispatched by the factorization routes: tests and
 benchmarks reach them.  The in-place schedule (ops/inplace_chol.py, K17) runs
-the same diagonal-tile device code (``csrc/panel.cuh``).
+the same two kernels' device code on its panels in place (``csrc/panel.cu``).
 
 :func:`panel_factor` launches the hand-written CUDA kernel ``csrc/panel.cu``
 for a CUDA float32 panel, raises for another CUDA dtype or a tile other than
@@ -25,7 +25,7 @@ import torch
 
 from . import _cuda
 
-TILE = 256  # csrc/panel.cuh: kPanel, the kernel's panel width
+TILE = 256  # csrc/panel.cu: kPanel, the kernel's panel width
 # csrc/panel.cu's workspace: the factor's 7 published panels (32 x 480 each,
 # chol.cuh's slots) and the 8 diagonal blocks' inverses (32 x 32)
 WORKSPACE = 7 * 32 * 480 + 8 * 32 * 32

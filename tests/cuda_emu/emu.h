@@ -9,7 +9,7 @@
 // shared memory, and the cluster barrier (gpr::cluster_arrive / wait) in
 // phases, as csrc/cluster.cuh declares them; its cp.async copies at once.
 // Any cluster size places (cudaOccupancyMaxActiveClusters answers 1).  A
-// cooperative launch (leaf.cu's K13 and K14) compiles but is refused.  A fiber
+// cooperative launch (leaf.cu's K14) compiles but is refused.  A fiber
 // that waits at a barrier is not switched to until the barrier moves.  It
 // checks a kernel's index arithmetic, synchronisation and rounding, never its
 // speed.
@@ -149,7 +149,7 @@ inline cudaError_t cudaOccupancyMaxActiveClusters(int* out, F, const cudaLaunchC
   *out = 1;
   return cudaSuccess;
 }
-// leaf.cu's cooperative launch (K13, K14) compiles; the shim does not run it
+// leaf.cu's cooperative launch (K14) compiles; the shim does not run it
 inline cudaError_t cudaGetDevice(int* d) {
   *d = 0;
   return cudaSuccess;

@@ -26,11 +26,13 @@ float32, in other orders), K11's inverse 1e-4 relative and W L = I to 1e-4;
 the narrow solve is held to a float64 solve at JAX's own 5e-6 relative
 (tests/test_ops.py:621-773) times 4 for the card's other summation order.
 K12-K14's factor and inverse get 1e-5 relative against their plain versions
-(K13 and K14 the same 64-block algorithm, K12 32-wide blocks; float32 sums in
-other orders) and |W L - I| < 1e-4, as tests/test_ops.py:457-499 holds JAX's
-leaf kernels; K12 and K15 are bit-equal from call to call.  K15 and K17
-(a panel factored by 64-blocks and products with W, against cholesky_ex and
-a triangular solve) and the in-place factorization get 1e-5 relative; K16's
+(K14 the same 64-block algorithm, K12 and K13 32-wide blocks and K13's W by
+64-wide blocks and 64x64 products; float32 sums in other orders) and
+|W L - I| < 1e-4, as tests/test_ops.py:457-499 holds JAX's leaf kernels;
+K12 and K15 are bit-equal from call to call, and K13's factor is K12's.  K15
+and K17 (a panel factored by 32-blocks and products with W, against
+cholesky_ex and a triangular solve) and the in-place factorization get 1e-5
+relative; K16's
 tiles 1e-5 of the largest entry (K5's bound; two calls bit-identical); K18
 is bit-exact.  K19 and K20
 get 1e-5 of the largest entry against their plain versions (the gate
@@ -856,6 +858,7 @@ def test_leaf_kernels(dev, n):
     eye = torch.eye(n, device=dev)
     for M, R in ((L, Lr), (Lw, Lr), (W, Wr), (Wt, leaf.tri_inv_leaf_reference(Lw))):
         assert bool(torch.all(torch.triu(M, 1) == 0)) and _relerr(M, R) <= 1e-5
+    assert torch.equal(Lw, L)  # K13's factor is K12's kernel
     assert float((W @ Lw - eye).abs().max()) < 1e-4 and float((Wt @ Lw - eye).abs().max()) < 1e-4
     assert bool(torch.isnan(buf[:32]).all())  # the out-of-place calls leave the input alone
     assert torch.equal(leaf.leaf_cholesky(view), L)  # fixed sum order: two calls bit-equal
@@ -1013,6 +1016,29 @@ def test_panel_inplace_kernel(dev, c0t):
     mask = torch.ones_like(S, dtype=torch.bool)
     mask[panel_] = False
     assert torch.equal(S[mask], A[mask])  # only the panel is rewritten
+
+
+@pytest.mark.parametrize("c0t", [0, 7, 15])
+def test_panel_inplace_kernel_junk_and_failed_pivot(dev, c0t):
+    # K17 on the n = 4096 schedule's first, a middle and its last panel: junk
+    # (NaN, 1234.0) above the diagonal tile leaves S bit-identical, a second
+    # call is bit-equal, and a failed pivot in the tile reaches its last
+    # pivot and every row below
+    n, e = 4096, (c0t + 1) * 256
+    A = _spd_f32(n, dev, seed=40 + c0t)
+    R = inplace_chol.panel_inplace_reference(A.clone(), c0t)
+    outs = []
+    for junk in (float("nan"), 1234.0, float("nan")):
+        S = A.clone()
+        S[c0t * 256:e, c0t * 256:e] += torch.triu(torch.full((256, 256), junk, device=dev), 1)
+        outs.append(inplace_chol.panel_inplace(S, c0t))
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    panel_ = (slice(c0t * 256, None), slice(c0t * 256, e))
+    assert _relerr(outs[0][panel_], R[panel_]) <= 1e-5
+    bad = A.clone()
+    bad[c0t * 256 + 100, c0t * 256 + 100] = -1.0
+    inplace_chol.panel_inplace(bad, c0t)
+    assert bool(torch.isnan(bad[e - 1, e - 1])) and not bool(torch.isfinite(bad[e:, c0t * 256:e]).all(dim=1).any())
 
 
 def test_zero_upper_kernel(dev):

@@ -1,4 +1,5 @@
-"""K12 leaf_chol's CUDA source (gpr_tpu_torch/csrc/leaf.cu) run on the CPU:
+"""K12 leaf_chol's and K13 leaf_chol_wi's CUDA source (gpr_tpu_torch/csrc/
+leaf.cu, with tri_inv.cuh) run on the CPU:
 compiled by the host's g++ against tests/cuda_emu/emu.h, a shim that runs
 every thread as a fiber and the CTAs of the kernel's thread-block cluster
 together (s / 64 of them: 4 at s = 256, 8 at 512), each with its own shared
@@ -17,6 +18,18 @@ an exact-zero strict upper.  NaN above the diagonal leaves the factor
 bit-identical (only the lower triangle is read), the factor in place over a
 strided A is the same factor, and a failed pivot poisons its row, every
 later one and L[-1, -1].
+
+K13 (K12's cluster factor, then W = L^-1 in the inverse's kernels: 32-wide
+diagonal blocks, then one pair of product kernels a doubling level) at the
+same s: L bit-identical to K12's (the same kernel), W L - I within 1e-4 in
+the max norm (as tests/test_ops.py:457-499 holds JAX's kernel) and W within
+1e-5 of the largest entry of the port's plain W and JAX's
+leaf_cholesky_wi(interpret=True) (float32 sums in other orders: the kernel
+by 32-wide blocks and 64x64 product tiles, the plain version by 64-wide
+blocks, JAX's by 256-wide ones), L against JAX's at K12's 1e-5; exact-zero
+strict uppers; NaN above the diagonal leaves L and W bit-identical; in place
+over a strided buffer the same L and W; a failed pivot gives NaN at
+L[-1, -1] and a non-finite W, as JAX's kernel does.
 """
 
 import subprocess
@@ -37,19 +50,20 @@ def leaf_binary(tmp_path_factory):
     return build(tmp_path_factory.mktemp("leaf"), "leaf.cu", "leaf_main.cpp")
 
 
-def _run(exe, A, lda=None, inplace=False):
-    """K12 of the (s, s) leaf A, placed in an (s, lda) buffer whose other
-    entries are NaN."""
+def _run(exe, A, lda=None, inplace=False, wi=False):
+    """K12 (with wi, K13: L and W) of the (s, s) leaf A, placed in an (s,
+    lda) buffer whose other entries are NaN."""
     s = A.shape[0]
     lda = lda or s
     buf = np.full((s, lda), np.nan, np.float32)
     buf[:, :s] = A
     d = exe.parent
     buf.tofile(d / "A.bin")
-    r = subprocess.run([str(exe), str(s), str(lda), str(int(inplace)), str(d / "A.bin"), str(d / "L.bin")],
-                       check=True, capture_output=True, text=True)
+    args = [str(exe), str(s), str(lda), str(int(inplace)), str(d / "A.bin"), str(d / "L.bin")]
+    r = subprocess.run(args + ([str(d / "W.bin")] if wi else []), check=True, capture_output=True, text=True)
     assert r.stdout.split() == ["clusters", "1"]  # the shim places any cluster
-    return np.fromfile(d / "L.bin", np.float32).reshape(s, s)
+    L = np.fromfile(d / "L.bin", np.float32).reshape(s, s)
+    return (L, np.fromfile(d / "W.bin", np.float32).reshape(s, s)) if wi else L
 
 
 def _spd(n, seed):
@@ -100,3 +114,38 @@ def test_leaf_source_failed_pivot(leaf_binary, s, where):
     e = where // leaf.BLOCK * leaf.BLOCK  # the plain version's 64-block fails whole
     if e:
         assert _rel(L[:e], leaf.leaf_cholesky_reference(torch.tensor(A)).numpy()[:e]) <= 1e-5
+
+
+@pytest.mark.parametrize("s", [256, 512])
+def test_leaf_wi_source_matches_plain_and_jax(leaf_binary, s):
+    A = _spd(s, seed=s + 2)
+    L, W = _run(leaf_binary, A, wi=True)
+    assert np.array_equal(L, _run(leaf_binary, A))  # K13's factor is K12's kernel
+    assert np.all(np.triu(L, 1) == 0) and np.all(np.triu(W, 1) == 0)
+    assert np.abs(W.astype(np.float64) @ L - np.eye(s)).max() < 1e-4
+    Lr, Wr = leaf.leaf_cholesky_wi_reference(torch.tensor(A))
+    assert _rel(L, Lr.numpy()) <= 1e-5 and _rel(W, Wr.numpy()) <= 1e-5
+    Lj, Wj = (np.asarray(M) for M in jleaf.leaf_cholesky_wi(jnp.asarray(_nan_upper(A)), interpret=True))
+    assert _rel(L, Lj) <= 1e-5 and _rel(W, Wj) <= 1e-5
+    Ln, Wn = _run(leaf_binary, _nan_upper(A), wi=True)  # the upper triangle is never read
+    assert np.array_equal(Ln, L) and np.array_equal(Wn, W)
+
+
+@pytest.mark.parametrize("s,lda", [(256, 300), (512, 520)])
+def test_leaf_wi_source_strided_and_in_place(leaf_binary, s, lda):
+    A = _nan_upper(_spd(s, seed=s + 3))
+    L, W = _run(leaf_binary, A, wi=True)
+    for inplace in (False, True):
+        Ls, Ws = _run(leaf_binary, A, lda=lda, inplace=inplace, wi=True)
+        assert np.array_equal(Ls, L) and np.array_equal(Ws, W)
+
+
+@pytest.mark.parametrize("s,where", [(256, 100), (512, 31), (512, 511)])
+def test_leaf_wi_source_failed_pivot(leaf_binary, s, where):
+    A = _spd(s, seed=10)
+    A[where, where] = -1.0
+    L, W = _run(leaf_binary, A, wi=True)
+    assert np.isnan(L[-1, -1]) and not np.isfinite(W).all()
+    assert np.all(np.triu(L, 1) == 0) and np.all(np.triu(W, 1) == 0)
+    Lj, Wj = jleaf.leaf_cholesky_wi(jnp.asarray(A), interpret=True)
+    assert np.isnan(np.asarray(Lj)[-1, -1]) and not np.isfinite(np.asarray(Wj)).all()  # JAX's kernel too

@@ -6,7 +6,7 @@ cluster barrier in phases and cp.async as plain copies, so that the diagonal
 tile's factor and inverse on the cluster, the rows kernel's staging ring, the
 strided panel and the float32 rounding are exercised where no CUDA compiler
 exists.  It says nothing of speed.  Also: the sources that share chol.cuh
-link into one library.
+and tri_inv.cuh link into one library.
 
 The same numpy inputs (seeded) go through the emulated kernel, the port's
 plain version and JAX's panel_factor in interpret mode.  Tolerances: 1e-5 of
@@ -82,12 +82,13 @@ def test_panel_source_strided(panel_binary):
 
 def test_sources_sharing_chol_cuh_link_together(tmp_path):
     # chol.cuh's functions are inline: chol.cu, leaf.cu and panel.cu include
-    # it and go into one library
+    # it and go into one library; so do tri_inv.cuh's, which leaf.cu and
+    # solve.cu include
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs a host C++ compiler (g++)")
     objs = []
-    for src in ("chol.cu", "leaf.cu", "panel.cu"):
+    for src in ("chol.cu", "leaf.cu", "panel.cu", "solve.cu"):
         host = tmp_path / (src[:-3] + "_host.cpp")
         host.write_text(host_source((CSRC / src).read_text()))
         objs.append(tmp_path / (src[:-3] + ".o"))
