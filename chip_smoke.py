@@ -449,7 +449,7 @@ def main() -> int:
     # K7: odd and even tiles with NaN above the diagonal (lower-only read) and
     # one member that is not positive definite; then the first diagonal
     # block of the full-width fleet factorization
-    for b in (32, 64, 33, 128):
+    for b in (1, 17, 32, 64, 33, 96, 128):
         G7 = torch.tensor(g6.standard_normal((6, b, b)), device=dev)
         A7 = (G7 @ G7.mT + b * torch.eye(b, device=dev, dtype=G7.dtype)).float()
         A7[4, b // 3, b // 3] = -1.0
@@ -470,7 +470,7 @@ def main() -> int:
     check(kstats["crout_chol"]["max_abs_err"] <= 1e-5, "K7 at the fleet's first diagonal block")
     del D7, L7
     torch.cuda.synchronize()
-    print(f"phase 1f K7 crout_chol: b=32, 64, 33, 128 with NaN upper and one non-SPD member ok; "
+    print(f"phase 1f K7 crout_chol: b=1, 17, 32, 64, 33, 96, 128 with NaN upper and one non-SPD member ok; "
           f"B={Bf} b={fbatched.PANEL}: max abs err {kstats['crout_chol']['max_abs_err']:.3g}")
 
     # K8: the tiles of 1f, with NaN above the diagonal and one member that is
@@ -1218,8 +1218,10 @@ def main() -> int:
         plain_ms=median_ms(lambda: gop.gram_batched_reference(Xf, Pf)),
         library_ms=None,  # no single torch call builds a kernel's Gram matrix
     )
-    # K7 per fleet fit: each panel step's launch timed alone, with the kernel,
-    # its plain version and torch.linalg.cholesky_ex on the same tiles in turn
+    # K7 per fleet fit: each panel step's launch timed alone, queued behind a
+    # device sleep (the kernel is shorter than the host's enqueue), with the
+    # kernel, its plain version and torch.linalg.cholesky_ex on the same tiles
+    # in turn
     Kfit = gop.gram_batched(Xf, Pf)
 
     def crout_total(diag):
@@ -1228,7 +1230,7 @@ def main() -> int:
 
         def timed_diag(D, out):
             box = []
-            tot[0] += timed(lambda: box.append(diag(D)))
+            tot[0] += timed(lambda: box.append(diag(D)), queued=True)
             return box[0] if box[0] is out else out.copy_(box[0])
 
         fbatched.crout_chol = timed_diag
@@ -1599,8 +1601,8 @@ def main() -> int:
         c_ = _cuda.launch_counts()
         check(gp_.route == "fused-matrix" and tlin.solve_route(gp_.L, gp_.Y) == "narrow"
               and tlin.solve_route(gp_.L, Xt[:128].T) == "narrow", "narrow fit routes")
-        # alpha and the interval's solve (q = 128): 2 nb K10 launches and one K11 each
-        check(c_["narrow_subst"] == 2 * 2 * nb16 and c_["diag_tri_inv"] == 2
+        # alpha and the interval's solve (q = 128): 2 K10 launches (one a sweep) and one K11 each
+        check(c_["narrow_subst"] == 2 * 2 and c_["diag_tri_inv"] == 2
               and c_["panel_update"] > 0, f"narrow fit launches {c_}")
         print(f"  launches on the narrow fit path: {c_}")
         judge("narrow bench fit", gp_, Xb, Yb, Xt[:128], bench64, 1.0, sig, with_alpha=True)
@@ -1612,7 +1614,7 @@ def main() -> int:
         torch.cuda.synchronize()
         c_ = _cuda.launch_counts()
         # alpha forward and its backward's solve
-        check(c_["narrow_subst"] == 2 * 2 * nb16 and c_["diag_tri_inv"] == 2, f"narrow MLL launches {c_}")
+        check(c_["narrow_subst"] == 2 * 2 and c_["diag_tri_inv"] == 2, f"narrow MLL launches {c_}")
         print(f"  launches on the narrow MLL path: {c_}")
         hold_mll("narrow MLL n=16384", [8.0, 1.0], Xb, Yb, v_, g_, sig)
         return c_
@@ -1649,8 +1651,8 @@ def main() -> int:
         c_ = _cuda.launch_counts()
         check(gw.route == "fused-matrix" and tlin.solve_route(ge.L, ge.Y) == "narrow"
               and tlin.solve_route(gs.L, gs.Y) == "narrow", "window routes")
-        # alpha at 4096, 4608 and 4096, and the interval's solve
-        check(c_["narrow_subst"] == 2 * (8 + 9 + 8 + 8) and c_["diag_tri_inv"] == 4, f"window launches {c_}")
+        # alpha at 4096, 4608 and 4096, and the interval's solve: one K10 launch a sweep
+        check(c_["narrow_subst"] == 2 * 4 and c_["diag_tri_inv"] == 4, f"window launches {c_}")
         print(f"  launches on the window path: {c_}")
         win = {"fit n=4096": judge("window fit n=4096", gw, Xw[:nw], Yw[:nw], Xs16, k16, 1.0, sig, True),
                "extend to 4608": judge("extended n=4608", ge, Xw, Yw, Xs16, k16, 1.0, sig, True),
@@ -1690,11 +1692,16 @@ def main() -> int:
         "kernel": lambda: nsolve.subst_pass(Ljr16, W16, nsolve.subst_pass(Ljr16, W16, B8, True), False),
         "plain": lambda: nsolve.subst_pass_reference(Lr16, W16, nsolve.subst_pass_reference(Lr16, W16, B8, True), False),
         "library": lambda: torch.cholesky_solve(B8, L16),
+        "library: two solve_triangular on the row-major factor": lambda: torch.linalg.solve_triangular(
+            Lr16.T, torch.linalg.solve_triangular(Lr16, B8, upper=False), upper=True),
         "cho_solve_panels": lambda: fullchol.cho_solve_panels(L16, W128, B8),
         "narrow solve (K11 + K10)": lambda: nsolve.cho_solve_narrow(Ljr16, B8, diag_inv="pallas"),
         "narrow solve on the column-major factor": lambda: nsolve.cho_solve_narrow(Lj16, B8, diag_inv="pallas")}, 6)
+    # library_ms: torch.cholesky_solve on its own column-major factor;
+    # library_trsm_ms: two torch.linalg.solve_triangular on the row-major one
     kstats["narrow_subst"].update(ms=k10["kernel"][0], plain_ms=k10["plain"][0],
-                                  library_ms=k10["library"][0])
+                                  library_ms=k10["library"][0],
+                                  library_trsm_ms=k10["library: two solve_triangular on the row-major factor"][0])
     k11 = rotate({"kernel": lambda: nsolve.diag_tri_inv(Ljr16, 512),
                   "plain": lambda: nsolve.diag_tri_inv_reference(Lr16, 512),
                   "library": lambda: nsolve.diag_block_inverses(L16, 512, "xla")}, 6)
@@ -1721,7 +1728,7 @@ def main() -> int:
                         "default": lambda: with_env({"GPR_SOLVE_SCHEDULE": "blocked"},
                                                     lambda: lk.mll_value_and_grad(bench_k, Xb, Yb, 0.1))}, 4)
     print(f"phase 17 narrow-solve timings ({smi}), CUDA events, medians:")
-    print(f"  per solve at n=16384 q=8 (K10: {2 * nb16} launches): " + "; ".join(
+    print(f"  per solve at n=16384 q=8 (K10: 2 launches, one a sweep): " + "; ".join(
         f"{k} {m:.4f} ms (runs {runs_text(r)})" for k, (m, r) in k10.items())
         + f"; bound {kstats['narrow_subst']['bound_ms']:.4f} ms ({kstats['narrow_subst']['bound_by']})")
     print(f"  K11 per call at n=16384 bs=512 (32 tiles; blocked: 1 + 4 kernels): " + "; ".join(

@@ -1,8 +1,9 @@
 // The Cholesky-Crout sweep of one small SPD tile in shared memory, and the
-// inverse of its factor: the one copy of both, shared by K7 crout_chol and
-// K8 crout_chol_wi (crout.cu) and K9 fleet_fused (fleet.cu), as the JAX
-// package keeps one _crout_sweep (gpr_tpu/ops/pallas_batched.py:47-196) for
-// its three fleet kernels.
+// inverse of its factor: the one copy of both, shared by K8 crout_chol_wi
+// (crout.cu) and K9 fleet_fused (fleet.cu), as the JAX package keeps one
+// _crout_sweep (gpr_tpu/ops/pallas_batched.py:47-196) for its three fleet
+// kernels.  K7 crout_chol (crout.cu) no longer runs it: it factors by 32-wide
+// blocks on chol.cuh's warp pieces.
 //
 // Every function here is called by all kCroutThreads threads of a block;
 // all but store_lower end with a barrier.  A tile is b x b, 1 <= b <= 128, row stride ld (odd,

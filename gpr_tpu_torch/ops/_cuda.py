@@ -200,9 +200,9 @@ CROUT_CHOL_WI = Kernel("crout_chol_wi", "gpr_crout_chol_wi", "crout.cu", "pallas
 # (A, L, Y, X, W, B, n, panel, q)
 FLEET_FUSED = Kernel("fleet_fused", "gpr_fleet_fused", "fleet.cu", "pallas_batched.py:560",
                      [_P, _P, _P, _P, _P, _I, _I, _I, _I])
-# (L, W, src, out, P, R, tickets, n, q, bs, i, forward): one block row of a sweep
+# (L, W, src, out, P, R, flags, n, q, bs, forward): one whole sweep, one persistent kernel
 NARROW_SUBST = Kernel("narrow_subst", "gpr_narrow_subst", "solve.cu", "pallas_solve.py:52",
-                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I])
+                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I])
 # (L, ld, W, nb, bs)
 DIAG_TRI_INV = Kernel("diag_tri_inv", "gpr_diag_tri_inv", "solve.cu", "pallas_solve.py:173",
                       [_P, _I, _P, _I, _I])

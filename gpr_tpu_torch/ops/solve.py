@@ -16,7 +16,7 @@ Mirrors gpr_tpu/ops/pallas_solve.py:161-347 (``_diag_block_inverses``,
 2. the forward substitution  y_i = W_ii (b_i - sum_{j<i} L_ij y_j),
 3. the backward substitution x_i = W_ii^T (y_i - sum_{j>i} L_ji^T x_j),
    each a sweep of kernel K10 narrow_subst (:func:`subst_pass`), one counted
-   launch per block row.
+   launch per sweep.
 
 Only the lower triangle of L is read.  On a CUDA tensor each step launches its
 kernel (csrc/solve.cu); on a CPU tensor it runs its plain torch version
@@ -134,8 +134,12 @@ def subst_pass_reference(L: torch.Tensor, W: torch.Tensor, B: torch.Tensor,
 def subst_pass(L: torch.Tensor, W: torch.Tensor, B: torch.Tensor, forward: bool) -> torch.Tensor:
     """K10: one sweep of the block substitution with the diagonal-tile
     inverses W (nb, bs, bs) over B (n, q): forward gives y = L^-1 B, backward
-    x = L^-T B.  One counted launch per block row.  A CPU tensor runs
-    :func:`subst_pass_reference`."""
+    x = L^-T B.  One counted launch per sweep, as JAX's one ``pallas_call``:
+    on the card a persistent kernel whose CTAs take the sweep's work items
+    (128-column partial products, their sums, then each block row's W step
+    by 128-column chunks) in order from a ticket counter and wait on per-row
+    flags in device memory, which this wrapper allocates zeroed with the
+    kernel's scratch.  A CPU tensor runs :func:`subst_pass_reference`."""
     n = _check_square(L, "subst_pass")
     nb, bs, _ = W.shape
     if W.shape != (nb, bs, bs) or nb * bs != n or B.ndim != 2 or B.shape[0] != n:
@@ -143,18 +147,23 @@ def subst_pass(L: torch.Tensor, W: torch.Tensor, B: torch.Tensor, forward: bool)
                          f"B {tuple(B.shape)}")
     if L.device.type == "cpu":
         return subst_pass_reference(L, W, B, forward)
-    if bs % CHUNK:
-        raise ValueError(f"subst_pass: bs={bs} must be a multiple of {CHUNK} on the card")
+    if bs % CHUNK or bs > 8 * CHUNK:
+        raise ValueError(f"subst_pass: bs={bs} must be a multiple of {CHUNK} up to {8 * CHUNK} on the card")
     q = B.shape[1]
     L, W, B = L.contiguous(), W.contiguous(), B.contiguous()
     out = torch.empty_like(B)
-    P = torch.empty((max(n - bs, CHUNK) // CHUNK, bs, q), dtype=B.dtype, device=B.device)
-    R = torch.empty((bs, q), dtype=B.dtype, device=B.device)
-    tickets = torch.zeros((bs // 64) * (-(-q // 8)), dtype=torch.int32, device=B.device)
-    for i in (range(nb) if forward else range(nb - 1, -1, -1)):
-        _cuda.NARROW_SUBST.launch(L.device, L.data_ptr(), W.data_ptr(), B.data_ptr(),
-                                  out.data_ptr(), P.data_ptr(), R.data_ptr(), tickets.data_ptr(),
-                                  n, q, bs, i, int(forward))
+    # two sets of partial slots (alternate block rows), then the diagonal
+    # step's chunk products (bs / 128, n, q); r_i of every block row; the
+    # flags per (block row, 64-row group, column group of 8 or 16): finished
+    # older and newest partials, the older ones' sum, r, finished diagonal
+    # chunks, rows solved; then the ticket
+    chunks = bs // CHUNK
+    P = torch.empty((2 * max(nb - 1, 1) * chunks * bs + chunks * n) * q, dtype=B.dtype, device=B.device)
+    R = torch.empty_like(B)
+    zq = -(-q // (8 if q <= 8 else 16))
+    flags = torch.zeros(6 * nb * (bs // 64) * zq + 1, dtype=torch.int32, device=B.device)
+    _cuda.NARROW_SUBST.launch(L.device, L.data_ptr(), W.data_ptr(), B.data_ptr(), out.data_ptr(),
+                              P.data_ptr(), R.data_ptr(), flags.data_ptr(), n, q, bs, int(forward))
     return out
 
 

@@ -1,5 +1,5 @@
-// A shim of the CUDA constructs that csrc/solve.cu, chol.cu, leaf.cu and
-// panel.cu use, so that their sources compile with a host C++ compiler and
+// A shim of the CUDA constructs that csrc/solve.cu, chol.cu, crout.cu, leaf.cu
+// and panel.cu use, so that their sources compile with a host C++ compiler and
 // run on the CPU:
 // every thread is a fiber (ucontext), switched cooperatively at
 // __syncthreads, __syncwarp, __shfl_sync and the cluster barrier.  A plain
@@ -210,4 +210,13 @@ inline void cp_async16(void* dst, const void* src) { memcpy(dst, src, 16); }
 inline void cp_async_commit() {}
 template <int N>
 inline void cp_async_wait() {}
+
+// csrc/flags.cuh.  Blocks run one after another, so a wait is met when it is
+// made or never: one not met fails at once, where the card would hang.
+inline void flag_wait(const int* p, int target) {
+  if (*p < target) {
+    fprintf(stderr, "emu: flag wait never met (%d < %d)\n", *p, target);
+    abort();
+  }
+}
 }  // namespace gpr

@@ -15,13 +15,14 @@ CSRC = ROOT / "gpr_tpu_torch" / "csrc"
 
 
 def host_source(src: str, seen=None) -> str:
-    """A .cu source for the shim: its headers (the CUDA runtime, cluster.cuh)
-    as emu.h, the other headers of csrc/ inlined once each, <<<...>>>
+    """A .cu source for the shim: its headers (the CUDA runtime, cluster.cuh,
+    flags.cuh) as emu.h, the other headers of csrc/ inlined once each, <<<...>>>
     launches as emu::launch calls, the dynamic shared memory as the running
     block's buffer."""
     seen = set() if seen is None else seen
     src = src.replace("#include <cuda_runtime.h>", '#include "emu.h"')
-    src = src.replace('#include "cluster.cuh"', "// cluster.cuh: emu.h")
+    for name in ("cluster.cuh", "flags.cuh"):
+        src = src.replace(f'#include "{name}"', f"// {name}: emu.h")
 
     def header(m):
         name = m.group(1)
