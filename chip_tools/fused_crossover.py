@@ -9,7 +9,7 @@ Gaussian(2, 1), sigma 0.1, d=8, q=4, data from numpy's generator with seed
 fit_batched on both routes in turns (CUDA events, order reversed every
 round, 8 rounds after a warm-up) and prints the medians in ms and fits/s.
 Then K9 alone at each size, and one K8 launch on (B, 64, 64) tiles: a
-member's n / 64 diagonal steps (sweep and inverse) are the part of K9 that
+member's n / 64 diagonal steps (factor and inverse) are the part of K9 that
 no other member's work can hide.
 """
 

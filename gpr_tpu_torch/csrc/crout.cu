@@ -15,32 +15,22 @@
 // with W): the lower triangle read, the whole tiles written.  The pace is the
 // chain of b dependent pivots.
 //
-// K7 is a blocked right-looking factor, one CTA of 256 threads per tile, on
-// chol.cuh's warp pieces (those of K19, K12, K15 and K17).  The tile's lower
-// triangle sits in shared memory column-major, padded with the identity to
-// bp = 32 ceil(b / 32) rows and columns (column stride bp + 4: 67.7 KB at b =
-// 128, three CTAs an SM), so that every b runs the same code.  By nt = bp / 32
-// block columns k:
-//   factor   warp 0 subtracts panel k - 1's product from the diagonal block
-//            (the lookahead) and factors it in registers, a lane a row, with
-//            shuffles and no barrier per pivot (diag_factor); meanwhile the
-//            other warps subtract panel k - 1 from the other trailing lower
-//            32x32 tiles, a warp a tile, 32-term sums in registers
-//            (tile_update);
-//   solve    a thread a row solves the rows below the diagonal block
-//            (row_solve).
-// Two barriers a block column, eight at b = 128, where the first design took
-// one per pivot.  K8 keeps crout.cuh's column sweep (one barrier a pivot) and
-// forms W in a second shared tile by a column-parallel forward substitution
-// that needs no barrier (tri_inverse), 2 b (b | 1) * 4 bytes of shared memory,
-// 132 KB at b = 128.
+// One CTA of 256 threads a tile runs crout.cuh's blocked factor (a warp's
+// 32-wide diagonal block in registers with no barrier per pivot, the other
+// warps on the trailing 32x32 tiles, two barriers a block column) on the
+// tile's lower triangle, column-major in shared memory and padded with the
+// identity to bp = 32 ceil(b / 32) (column stride bp + 4: 67.7 KB at b = 128,
+// three CTAs an SM).  K8 runs the same factor on the tile with bp identity
+// rows below it, which the factor's own row solves and tile updates turn into
+// W^T on the way (column stride 2 bp + 4: 133.2 KB at b = 128, one CTA an SM;
+// 33.8 KB at b = 64).
 //
 // Contracts kept from the TPU kernels:
 //   * only A[r, c] with r >= c is read;
 //   * the strict upper triangles of L and W are written as exact zeros;
 //   * a non-positive (or NaN) pivot gives NaN through sqrtf (the scale is
 //     1.0f / sqrtf, never rsqrtf: crout.cuh), with no clamp and no early exit,
-//     in its tile only: its L[-1, -1] and W[-1, -1] are NaN.  K7's identity
+//     in its tile only: its L[-1, -1] and W[-1, -1] are NaN.  The identity
 //     padding lies after every real pivot, so it never hides a failure.
 //     Other tiles are untouched.
 // A and L may be one tensor (in place): a block reads its whole tile before
@@ -53,93 +43,29 @@
 namespace gpr {
 
 constexpr int kCroutMaxTile = 128;
-constexpr int kK7Threads = 256;
-constexpr int kK7Warps = kK7Threads / 32;
 
-// Lower 32x32 tile t, numbered row by row: (i, j), j <= i.
-__device__ __forceinline__ void k7_tile(int t, int* i, int* j) {
-  int r = 0;
-  while ((r + 1) * (r + 2) / 2 <= t) ++r;
-  *i = r;
-  *j = t - r * (r + 1) / 2;
-}
-
-// grid (B); dynamic shared memory bp (bp + 4) + 32 floats.  S[c ld + r] =
-// A[r, c] for c <= r < b, the identity beyond b, 0 above the diagonal of the
-// diagonal blocks; a warp reads 32 columns of one row of A (coalesced).
-__global__ void __launch_bounds__(kK7Threads)
-    crout_chol_kernel(const float* A, long long a_bs, int a_ld, float* L, long long l_bs, int l_ld,
-                      int b) {  // A and L may alias: no __restrict__
+// grid (B); dynamic shared memory bp (bp + 4) + 32 floats (K7), bp (2 bp + 4)
+// + 32 (K8).  A and L may alias: no __restrict__.
+__global__ void __launch_bounds__(kCroutThreads)
+    crout_chol_kernel(const float* A, long long a_bs, int a_ld, float* L, long long l_bs, int l_ld, int b) {
   extern __shared__ __align__(16) float S[];
   const int nt = (b + kCholNb - 1) / kCholNb, bp = kCholNb * nt, ld = bp + kCholPad;
-  float* rd = S + bp * ld;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* At = A + blockIdx.x * a_bs;
-  const int total = nt * (nt + 1) / 2 * kCholNb * kCholNb;
-  constexpr int kB = 8;
-  for (int base = threadIdx.x; base < total; base += kB * kK7Threads) {
-    float v[kB];
-    int at[kB];
-#pragma unroll
-    for (int u = 0; u < kB; ++u) {
-      const int idx = base + u * kK7Threads;
-      int ti, tj;
-      k7_tile(idx >> 10, &ti, &tj);
-      const int r = kCholNb * ti + ((idx >> 5) & 31), c = kCholNb * tj + (idx & 31);
-      at[u] = c * ld + r;
-      if (idx >= total) v[u] = 0.0f;
-      else if (r < b && c < b) v[u] = r >= c ? At[(size_t)r * a_ld + c] : 0.0f;
-      else v[u] = r == c ? 1.0f : 0.0f;
-    }
-#pragma unroll
-    for (int u = 0; u < kB; ++u)
-      if (base + u * kK7Threads < total) S[at[u]] = v[u];
-  }
+  crout_load(S, ld, A + blockIdx.x * a_bs, a_ld, b);
   __syncthreads();
-
-  for (int k = 0; k < nt; ++k) {
-    float* Ck = S + kCholNb * k * ld;  // block column k, indexed by the tile's row
-    float* Dk = Ck + kCholNb * k;
-    const float* Pk = Ck - kCholNb * ld;  // panel k - 1
-    if (warp == 0) {
-      if (k > 0) {
-        tile_update(Dk, ld, Pk + kCholNb * k, ld, Pk + kCholNb * k, ld, lane);
-        __syncwarp();
-      }
-      diag_factor<1>(Dk, ld, rd, lane);
-    } else if (k > 0) {
-      int t = 0;
-      for (int j = k; j < nt; ++j)
-        for (int i = j; i < nt; ++i) {
-          if (i == k && j == k) continue;
-          if (t++ % (kK7Warps - 1) == warp - 1)
-            tile_update(S + kCholNb * (j * ld + i), ld, Pk + kCholNb * i, ld, Pk + kCholNb * j, ld, lane);
-        }
-    }
-    __syncthreads();
-    for (int r = kCholNb * (k + 1) + threadIdx.x; r < bp; r += kK7Threads)
-      row_solve<1>(Ck, ld, r, Dk, ld, rd, nullptr, 0, 0);
-    __syncthreads();
-  }
-
-  float* Lt = L + blockIdx.x * l_bs;
-  for (int e = threadIdx.x; e < b * b; e += kK7Threads) {
-    const int r = e / b, c = e % b;
-    Lt[(size_t)r * l_ld + c] = c <= r ? S[c * ld + r] : 0.0f;
-  }
+  crout_factor(S, ld, nt, S + bp * ld);
+  crout_store(S, ld, L + blockIdx.x * l_bs, l_ld, b);
 }
 
 __global__ void __launch_bounds__(kCroutThreads)
-    crout_chol_wi_kernel(const float* A, long long a_bs, int a_ld, float* L, long long l_bs,
-                         int l_ld, float* W, long long w_bs, int w_ld, int b) {
-  extern __shared__ float S[];
-  const int ld = b | 1;
-  float* Ws = S + b * ld;
-  load_lower(S, ld, A + blockIdx.x * a_bs, a_ld, b);
-  crout_sweep(S, ld, b);
-  tri_inverse(S, Ws, ld, b);
-  store_lower(S, ld, L + blockIdx.x * l_bs, l_ld, b);
-  store_lower(Ws, ld, W + blockIdx.x * w_bs, w_ld, b);
+    crout_chol_wi_kernel(const float* A, long long a_bs, int a_ld, float* L, long long l_bs, int l_ld, float* W,
+                         long long w_bs, int w_ld, int b) {
+  extern __shared__ __align__(16) float S[];
+  const int nt = (b + kCholNb - 1) / kCholNb, bp = kCholNb * nt, ld = 2 * bp + kCholPad;
+  crout_load<true>(S, ld, A + blockIdx.x * a_bs, a_ld, b);
+  __syncthreads();
+  crout_factor<true>(S, ld, nt, S + bp * ld);
+  crout_store(S, ld, L + blockIdx.x * l_bs, l_ld, b);
+  crout_store_w(S, ld, bp, W + blockIdx.x * w_bs, w_ld, b);
 }
 
 }  // namespace gpr
@@ -154,7 +80,7 @@ extern "C" int gpr_crout_chol(const float* A, long long a_bs, int a_ld, float* L
   cudaError_t err = cudaFuncSetAttribute(crout_chol_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  crout_chol_kernel<<<B, kK7Threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  crout_chol_kernel<<<B, kCroutThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       A, a_bs, a_ld, L, l_bs, l_ld, b);
   return (int)cudaGetLastError();
 }
@@ -165,7 +91,8 @@ extern "C" int gpr_crout_chol_wi(const float* A, long long a_bs, int a_ld, float
                                  int B, int b, void* stream) {
   using namespace gpr;
   if (B < 1 || b < 1 || b > kCroutMaxTile) return (int)cudaErrorInvalidValue;
-  const int smem = 2 * b * (b | 1) * (int)sizeof(float);
+  const int bp = kCholNb * ((b + kCholNb - 1) / kCholNb);
+  const int smem = (bp * (2 * bp + kCholPad) + kCholNb) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(crout_chol_wi_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

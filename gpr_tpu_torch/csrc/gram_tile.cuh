@@ -72,8 +72,6 @@ __device__ __forceinline__ float gram_value(float d2, const GramParams& p) {
 
 // Stage rows [r0, r0+64) x columns [k0, k0+16) of a row-major (nrows, ncols)
 // matrix with row stride ld into dst[k][r]; out-of-range entries read as zero.
-// src is not __restrict__: K9 (fleet.cu) stages rows that its own block wrote
-// earlier in the launch, which the read-only cache path may not serve.
 __device__ __forceinline__ void stage_rows(float (*dst)[kLd], const float* src,
                                            size_t ld, int nrows, int ncols, int r0, int k0) {
   for (int e = threadIdx.x; e < kTile * kChunk; e += kThreads) {
@@ -85,9 +83,9 @@ __device__ __forceinline__ void stage_rows(float (*dst)[kLd], const float* src,
   }
 }
 
-// The lower-triangle rank-k update of syrk_tile (K9's trailing update,
-// fleet.cu) and K16 (inplace.cu), acc -= A B^T over k, summed in two levels: each staged chunk
-// goes into a partial tile `part` (rank_update_chunk), which is folded into
+// The rank-k update of K14's walk (leaf.cuh), acc -= A B^T over k, summed in
+// two levels: each staged chunk goes into a partial tile `part`
+// (rank_update_chunk), which is folded into
 // acc every kFold chunks (fold_update).  A k-term update then rounds like
 // k / (kFold kChunk) + kFold kChunk additions instead of a chain of k FMAs
 // into one running value, which is what keeps the Schur complements of a
@@ -118,43 +116,6 @@ __device__ __forceinline__ void rank_update_chunk(const TileSmem& sm, float part
     for (int i = 0; i < kPer; ++i)
 #pragma unroll
       for (int j = 0; j < kPer; ++j) part[i][j] = fmaf(-a[i], b[j], part[i][j]);
-  }
-}
-
-// One lower 64x64 tile (i, j), j <= i, of out = A22 - L21 L21^T, A22 and out
-// (m, m), L21 (m, k), each row-major with its row stride: the body of K9's
-// trailing update (fleet.cu); K16 (inplace.cu) runs the same register tile.  Stages k-slices of the
-// two row tiles of L21, sums them in two levels into the 4x4 register tile of
-// each thread, and writes the rows and columns below m; with `tril` only the
-// entries on or below the diagonal of out.  A22 is read only where out is
-// written, so out may be A22.
-__device__ __forceinline__ void syrk_tile(const float* A22, size_t lda, const float* L21,
-                                          size_t ldl, float* out, size_t ldo, int m, int k,
-                                          int i, int j, bool tril, TileSmem& sm) {
-  const int row0 = i * kTile;
-  const int col0 = j * kTile;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  float acc[kPer][kPer] = {};
-  float part[kPer][kPer] = {};
-  for (int k0 = 0, c = 1; k0 < k; k0 += kChunk, ++c) {
-    stage_rows(sm.a, L21, ldl, m, k, row0, k0);
-    stage_rows(sm.b, L21, ldl, m, k, col0, k0);
-    __syncthreads();
-    rank_update_chunk(sm, part);  // part -= L21[rows] . L21[cols]
-    __syncthreads();
-    if (c % kFold == 0) fold_update(acc, part);
-  }
-  fold_update(acc, part);
-#pragma unroll
-  for (int a = 0; a < kPer; ++a) {
-    const int r = row0 + ty * kPer + a;
-    if (r >= m) continue;
-#pragma unroll
-    for (int b = 0; b < kPer; ++b) {
-      const int c = col0 + tx * kPer + b;
-      if (c < m && (!tril || c <= r)) out[r * ldo + c] = A22[r * lda + c] + acc[a][b];
-    }
   }
 }
 

@@ -85,7 +85,7 @@
 // and one cooperative launch of a persistent grid walks it (leaf.cuh), with a
 // grid-wide barrier between dependent phases; a barrier that waits ~9 s traps
 // rather than hang the card.  It inverts the 64-wide diagonal tiles, a block
-// each (crout.cuh: tri_inverse), then doubles over the 64-tiles: at width w
+// each (leaf.cuh: tri_inverse), then doubles over the 64-tiles: at width w
 // (1, 2, 4, ...) each pair of ranges A = [a0, a0 + w), C = [a0 + w, a0 + 2w)
 // of tiles, whose inverses W_A and W_C are known, gets
 //     W_CA = -W_C (L_CA W_A)

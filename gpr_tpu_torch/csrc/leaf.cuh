@@ -10,12 +10,9 @@
 
 #include <cuda_runtime.h>
 
-#include "crout.cuh"
 #include "gram_tile.cuh"
 
 namespace gpr {
-
-static_assert(kThreads == kCroutThreads, "the sweep and the tiles share one block size");
 
 constexpr int kLeafBlock = kTile;  // 64: the diagonal block is one register tile
 constexpr int kLeafMax = 1024;
@@ -98,6 +95,42 @@ __device__ __forceinline__ void store_tile(float* out, size_t ld, const float ac
   for (int a = 0; a < kPer; ++a)
 #pragma unroll
     for (int c = 0; c < kPer; ++c) out[(size_t)(ty * kPer + a) * ld + tx * kPer + c] = sign * acc[a][c];
+}
+
+// S[r, c] = src[r, c] for c <= r; the strict upper of S is not written.
+__device__ __forceinline__ void load_lower(float* S, int ld, const float* src, size_t src_ld,
+                                           int b) {
+  for (int e = threadIdx.x; e < b * b; e += kThreads) {
+    const int r = e / b, c = e % b;
+    if (c <= r) S[r * ld + c] = src[r * src_ld + c];
+  }
+  __syncthreads();
+}
+
+// dst[r, c] = S[r, c] for c <= r and exactly 0 above the diagonal.
+__device__ __forceinline__ void store_lower(const float* S, int ld, float* dst, size_t dst_ld,
+                                            int b) {
+  for (int e = threadIdx.x; e < b * b; e += kThreads) {
+    const int r = e / b, c = e % b;
+    dst[r * dst_ld + c] = c <= r ? S[r * ld + c] : 0.0f;
+  }
+}
+
+// W = L^-1 for the factor L in the lower triangle of S, lower triangle and
+// exact-zero upper, by forward substitution: thread t < b solves L w = e_t
+// for column t of W.  The columns are independent, so this takes no barrier.
+// A NaN on L's diagonal makes the rows of W from there on NaN.
+__device__ __forceinline__ void tri_inverse(const float* S, float* W, int ld, int b) {
+  const int t = threadIdx.x;
+  if (t < b) {
+    for (int i = 0; i < t; ++i) W[i * ld + t] = 0.0f;
+    for (int i = t; i < b; ++i) {
+      float acc = i == t ? 1.0f : 0.0f;
+      for (int k = t; k < i; ++k) acc = fmaf(-S[i * ld + k], W[k * ld + t], acc);
+      W[i * ld + t] = acc / S[i * ld + i];
+    }
+  }
+  __syncthreads();
 }
 
 // W_kk = inv(tril(L_kk)), exact-zero upper (K14's diagonal tiles).

@@ -1,5 +1,5 @@
-// A shim of the CUDA constructs that csrc/solve.cu, chol.cu, crout.cu, leaf.cu
-// and panel.cu use, so that their sources compile with a host C++ compiler and
+// A shim of the CUDA constructs that csrc/solve.cu, chol.cu, crout.cu, fleet.cu,
+// leaf.cu and panel.cu use, so that their sources compile with a host C++ compiler and
 // run on the CPU:
 // every thread is a fiber (ucontext), switched cooperatively at
 // __syncthreads, __syncwarp, __shfl_sync and the cluster barrier.  A plain
@@ -191,6 +191,14 @@ inline float __shfl_sync(unsigned, float v, int src) {
   c.wbuf[w][emu::cur->tid.x % 32] = v;
   emu::warp_barrier();
   return c.wbuf[w][src];
+}
+inline float __shfl_xor_sync(unsigned, float v, int mask) {
+  emu::Cta& c = *emu::cur->cta;
+  const int w = emu::cur->tid.x / 32;
+  emu::warp_barrier();
+  c.wbuf[w][emu::cur->tid.x % 32] = v;
+  emu::warp_barrier();
+  return c.wbuf[w][(emu::cur->tid.x % 32) ^ mask];
 }
 inline void __threadfence() {}
 inline float __ldcg(const float* p) { return *p; }

@@ -18,9 +18,10 @@ likelihood through the card's factorization gets 3x the error of the same
 float32 computation on the CPU, both against float64.  K6 takes K1's
 tolerances; a K7 factor gets 1e-5 of its largest entry (the kernel pivots
 with 1.0f / sqrtf(piv) and scaled columns, the plain version with 1 / piv
-and unscaled ones).  K8's W gets 1e-4 relative (the kernel substitutes after the sweep,
-the plain version inside it); K9's factor 1e-5 and its alpha 1e-4 relative,
-against the plain version and a float64 solve.  K10's sweep gets 1e-5 of
+and unscaled ones).  K8's W gets 1e-4 relative (the kernel forms W by row
+solves beside its blocked factor, the plain version by a substitution inside
+its column sweep), at every width b = 1-128; K9's factor 1e-5, its alpha and
+W 1e-4 relative, against the plain version and a float64 solve.  K10's sweep gets 1e-5 of
 the largest entry against its plain version (both sum 128-term pieces in
 float32, in other orders), K11's inverse 1e-4 relative and W L = I to 1e-4;
 the narrow solve is held to a float64 solve at JAX's own 5e-6 relative
@@ -627,6 +628,57 @@ def test_crout_wi_kernel_in_place_on_strided_views(dev):
     assert float((Wv.double() @ ref - torch.eye(64, device=dev, dtype=torch.float64)).abs().max()) <= 1e-4
     assert torch.equal(S[:, :64], before[:, :64]) and torch.equal(S[:, 64:, :64], before[:, 64:, :64])
     assert bool((Wbuf[:, :, :8] == 7.0).all() and (Wbuf[:, :, 72:] == 7.0).all())
+
+
+def test_crout_wi_kernel_every_width_on_a_fleet_buffer(dev):
+    # K8 at every b = 1-128 on the diagonal blocks of a (B, n, n) buffer, in
+    # place (L over the blocks, W into its own strided view): junk and NaN
+    # above the diagonal never read, one failed tile whose L[-1, -1] and
+    # W[-1, -1] are NaN while the others stay bit-identical, nothing outside
+    # the blocks written
+    rng = np.random.default_rng(27)
+    B = 4
+    for b in range(1, 129):
+        n = 2 * b + 3
+        S = torch.full((B, n, n), 5.0, device=dev)
+        A = _t(_spd_batch(rng, B, b), dev)
+        S[:, b:2 * b, b:2 * b] = A + torch.triu(_t(rng.standard_normal((B, b, b)), dev), 1)
+        S[1, b:2 * b, b:2 * b][torch.triu(torch.ones((b, b), dtype=torch.bool, device=dev), 1)] = float("nan")
+        bad = S.clone()
+        bad[2, 2 * b - 1, 2 * b - 1] = -1.0
+        Wbuf = torch.full((B, b, b + 8), 7.0, device=dev)
+        L, W = crout.crout_chol_wi(S[:, b:2 * b, b:2 * b], L_out=S[:, b:2 * b, b:2 * b], W_out=Wbuf[:, :, 4:4 + b])
+        R, RW = crout.crout_chol_wi_reference(A)
+        assert _relerr(L, R) <= 1e-5 and _relerr(W, RW) <= 1e-4, b
+        assert torch.all(torch.triu(L, 1) == 0) and torch.all(torch.triu(W, 1) == 0)
+        assert torch.isfinite(L).all() and torch.isfinite(W).all()
+        assert bool((Wbuf[:, :, :4] == 7.0).all() and (Wbuf[:, :, 4 + b:] == 7.0).all())
+        mask = torch.ones((n, n), dtype=torch.bool, device=dev)
+        mask[b:2 * b, b:2 * b] = False
+        assert bool((S[:, mask] == 5.0).all())
+        Lb, Wb = crout.crout_chol_wi(bad[:, b:2 * b, b:2 * b])
+        assert torch.isnan(Lb[2, -1, -1]) and torch.isnan(Wb[2, -1, -1])
+        assert torch.equal(Lb[[0, 1, 3]], L[[0, 1, 3]]) and torch.equal(Wb[[0, 1, 3]], W[[0, 1, 3]])
+
+
+@pytest.mark.parametrize("panel,q", [(16, 1), (32, 4), (64, 9), (128, 9)])
+def test_fused_kernel_at_its_largest_n_every_panel(dev, panel, q):
+    # n = 2048 (kFusedMaxN): the shared P tiles in paired groups at panels 32,
+    # 64 and 128 (64 columns deep at a time), all resident at 16; q = 9 takes
+    # two backward passes of 8; one member fails in its last panel
+    n = fleet_ops.FUSED_MAX_N
+    g = torch.Generator(device=dev).manual_seed(28 + panel)
+    G = torch.randn((2, n, n), device=dev, generator=g)
+    A = G @ G.mT / n + torch.eye(n, device=dev)
+    A[1, n - 5, n - 5] = -1e4
+    Y = torch.randn((2, n, q), device=dev, generator=g)
+    L, X, W = fleet_ops.factor_solve_fused(A, Y, panel, return_winv=True)
+    R, RX, RW = fleet_ops.factor_solve_fused_reference(A[:1], Y[:1], panel, return_winv=True)
+    assert _relerr(L[:1], R) <= 1e-5 and _relerr(X[:1], RX) <= 1e-4 and _relerr(W[:1], RW) <= 1e-4
+    truth = torch.linalg.solve(A[:1].double(), Y[:1].double())
+    assert _relerr(X[:1].double(), truth) <= 1e-3
+    assert torch.all(torch.triu(L, 1) == 0) and torch.isfinite(L[0]).all()
+    assert torch.isnan(L[1, -1, -1]) and torch.isnan(X[1]).any()
 
 
 @pytest.mark.parametrize("n,panel,q", [(128, 64, 1), (192, 64, 4), (384, 128, 4), (256, 32, 9)])
