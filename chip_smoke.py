@@ -10,11 +10,14 @@ process per source, in parallel), then:
      K4 panel_solve, K5 syrk_update, K6 gram_batched, K7 crout_chol, K8
      crout_chol_wi, K9 fleet_fused; K10-K14 in phases 14 and 18, K15-K18 in
      21, K19-K20 in 25) against its plain torch version on the card: small
-     ragged shapes, the contracts of the fused factorization, each kernel at
+     ragged shapes (K1 also on its tensor-core path at d = 64 and 128, n =
+     200 x 150 and a lower triangle of 383 with nothing written above the
+     diagonal), the contracts of the fused factorization, each kernel at
      the shapes the n=16384 fit gives it, K5 (lower triangle, in place on
      views of row stride 16383) at a ragged shape and at the top-level
      trailing updates of n=3773 and n=16383, K6 on all 7 forms with per-member parameters at B=3, n=200,
-     d=37 and at the fleet's full width, K7 and K8 at b = 32, 64, 33 and 128
+     d=37 and at the fleet's full widths (B=128, n=512 and B=256, n=1024,
+     exactly symmetric), K7 and K8 at b = 32, 64, 33 and 128
      with NaN above the diagonal and one member that is not positive definite
      (K8 strided, in place), on the fleet's first diagonal block, and K8 on
      the fused backward's D D^T tiles; K9 at B=3, n = 128, 256, 384, q = 1
@@ -53,7 +56,10 @@ process per source, in parallel), then:
      card's idle share, the factorization's and cho_solve_panels' spans and
      busy time, and how much of each K3 launch ran under the products;
  11. times the fleet fit at both sizes and the fleet value + gradient
-     against the plain float32 route, K6 and K7 per fit against their plain
+     against the plain float32 route, K6 per fit (and at B=256, n=1024)
+     queued behind a device sleep against its plain version and the torch
+     composition (batched torch.cdist, square, scale, exp, diagonal), K7 per
+     fit against its plain
      versions (K7 also against torch.linalg.cholesky_ex on the same tiles),
      the fleet fit at panels 32, 64 and 128 (B=128, n=512) and 64 and 128
      (B=256, n=1024), and traces 5 fleet fits with torch.profiler (device
@@ -298,9 +304,31 @@ def main() -> int:
             # it into sqrt(1e-7 |x|^2)
             check(err <= (1e-2 if form == "matern12" else 3e-5), f"K1 {form} tril={tril}: {err}")
             worst = max(worst, err) if form != "matern12" else worst
+    # the tensor-core path (gaussian, rq, matern32, matern52, sqdist; matern12
+    # and periodic stay FP32) at widths a multiple of 4, ragged against the
+    # 128 tiles, |x|^2 ~ 4; in tril mode nothing above the diagonal written
+    worst_tc = 0.0
+    for d in (128, 64):
+        for n, m, tril in ((200, 150, False), (383, 383, True)):
+            X = t32(rng.standard_normal((n, d)) * (2.0 / np.sqrt(d)))
+            Y = X if tril else t32(rng.standard_normal((m, d)) * (2.0 / np.sqrt(d)))
+            for form in gop.FORMS:
+                args = (1.7, 1.2, 0.7 if form == "periodic" else 2.0, 0.37)
+                K = torch.full((n, m), 12345.0, device=dev)
+                _cuda.GRAM.launch(dev, X.data_ptr(), Y.data_ptr(), K.data_ptr(), n, m, d, gop.FORMS.index(form),
+                                  *args, int(tril))
+                R = gop.gram_reference(X, Y, *args, form=form)
+                if tril:
+                    low = torch.ones((n, m), dtype=torch.bool, device=dev).tril_()
+                    check(bool(torch.all(K[~low] == 12345.0)), f"K1 {form} d={d} tril wrote above the diagonal")
+                    K, R = K[low], R[low]
+                err = float((K - R).abs().max()) / (float(R.abs().max()) if form == "sqdist" else 1.44)
+                check(err <= (1e-2 if form == "matern12" else 3e-5), f"K1 {form} d={d} n={n} m={m}: {err}")
+                worst_tc = max(worst_tc, err) if form not in ("matern12", "periodic") else worst_tc
     torch.cuda.synchronize()
     print(f"phase 1a K1 gram_tile: 7 forms x (full, tril) at n=200 m=150 d=37 ok; "
-          f"worst smooth-form error {worst:.3g} of scale^2")
+          f"worst smooth-form error {worst:.3g} of scale^2; tensor-core path at d = 128, 64 (200 x 150, "
+          f"tril 383, nothing above the diagonal written) ok, worst error {worst_tc:.3g}")
 
     for n in (128, 384):
         B = rng.standard_normal((n, n))
@@ -442,9 +470,18 @@ def main() -> int:
     kstats["gram_batched"] = {"max_abs_err": float((Kf - gop.gram_batched_reference(Xf, Pf))
                                                    .abs().max())}
     check(kstats["gram_batched"]["max_abs_err"] <= 3e-5, "K6 at the full-width fleet shape")
+    check(bool(torch.equal(Kf, Kf.mT)), "K6 at the full-width fleet shape: not exactly symmetric")
+    # the larger fleet: B=256, n=1024 (benchmarks/bench_batched.py's data, seed 11)
+    X6 = t32(np.random.default_rng(11).standard_normal((256, 1024, df_)))
+    P6 = t32(np.tile([2.0, 1.0, 1.0, sigf * sigf], (256, 1)))
+    K = gop.gram_batched(X6, P6)
+    err6 = float((K - gop.gram_batched_reference(X6, P6)).abs().max())
+    check(err6 <= 3e-5 and bool(torch.equal(K, K.mT)), f"K6 at B=256 n=1024: {err6} or not symmetric")
+    del X6, P6, K
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     print(f"phase 1e K6 gram_batched: 7 forms at B=3 n=200 d=37 ok; B={Bf} n={nf} d={df_}: max abs "
-          f"err {kstats['gram_batched']['max_abs_err']:.3g}")
+          f"err {kstats['gram_batched']['max_abs_err']:.3g}; B=256 n=1024: {err6:.3g}; both exactly symmetric")
 
     # K7: odd and even tiles with NaN above the diagonal (lower-only read) and
     # one member that is not positive definite; then the first diagonal
@@ -974,6 +1011,19 @@ def main() -> int:
         fn()
         return float(np.median([timed(fn) for _ in range(reps)]))
 
+    def queued_ms(fn, reps=20):
+        fn()
+        return float(np.median([timed(fn, True) for _ in range(reps)]))
+
+    GRAM_LIBRARY_CALLS = 5
+
+    def gram_library(X, sigma, diag):
+        """A Gaussian Gram (scale 1) in torch: cdist, square_, mul_, exp_ and
+        the diagonal's add_, 5 calls (K1's composition; batched, K6's)."""
+        K = torch.cdist(X, X).square_().mul_(-0.5 / (sigma * sigma)).exp_()
+        K.diagonal(dim1=-2, dim2=-1).add_(diag)
+        return K
+
     # the factorization whole: the lookahead overlaps K3 and K4 with the next
     # panel's products, which per-launch events cannot see
     fact16 = [timed(lambda: fullchol.gram_cholesky_fused(Xb, *gram_args[1:], form="gaussian"))
@@ -1022,13 +1072,29 @@ def main() -> int:
     k3_hidden = [sum(max(0.0, min(b, d_) - max(a, c_)) for c_, d_ in prods) / (b - a) for a, b in k3]
     k3_exposed = sum((b - a) * (1.0 - h) for (a, b), h in zip(k3, k3_hidden)) / 1e3
 
+    # K1 queued behind a device sleep and with the host's enqueue, at n=384
+    # (the gram-kernel route's full square) and n=16384 (the lower triangle the
+    # recursive and inplace routes build); no single torch call builds a
+    # kernel's Gram matrix, so library_ms is the shortest torch composition
     kstats["gram_tile"].update(
-        ms=median_ms(lambda: gop.gram(Xg, Xg, 8.0, 1.0, 1.0, gram_args[4])),
+        ms=queued_ms(lambda: gop.gram(Xg, Xg, 8.0, 1.0, 1.0, gram_args[4])),
+        ms_enqueue=median_ms(lambda: gop.gram(Xg, Xg, 8.0, 1.0, 1.0, gram_args[4])),
         plain_ms=median_ms(lambda: gop.gram_reference(Xg, Xg, 8.0, 1.0, 1.0, gram_args[4])),
-        library_ms=None,  # no single torch call builds a kernel's Gram matrix
+        library_ms=queued_ms(lambda: gram_library(Xg, 8.0, gram_args[4])),
+        library_calls=GRAM_LIBRARY_CALLS,
     )
-    big_ms = median_ms(lambda: gop.gram(Xb, Xb, 8.0, 1.0, 1.0, gram_args[4], tril=True), 5)
+    big_ms = queued_ms(lambda: gop.gram(Xb, Xb, 8.0, 1.0, 1.0, gram_args[4], tril=True), 6)
+    big_enqueue = median_ms(lambda: gop.gram(Xb, Xb, 8.0, 1.0, 1.0, gram_args[4], tril=True), 5)
     big_plain = median_ms(lambda: gop.gram_reference(Xb, Xb, 8.0, 1.0, 1.0, gram_args[4]), 5)
+    big_library = queued_ms(lambda: gram_library(Xb, 8.0, gram_args[4]), 5)
+    # the timed output held against the plain version's lower triangle: each
+    # block walks ~63 tiles here, the mechanism the small checks cannot reach
+    Kb = torch.tril(gop.gram(Xb, Xb, 8.0, 1.0, 1.0, gram_args[4], tril=True))
+    Kb -= torch.tril(gop.gram_reference(Xb, Xb, 8.0, 1.0, 1.0, gram_args[4]))
+    big_err = float(Kb.abs_().max())
+    del Kb
+    check(big_err <= 3e-5, f"K1 at n={Xb.shape[0]} d={Xb.shape[1]} tril: {big_err}")  # of scale^2 = 1
+    kstats["gram_tile"]["max_abs_err"] = max(kstats["gram_tile"]["max_abs_err"], big_err)
     Kb = gaussian64(Xb, Xb, 8.0, 1.0)
     Kb.diagonal().add_(sig * sig)
     chol_ms = median_ms(lambda: torch.linalg.cholesky(Kb), 5)  # K2-K4 together
@@ -1105,8 +1171,19 @@ def main() -> int:
         return {"bound_ms": sum(max(f / tier[0], b / 3.35e12) * 1e3 for f, b in parts),
                 "bound_by": by, "bound_tier": tier[1]}
 
+    # K1 computes the cross term on the tensor cores' 3xTF32 tier (the bench
+    # form, d = 128); its FP32 bound stands beside it.  At n=16384 it writes
+    # the lower triangle: n (n + 1) / 2 entries of 2 d FLOP each
+    tf32x3 = (495e12 / 3, "3xTF32 495/3 = 165 TFLOP/s")
     ng, dg, P = Xg.shape[0], Xg.shape[1], fullchol.PANEL
-    kstats["gram_tile"].update(bound(2.0 * ng * ng * dg, 4.0 * (2 * ng * dg + ng * ng)))
+    k1_small = (2.0 * ng * ng * dg, 4.0 * (2 * ng * dg + ng * ng))
+    nb_ = Xb.shape[0]
+    k1_big = (2.0 * dg * nb_ * (nb_ + 1) / 2, 4.0 * (nb_ * (nb_ + 1) / 2 + nb_ * dg))
+    kstats["gram_tile"].update(bound(*k1_small, tf32x3), bound_fp32_ms=bound(*k1_small)["bound_ms"],
+                               full_width_ms=big_ms, full_width_ms_enqueue=big_enqueue,
+                               full_width_plain_ms=big_plain, full_width_library_ms=big_library,
+                               full_width_bound_ms=bound(*k1_big, tf32x3)["bound_ms"],
+                               full_width_bound_fp32_ms=bound(*k1_big)["bound_ms"])
     d = Xb.shape[1]
     # K2 panel j: the strip's Gram cross term and update, 2 rows P (jp + d)
     # FLOP; it reads X's rows and L[rows, :jp] and writes the strip and the
@@ -1125,7 +1202,6 @@ def main() -> int:
         (1.0 * (n - (j + 1) * P) * P * (P + 1), 4.0 * (2 * (n - (j + 1) * P) * P + P * (P + 1) / 2))
         for j in range(nc - 1)]))
     # K5 computes on the 3xTF32 tier, as K2
-    tf32x3 = (495e12 / 3, "3xTF32 495/3 = 165 TFLOP/s")
     k5_parts = [(1.0 * m * (m + 1) * k, 4.0 * (m * (m + 1) + m * k)) for m, k in k5_shapes]
     kstats["syrk_update"].update(sum_bounds(k5_parts, tf32x3),
                                  bound_fp32_ms=sum_bounds(k5_parts)["bound_ms"])
@@ -1155,9 +1231,14 @@ def main() -> int:
           f"K3 time not hidden {k3_exposed:.2f} ms")
     print("  profiled bench fit, device ms (launches): " + "; ".join(
         f"{k} {v[0]:.2f} ({v[1]})" for k, v in sorted(by_k16.items(), key=lambda kv: -kv[1][0])[:10]))
-    print(f"  K1 gram_tile n=384 d=128: {kstats['gram_tile']['ms']:.4f} ms "
-          f"(plain {kstats['gram_tile']['plain_ms']:.4f}); n=16384 d=128 tril: {big_ms:.2f} ms "
-          f"(plain full {big_plain:.2f})")
+    k1 = kstats["gram_tile"]
+    print(f"  K1 gram_tile n=384 d=128 (queued): {k1['ms']:.4f} ms, with the host's enqueue "
+          f"{k1['ms_enqueue']:.4f} (plain {k1['plain_ms']:.4f}, torch composition of {GRAM_LIBRARY_CALLS} calls "
+          f"{k1['library_ms']:.4f}; bound {k1['bound_ms']:.5f} 3xTF32, {k1['bound_fp32_ms']:.5f} FP32); "
+          f"n=16384 d=128 tril (queued): {big_ms:.4f} ms, with the host's enqueue {big_enqueue:.4f} (plain full "
+          f"{big_plain:.2f}, torch composition full {big_library:.4f}; bound {k1['full_width_bound_ms']:.4f} "
+          f"3xTF32, {k1['full_width_bound_fp32_ms']:.4f} FP32; lower triangle against the plain version: max "
+          f"abs err {big_err:.3g})")
     for label, (tp, tq, rp, rq) in vg_times.items():
         print(f"  MLL value + gradient {label}: port {tp:.2f} ms (runs "
               f"{', '.join(f'{t:.1f}' for t in rp)}); plain f32 {tq:.2f} ms (runs "
@@ -1213,11 +1294,23 @@ def main() -> int:
             by_kernel.append((us / 1e3 / 5, e.count / 5, e.key))
     busy_fit = sum(t for t, _, _ in by_kernel)
 
+    # K6 per fit queued and with the host's enqueue, and at B=256, n=1024
     kstats["gram_batched"].update(
-        ms=median_ms(lambda: gop.gram_batched(Xf, Pf)),
+        ms=queued_ms(lambda: gop.gram_batched(Xf, Pf)),
+        ms_enqueue=median_ms(lambda: gop.gram_batched(Xf, Pf)),
         plain_ms=median_ms(lambda: gop.gram_batched_reference(Xf, Pf)),
-        library_ms=None,  # no single torch call builds a kernel's Gram matrix
+        library_ms=queued_ms(lambda: gram_library(Xf, 2.0, sigf * sigf)),
+        library_calls=GRAM_LIBRARY_CALLS,
     )
+    X6 = t32(np.random.default_rng(11).standard_normal((256, 1024, df_)))
+    P6 = t32(np.tile([2.0, 1.0, 1.0, sigf * sigf], (256, 1)))
+    kstats["gram_batched"].update(
+        large_ms=queued_ms(lambda: gop.gram_batched(X6, P6), 10),
+        large_library_ms=queued_ms(lambda: gram_library(X6, 2.0, sigf * sigf), 10),
+        large_bound_ms=bound(2.0 * 256 * 1024 * 1024 * df_,
+                             4.0 * (256 * 1024 * df_ + 4 * 256 + 256 * 1024 * 1024))["bound_ms"])
+    del X6, P6
+    torch.cuda.empty_cache()
     # K7 per fleet fit: each panel step's launch timed alone, queued behind a
     # device sleep (the kernel is shorter than the host's enqueue), with the
     # kernel, its plain version and torch.linalg.cholesky_ex on the same tiles
@@ -1267,8 +1360,12 @@ def main() -> int:
         print(f"  fleet fit B={B_} n={n_} d={df_} q={qf}: port {tp:.3f} ms = {B_ / tp * 1e3:.0f} "
               f"fits/s (runs {', '.join(f'{t:.2f}' for t in rp)}); plain f32 route {tq:.3f} ms = "
               f"{B_ / tq * 1e3:.0f} fits/s (runs {', '.join(f'{t:.2f}' for t in rq)})")
-    print(f"  K6 gram_batched per fit (B={Bf} n={nf} d={df_}, 1 launch): "
-          f"{kstats['gram_batched']['ms']:.4f} ms (plain {kstats['gram_batched']['plain_ms']:.4f})")
+    k6 = kstats["gram_batched"]
+    print(f"  K6 gram_batched per fit (B={Bf} n={nf} d={df_}, 1 launch, queued): {k6['ms']:.4f} ms, with the "
+          f"host's enqueue {k6['ms_enqueue']:.4f} (plain {k6['plain_ms']:.4f}, torch composition of "
+          f"{GRAM_LIBRARY_CALLS} calls {k6['library_ms']:.4f}; bound {k6['bound_ms']:.4f}); B=256 n=1024 "
+          f"(queued): {k6['large_ms']:.4f} ms (torch composition {k6['large_library_ms']:.4f}; bound "
+          f"{k6['large_bound_ms']:.4f})")
     print(f"  K7 crout_chol per fit ({nbf} launches of {Bf} x {pf}^2 tiles): kernel "
           f"{[round(t, 4) for t in k7runs['kernel']]} ms, plain "
           f"{[round(t, 4) for t in k7runs['plain']]} ms, torch.linalg.cholesky_ex "

@@ -14,7 +14,7 @@
 // behind.  This simple version keeps the cross term in plain FP32 FMA (at
 // least the f32 grade the JAX package asks of its bf16x3 "high" tier) and
 // reads each staged value through 128-bit shared loads, so the FMA pipe and
-// not shared memory sets the pace.  Tensor cores (3xTF32 / wgmma) come later.
+// not shared memory sets the pace.  K1's 3xTF32 tensor-core path is gram.cu's.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -73,9 +73,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// x = big + small (+ a remainder below 2^-22 |x|), each half a tf32 value
+// x = big + small (+ a remainder below 2^-22 |x|), each half a tf32 value,
+// cvt.rna.tf32.f32 of x and of x - big.  big is rounded on the integer units
+// (cheaper to issue): half a tf32 ulp added to the magnitude and the 13 low
+// bits cleared, bit for bit cvt.rna's for a finite x.  A NaN x can come out
+// of that finite (the card's NaN 0x7fffffff carries into the sign bit), so
+// small keeps cvt.rna, which leaves x - big a NaN: every product of x stays
+// NaN, as a failed pivot's poison must.
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   const float rest = x - __uint_as_float(big);
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
 }
@@ -165,27 +171,32 @@ __device__ __forceinline__ void tc_split_a(const float* slot, uint32_t frag[8][4
   }
 }
 
+// Piece u of a slice (row n = u / 4 at k = 8 t' .. 8 t' + 7, t' = u % 4),
+// its values v, split into the big and small tiles of buf: its k = 8 t' + q
+// goes to core matrix (n / 8, q), row n % 8, position t'.
+__device__ __forceinline__ void tc_put_split(float* buf, int u, const float v[8]) {
+  const int n = u / 4;
+  float* dst = buf + (n / 8) * (kTcSbo / 4) + (n % 8) * 4 + u % 4;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    uint32_t big, small;
+    split_tf32(v[q], big, small);
+    dst[q * (kTcLbo / 4)] = __uint_as_float(big);
+    dst[kTcTileFloats + q * (kTcLbo / 4)] = __uint_as_float(small);
+  }
+}
+
 // B of a raw slice into the big and small tiles of buf: piece p of this
-// thread is row n = u / 4 at k = 8 t' .. 8 t' + 7, t' = u % 4, u =
-// threadIdx.x + p kTcThreads; its k = 8 t' + q goes to core matrix (n / 8,
-// q), row n % 8, position t'.
+// thread is piece u = threadIdx.x + p kTcThreads.
 __device__ __forceinline__ void tc_split_b(const float* slot, float* buf) {
 #pragma unroll
   for (int p = 0; p < kTcBRows; ++p) {
     const int u = threadIdx.x + p * kTcThreads;
-    const int n = u / 4;
-    const float* src = slot + (kTcRows + n) * kTcRawLd + 8 * (u % 4);
+    const float* src = slot + (kTcRows + u / 4) * kTcRawLd + 8 * (u % 4);
     const float4 x0 = *reinterpret_cast<const float4*>(src);
     const float4 x1 = *reinterpret_cast<const float4*>(src + 4);
     const float v[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-    float* dst = buf + (n / 8) * (kTcSbo / 4) + (n % 8) * 4 + u % 4;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      uint32_t big, small;
-      split_tf32(v[q], big, small);
-      dst[q * (kTcLbo / 4)] = __uint_as_float(big);
-      dst[kTcTileFloats + q * (kTcLbo / 4)] = __uint_as_float(small);
-    }
+    tc_put_split(buf, u, v);
   }
 }
 

@@ -71,7 +71,10 @@ def gram(X, Y, sigma=1.0, scale=1.0, third=1.0, diag=0.0, *,
          form: str = "gaussian", tril: bool = False) -> torch.Tensor:
     """K(X, Y) for one of :data:`FORMS` (``third`` is rq's alpha or
     periodic's b).  X (n, d), Y (m, d) contiguous float32, on one device.
-    A CUDA tensor runs kernel K1; a CPU tensor runs :func:`gram_reference`."""
+    A CUDA tensor runs kernel K1 (gaussian, rq, matern32, matern52 and sqdist
+    at d % 4 == 0, d >= 32 with the cross term in 3xTF32 on the tensor cores,
+    the port's f32-grade tier; the rest in FP32); a CPU tensor runs
+    :func:`gram_reference`."""
     _check(X, Y, form, tril)
     if X.device.type == "cpu":
         return gram_reference(X, Y, sigma, scale, third, diag, form=form, tril=tril)

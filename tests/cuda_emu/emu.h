@@ -1,5 +1,5 @@
 // A shim of the CUDA constructs that csrc/solve.cu, chol.cu, crout.cu, fleet.cu,
-// leaf.cu and panel.cu use, so that their sources compile with a host C++ compiler and
+// gram.cu, leaf.cu and panel.cu use, so that their sources compile with a host C++ compiler and
 // run on the CPU:
 // every thread is a fiber (ucontext), switched cooperatively at
 // __syncthreads, __syncwarp, __shfl_sync and the cluster barrier.  A plain
@@ -52,6 +52,7 @@ enum {
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline const char* cudaGetErrorString(cudaError_t) { return "emu error"; }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 #define __global__
@@ -154,8 +155,10 @@ inline cudaError_t cudaGetDevice(int* d) {
   *d = 0;
   return cudaSuccess;
 }
-inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
-  *v = 1;
+// the multiprocessor count is EMU_SMS where set (a persistent grid's size), else 1
+inline cudaError_t cudaDeviceGetAttribute(int* v, int attr, int) {
+  const char* sms = getenv("EMU_SMS");
+  *v = attr == cudaDevAttrMultiProcessorCount && sms ? atoi(sms) : 1;
   return cudaSuccess;
 }
 template <class F>

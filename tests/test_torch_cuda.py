@@ -91,6 +91,52 @@ def test_gram_kernel(dev, form, tril):
     assert float((K - R).abs().max()) <= tol
 
 
+def _gram_into(K, X, Y, args, form, tril):
+    """K1 straight into the buffer K (a sentinel survives where it writes nothing)."""
+    _cuda.GRAM.launch(X.device, X.data_ptr(), Y.data_ptr(), K.data_ptr(), X.shape[0], Y.shape[0], X.shape[1],
+                      gop.FORMS.index(form), *(float(a) for a in args), int(tril))
+    torch.cuda.synchronize()
+    return K
+
+
+# The tensor-core path (gaussian, rq, matern32, matern52, sqdist at d % 4 == 0,
+# d >= 32) and the FP32 path (matern12, periodic) at widths around the 32-deep
+# k-slices, ragged against the 128 tiles; |x|^2 ~ 4 keeps K away from 0.  At
+# 3000 (300 lower tiles) and 2600 x 2900 (483 tiles) each of the 132 blocks
+# walks several tiles: the slices streamed across tile boundaries, A's row
+# block kept (d <= 128) or streamed (d = 132), each finished tile written
+# under the next one's products.
+@pytest.mark.parametrize("form", gop.FORMS)
+@pytest.mark.parametrize("d", [32, 64, 128, 132])
+def test_gram_kernel_widths(dev, form, d):
+    rng = np.random.default_rng(d)
+    for n, m, tril in ((200, 150, False), (383, 383, True), (200, 200, True), (383, 129, False), (3000, 3000, True),
+                       (2600, 2900, False)):
+        X = _t(rng.standard_normal((n, d)) * (2.0 / np.sqrt(d)), dev)
+        Y = X if tril else _t(rng.standard_normal((m, d)) * (2.0 / np.sqrt(d)), dev)
+        args = (1.7, 1.2, 0.7 if form == "periodic" else 2.0, 0.37)
+        K = _gram_into(torch.full((n, m), 12345.0, device=dev), X, Y, args, form, tril)
+        R = gop.gram_reference(X, Y, *args, form=form)
+        if tril:
+            low = torch.ones((n, m), dtype=torch.bool, device=dev).tril_()
+            assert bool(torch.all(K[~low] == 12345.0))  # nothing above the diagonal written
+            K, R = K[low], R[low]
+        tol = (1e-2 if form == "matern12" else 3e-5) * (R.abs().max() if form == "sqdist" else 1.44)
+        assert float((K - R).abs().max()) <= tol, (n, m, tril)
+
+
+@pytest.mark.parametrize("form", ["gaussian", "matern52", "matern12"])
+def test_gram_kernel_full_width_tril(dev, form):
+    n, d = 16383, 128
+    X = _t(np.random.default_rng(5).standard_normal((n, d)) * (2.0 / np.sqrt(d)), dev)
+    args = (1.7, 1.2, 2.0, 0.37)
+    K = _gram_into(torch.full((n, n), 12345.0, device=dev), X, X, args, form, True)
+    low = torch.ones((n, n), dtype=torch.bool, device=dev).tril_()
+    assert bool(torch.all(K[~low] == 12345.0))
+    R = gop.gram_reference(X, X, *args, form=form)
+    assert float((K - R)[low].abs().max()) <= (1e-2 if form == "matern12" else 3e-5) * 1.44
+
+
 @pytest.mark.parametrize("n", [128, 384])
 def test_matrix_mode(dev, n):
     rng = np.random.default_rng(4)
@@ -446,6 +492,30 @@ def test_gram_batched_kernel(dev, form):
     assert float((K - R).abs().max()) <= tol
 
 
+@pytest.mark.parametrize("form", gop.FORMS)
+@pytest.mark.parametrize("B", [1, 3, 128])
+def test_gram_batched_kernel_shapes(dev, form, B):
+    # ragged and whole 64-tiles, one tile to 16; each member's matrix exactly
+    # symmetric (the kernel writes each lower tile twice, in place and mirrored)
+    rng = np.random.default_rng(B)
+    for n in (1, 63, 64, 65, 200, 512, 1024):
+        X = _t(rng.standard_normal((B, n, 8)), dev)
+        P = _t(np.stack([rng.uniform(1.0, 2.5, B), rng.uniform(0.8, 1.4, B),
+                         rng.uniform(0.5, 0.9, B) if form == "periodic" else rng.uniform(1.0, 3.0, B),
+                         rng.uniform(0.01, 0.4, B)], 1), dev)
+        _cuda.reset_launch_counts()
+        K = gop.gram_batched(X, P, form=form)
+        assert _cuda.launch_counts()["gram_batched"] == 1
+        assert torch.equal(K, K.mT), n
+        R = gop.gram_batched_reference(X, P, form=form)
+        # sqdist: of the larger of its largest entry and 2 max |x|^2 (at n = 1
+        # the one entry is the diagonal, the plain version's a cancellation)
+        big = max(float(R.abs().max()), 2.0 * float((X * X).sum(-1).max()))
+        tol = (1e-2 if form == "matern12" else 3e-5) * (big if form == "sqdist" else 1.96)
+        assert float((K - R).abs().max()) <= tol, n
+        del K, R
+
+
 def test_gram_batched_kernel_past_the_grid_z_limit(dev):
     # more members than gridDim.z allows: the launcher sends them in chunks
     rng = np.random.default_rng(17)
@@ -456,6 +526,7 @@ def test_gram_batched_kernel_past_the_grid_z_limit(dev):
     _cuda.reset_launch_counts()
     K = gop.gram_batched(X, P)
     assert _cuda.launch_counts()["gram_batched"] == 1
+    assert torch.equal(K, K.mT)
     assert float((K - gop.gram_batched_reference(X, P)).abs().max()) <= 3e-5 * 2.25
 
 
