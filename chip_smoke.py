@@ -99,7 +99,8 @@ process per source, in parallel), then:
      versions at n = 256, 512, 768 and 1024, each on a strided view with NaN
      above the diagonal (K12 bit-identical to its factor of the lower
      triangle alone; K13's factor bit-identical to K12's, whose cluster
-     kernel it launches before its card-wide blocked inverse; K12 and K13 in
+     kernel it launches before K14's persistent inverse, and its W to K14's
+     of that factor; K12 and K13 in
      place), and a leaf that is not positive definite;
  19. under GPR_CHOL_LEAF_INV=1 trains at the breathing shape (phase 6's
      steps, route "blocked-syrk-leaf": two K13 launches per factorization),
@@ -108,8 +109,8 @@ process per source, in parallel), then:
      "gram-kernel", 16 K13 launches) with a 128-point credible interval and
      runs the MLL value + gradient at n=16384 and 16383 (16 and 15 launches);
  20. times K12 at n = 256, 512 and 1024 (each call queued behind a device
-     sleep, then with the host's enqueue), K13 per 1024-leaf the same way
-     and K14 per 1024-leaf against
+     sleep, then with the host's enqueue), K13 and K14 per 1024-leaf the
+     same way, against
      their plain versions and torch.linalg.cholesky_ex (+ solve_triangular
      against I), the n=16384
      blocked factorization with and without the switch against
@@ -1879,6 +1880,7 @@ def main() -> int:
         L13, W13 = tleaf.leaf_cholesky_wi(view)
         check(torch.equal(L13, L12), f"K13 n={n_}: its factor is not K12's")
         W14 = tleaf.tri_inv_leaf(L13 + up)
+        check(torch.equal(W14, W13), f"K13 n={n_}: its W is not K14's of its factor")
         W14r = tleaf.tri_inv_leaf_reference(L13)
         eye = torch.eye(n_, device=dev)
         errs = {"leaf_chol": relerr(L12, Lr), "leaf_chol_wi": max(relerr(L13, Lr), relerr(W13, Wr)),
@@ -1918,7 +1920,8 @@ def main() -> int:
     for n_, (errs, res) in worst18.items():
         print(f"  n={n_} (strided, NaN upper): rel err vs plain " + ", ".join(
             f"{k} {e:.3g}" for k, e in errs.items()) + f"; |WL-I| {res:.3g}; K12 bit-identical to its "
-            "factor of the lower triangle alone, twice and in place; K13's factor K12's; K13 in place ok")
+            "factor of the lower triangle alone, twice and in place; K13's factor K12's and its W K14's of "
+            "that factor; K13 in place ok")
     print("  a leaf that is not positive definite: L[-1,-1] NaN, W non-finite ok")
 
     # --------------------------------------------------------------- 19 ----
@@ -2008,15 +2011,16 @@ def main() -> int:
         t12s[(n_, "queued")] = rotate(fns12, 10, queued=True)
         t12s[(n_, "with the host's enqueue")] = rotate(fns12, 10)
     t12 = t12s[(1024, "queued")]
-    # K13 per 1024-leaf the same way: queued (the kernels line's ms), then
-    # with the host's enqueue
+    # K13 and K14 per 1024-leaf the same way: queued (the kernels line's ms),
+    # then with the host's enqueue (its ms_enqueue)
     fns13 = {"kernel": lambda: tleaf.leaf_cholesky_wi(A20), "plain": lambda: tleaf.leaf_cholesky_wi_reference(A20),
              "library": lambda: torch.linalg.solve_triangular(torch.linalg.cholesky_ex(A20)[0], I20, upper=False)}
     t13s = {"queued": rotate(fns13, 10, queued=True), "with the host's enqueue": rotate(fns13, 10)}
     t13 = t13s["queued"]
-    t14 = rotate({"kernel": lambda: tleaf.tri_inv_leaf(L20),
-                  "plain": lambda: tleaf.tri_inv_leaf_reference(L20),
-                  "library": lambda: torch.linalg.solve_triangular(L20, I20, upper=False)}, 10)
+    fns14 = {"kernel": lambda: tleaf.tri_inv_leaf(L20), "plain": lambda: tleaf.tri_inv_leaf_reference(L20),
+             "library": lambda: torch.linalg.solve_triangular(L20, I20, upper=False)}
+    t14s = {"queued": rotate(fns14, 10, queued=True), "with the host's enqueue": rotate(fns14, 10)}
+    t14 = t14s["queued"]
     # what one of K12's 16 diagonal steps costs alone: K8 on one 64-tile is
     # the same load, sweep, inverse and stores on one block
     diag_ms = median_ms(lambda: fcrout.crout_chol_wi(A20[:64, :64][None]), 20)
@@ -2027,6 +2031,8 @@ def main() -> int:
                                    ("tri_inv_leaf", t14, s20 ** 3 / 3.0, tri + sq)):
         kstats[name].update(ms=t_["kernel"][0], plain_ms=t_["plain"][0], library_ms=t_["library"][0],
                             **bound(flop, nbytes))
+    for name, t_ in (("leaf_chol_wi", t13s), ("tri_inv_leaf", t14s)):
+        kstats[name]["ms_enqueue"] = t_["with the host's enqueue"]["kernel"][0]
     del A20, L20, I20
     K20 = gaussian64(Xb, Xb, 8.0, 1.0)
     K20.diagonal().add_(sig * sig)
@@ -2051,7 +2057,8 @@ def main() -> int:
     for label, name, t_ in (("K12 leaf_chol (queued)", "leaf_chol", t12),
                             ("K13 leaf_chol_wi (queued)", "leaf_chol_wi", t13),
                             ("K13 leaf_chol_wi (with the host's enqueue)", "leaf_chol_wi", t13s["with the host's enqueue"]),
-                            ("K14 tri_inv_leaf", "tri_inv_leaf", t14)):
+                            ("K14 tri_inv_leaf (queued)", "tri_inv_leaf", t14),
+                            ("K14 tri_inv_leaf (with the host's enqueue)", "tri_inv_leaf", t14s["with the host's enqueue"])):
         print(f"  {label} per 1024-leaf: " + "; ".join(
             f"{k} {m:.4f} ms (runs {runs_text(r)})" for k, (m, r) in t_.items())
             + f"; bound {kstats[name]['bound_ms']:.4f} ms ({kstats[name]['bound_by']})")

@@ -30,6 +30,8 @@ import sys
 
 import numpy as np
 
+from ab_harness import med, timed
+
 
 def main() -> int:
     root, label = os.path.abspath(sys.argv[1]), sys.argv[2]
@@ -47,16 +49,6 @@ def main() -> int:
     rng0 = np.random.default_rng(0)
     Xb = torch.tensor(rng0.standard_normal((n, d)), dtype=torch.float32, device=dev)
     Yb = torch.tensor(rng0.standard_normal((n, q)), dtype=torch.float32, device=dev)
-
-    def timed(fn, sleep=False):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        if sleep:  # the device waits while the host enqueues a, the launch and b
-            torch.cuda._sleep(300_000)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b)
 
     d2 = (Xb * Xb).sum(1)[:, None] + (Xb * Xb).sum(1)[None, :] - 2.0 * (Xb @ Xb.T)
     K = (-0.5 * d2.clamp(min=0.0) / 64.0).exp()
@@ -88,9 +80,6 @@ def main() -> int:
     os.environ["GPR_CHOL_SCHEDULE"] = "inplace"
     bench_k = tg.Gaussian(8.0, 1.0)
     fit = [timed(lambda: tg.fit(bench_k, Xb, Yb, sigma=0.1, use_pallas_gram=True)) for _ in range(5)][1:]
-
-    def med(v):
-        return f"{float(np.median(v)):.4f} ({', '.join(f'{x:.4f}' for x in v)})"
 
     print(f"{label}: K11 {med(k11)}; narrow solve {med(narrow)}; K16 per factorization {med(k16)}; "
           f"cholesky_inplace {med(fact)}; inplace bench fit {med(fit)}", flush=True)

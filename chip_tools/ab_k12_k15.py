@@ -30,14 +30,13 @@ Prints, in ms (CUDA events, median and runs after a warm-up):
 import os
 import sys
 
-import numpy as np
+from ab_harness import med, timed
 
 
 def main() -> int:
     root, label = os.path.abspath(sys.argv[1]), sys.argv[2]
     sys.path.insert(0, root)
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import gpr_tpu_torch as tg
     from gpr_tpu_torch.ops import _cuda, leaf, panel
@@ -47,19 +46,6 @@ def main() -> int:
     _cuda.build()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(18)
-
-    def timed(fn, sleep):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        if sleep:  # the device waits while the host enqueues a, the launch and b
-            torch.cuda._sleep(300_000)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b)
-
-    def med(v):
-        return f"{float(np.median(v)):.4f} ({', '.join(f'{x:.4f}' for x in v)})"
 
     def spd(n):
         G = torch.randn((n, n), generator=g, device=dev)

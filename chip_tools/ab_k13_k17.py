@@ -40,12 +40,13 @@ import sys
 
 import numpy as np
 
+from ab_harness import device_split, med, rounds, timed
+
 
 def main() -> int:
     root, label = os.path.abspath(sys.argv[1]), sys.argv[2]
     sys.path.insert(0, root)
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import gpr_tpu_torch as tg
     from gpr_tpu_torch.ops import _cuda, blocked, chol, inplace_chol, leaf, panel, solve
@@ -56,45 +57,11 @@ def main() -> int:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(18)
 
-    def timed(fn, sleep):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        if sleep:  # the device waits while the host enqueues a, the launch and b
-            torch.cuda._sleep(300_000)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b)
-
-    def med(v):
-        return f"{float(np.median(v)):.4f} ({', '.join(f'{x:.4f}' for x in v)})"
-
-    def rounds(fns, count, sleep):
-        runs = {k: [] for k in fns}
-        for fn in fns.values():
-            fn()
-        for i in range(count):  # in turns, the order reversed every round
-            for k in (list(fns) if i % 2 == 0 else list(fns)[::-1]):
-                runs[k].append(timed(fns[k], sleep))
-        return "; ".join(f"{k} {med(v)}" for k, v in runs.items())
-
     def spd(n):
         G = torch.randn((n, n), generator=g, device=dev)
         A = G @ G.T / n
         A.diagonal().add_(1.0)
         return A
-
-    def device_split(fn):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        per = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > e.time_range.start:
-                key = e.name.split("(")[0].replace("void ", "").replace("gpr::", "")
-                t, c = per.get(key, (0.0, 0))
-                per[key] = (t + (e.time_range.end - e.time_range.start) / 1e3, c + 1)
-        return "; ".join(f"{k} {t:.4f} ({c} launches)" for k, (t, c) in sorted(per.items()))
 
     for s in (256, 512, 1024):
         A = spd(s)

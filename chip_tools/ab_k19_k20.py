@@ -24,7 +24,7 @@ call ("enqueue"); the tile is G G^T / n + I (chip_smoke.py phase 25's).
 import os
 import sys
 
-import numpy as np
+from ab_harness import med, timed
 
 
 def main() -> int:
@@ -40,19 +40,6 @@ def main() -> int:
     _cuda.build()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(25)
-
-    def timed(fn, sleep):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        if sleep:  # the device waits while the host enqueues a, the launch and b
-            torch.cuda._sleep(300_000)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b)
-
-    def med(v):
-        return f"{float(np.median(v)):.4f} ({', '.join(f'{x:.4f}' for x in v)})"
 
     for n in (256, 512):
         G = torch.randn((n, n), generator=g, device=dev)

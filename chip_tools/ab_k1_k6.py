@@ -50,21 +50,7 @@ import sys
 
 import numpy as np
 
-
-def compare(a_path, b_path) -> int:
-    import torch
-
-    a, b = torch.load(a_path), torch.load(b_path)
-    for k in a:
-        x, y = a[k], b[k]
-        if isinstance(x, str):
-            print(f"{k}: {'bit-identical' if x == y else 'differs (digest)'}")
-        elif torch.equal(x, y):
-            print(f"{k}: bit-identical")
-        else:
-            d = float((x.double() - y.double()).nan_to_num().abs().max() / y.double().nan_to_num().abs().max())
-            print(f"{k}: differs, max |a - b| / max |b| = {d:.3g}")
-    return 0
+from ab_harness import compare, med, runs, timed
 
 
 def main() -> int:
@@ -88,22 +74,6 @@ def main() -> int:
 
     def digest(t):
         return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
-
-    def timed(fn, sleep=False):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        if sleep:  # the device waits while the host enqueues a, the launch and b
-            torch.cuda._sleep(300_000)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b)
-
-    def runs(fn, k, sleep=False):
-        return [timed(fn, sleep) for _ in range(k + 1)][1:]
-
-    def med(v):
-        return f"{float(np.median(v)):.4f} ({', '.join(f'{x:.4f}' for x in v)})"
 
     def t32(a):
         return torch.tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)

@@ -30,8 +30,8 @@ warm-up and is dropped), on benchmarks/bench_batched.py's data (Gaussian(2,
     passes); the fused and the panel-stepped fleet fit at both sizes in turns
     (with the host's enqueue); the fused mll_batched value + gradient at
     B=128, n=512 (per-member (lengthscale, scale));
-  * the kernels that share K8's and K9's headers (crout.cuh, leaf.cuh,
-    gram_tile.cuh) or that the change must leave alone, queued: K7 per fleet
+  * the kernels that share K8's and K9's headers (crout.cuh, gram_tile.cuh)
+    or that the change must leave alone, queued: K7 per fleet
     factorization at B=128, n=512; K11 at n=16384, bs=512; K12, K13 and K14
     on a 1024 leaf; K1 at n=384 and (lower triangle) 4096, d=128; K6 on the
     fleet's data at B=128, n=512; the bench factorization at n=16384, d=128
@@ -45,19 +45,7 @@ import sys
 
 import numpy as np
 
-
-def compare(a_path, b_path) -> int:
-    import torch
-
-    a, b = torch.load(a_path), torch.load(b_path)
-    for k in a:
-        x, y = a[k], b[k]
-        if torch.equal(x, y):
-            print(f"{k}: bit-identical")
-        else:
-            d = float((x.double() - y.double()).nan_to_num().abs().max() / y.double().nan_to_num().abs().max())
-            print(f"{k}: differs, max |a - b| / max |b| = {d:.3g}")
-    return 0
+from ab_harness import compare, med, runs, timed
 
 
 def main() -> int:
@@ -79,19 +67,6 @@ def main() -> int:
     dev = torch.device("cuda")
     saved = {}
 
-    def timed(fn, sleep=False):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        if sleep:  # the device waits while the host enqueues a, the launch and b
-            torch.cuda._sleep(300_000)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b)
-
-    def runs(fn, k, sleep=False):
-        return [timed(fn, sleep) for _ in range(k + 1)][1:]
-
     def turns(fns, k, sleep=False):
         """Each fn in turns, the order reversed every round; the first round
         is a warm-up."""
@@ -103,9 +78,6 @@ def main() -> int:
                 if i:
                     out[name].append(t)
         return out
-
-    def med(v):
-        return f"{float(np.median(v)):.4f} ({', '.join(f'{x:.4f}' for x in v)})"
 
     out = []
     sig = float(np.float32(0.1))

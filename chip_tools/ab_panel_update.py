@@ -38,6 +38,8 @@ import sys
 
 import numpy as np
 
+from ab_harness import timed
+
 
 def main() -> int:
     root, label = os.path.abspath(sys.argv[1]), sys.argv[2]
@@ -60,16 +62,6 @@ def main() -> int:
     if "--fits" in sys.argv:
         count = int(sys.argv[sys.argv.index("--fits") + 1])
         return fits_only(tg, fullchol, label, count, Xb, Yb, args)
-
-    def timed(fn, sleep=False):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        if sleep:  # the device waits while the host enqueues a, the launch and b
-            torch.cuda._sleep(300_000)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b)
 
     nc = n // panel
     per_fit = {"K2": [], "K3": [], "K4": []}
@@ -138,7 +130,6 @@ def main() -> int:
           f"factorization {[round(x, 3) for x in k5_3773]} ms; MLL value + gradient n=16383 "
           f"{[round(x, 2) for x in mll163]} ms", flush=True)
 
-    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         tg.fit(tg.Gaussian(8.0, 1.0), Xb, Yb, sigma=0.1, use_pallas_gram=True)
         torch.cuda.synchronize()

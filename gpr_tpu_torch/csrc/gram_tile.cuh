@@ -83,42 +83,6 @@ __device__ __forceinline__ void stage_rows(float (*dst)[kLd], const float* src,
   }
 }
 
-// The rank-k update of K14's walk (leaf.cuh), acc -= A B^T over k, summed in
-// two levels: each staged chunk goes into a partial tile `part`
-// (rank_update_chunk), which is folded into
-// acc every kFold chunks (fold_update).  A k-term update then rounds like
-// k / (kFold kChunk) + kFold kChunk additions instead of a chain of k FMAs
-// into one running value, which is what keeps the Schur complements of a
-// large factorization (k up to n) as accurate as a blocked LAPACK potrf's.
-constexpr int kFold = 8;  // 128 terms per partial sum
-
-__device__ __forceinline__ void fold_update(float acc[kPer][kPer], float part[kPer][kPer]) {
-#pragma unroll
-  for (int i = 0; i < kPer; ++i)
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      acc[i][j] += part[i][j];
-      part[i][j] = 0.0f;
-    }
-}
-
-// part[i][j] -= sum_k a[ty*4 + i][k] b[tx*4 + j][k] over one staged chunk.
-__device__ __forceinline__ void rank_update_chunk(const TileSmem& sm, float part[kPer][kPer]) {
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-#pragma unroll
-  for (int kk = 0; kk < kChunk; ++kk) {
-    const float4 av = *reinterpret_cast<const float4*>(&sm.a[kk][ty * kPer]);
-    const float4 bv = *reinterpret_cast<const float4*>(&sm.b[kk][tx * kPer]);
-    const float a[kPer] = {av.x, av.y, av.z, av.w};
-    const float b[kPer] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) part[i][j] = fmaf(-a[i], b[j], part[i][j]);
-  }
-}
-
 // val[i][j] = k(X[row0 + ty*4 + i], Y[col0 + tx*4 + j]) for one 64x64 tile,
 // without any diagonal term.  Rows of X at or past nx, and of Y at or past
 // ny, act as all-zero feature vectors (the caller masks or drops them).

@@ -21,7 +21,7 @@
 //             solved just before) sums their slots in age order into R; the
 //             last of the newest ones adds the newest slots to that sum and
 //             writes r_i = b_i - sum.  Every sum runs in two levels (partials
-//             of 128 terms), as K2's fold_update does (gram_tile.cuh), and
+//             of 128 terms), as K2's products do (tc_tile.cuh), and
 //             only C = bs / 128 of its terms wait on the block solved before;
 //   diagonal  one 128-column chunk of W_ii (W_ii^T backward) times its chunk
 //             of r_i, as soon as that chunk of r_i is there (W's tile is

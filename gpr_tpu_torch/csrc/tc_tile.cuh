@@ -13,7 +13,7 @@
 // cvt.rna.tf32(x - big), and each product is small*big + big*small +
 // big*big, summed in FP32 by the tensor cores (3xTF32; the dropped
 // small*small term is ~2^-22 of the product).  The sum runs in two levels as
-// K2's FP32 version did (gram_tile.cuh::fold_update): a fresh partial tile
+// K2's FP32 version did: a fresh partial tile
 // per k-slice (32 terms, 12 tensor-core accumulations), added into the
 // running tile by IEEE FP32 adds: the tensor cores' own accumulation is the
 // larger error, so their partials are kept short.

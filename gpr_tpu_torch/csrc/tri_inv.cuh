@@ -3,9 +3,9 @@
 // that joins two inverted blocks by
 //   inv([[A, 0], [C, D]]) = [[inv A, 0], [-inv(D) C inv(A), inv D]]
 // (the identity JAX uses, pallas_solve.py:213-227).  K11 diag_tri_inv
-// (solve.cu) inverts the diagonal tiles of a factor with them, K13
-// leaf_chol_wi (leaf.cu) the whole factor of a leaf.  Every function is
-// inline, so that both sources link into one library.
+// (solve.cu) inverts the diagonal tiles of a factor with them, K14
+// tri_inv_leaf and K13 leaf_chol_wi (leaf.cu) the whole factor of a leaf.
+// Every function is inline, so that both sources link into one library.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -58,12 +58,15 @@ __device__ __forceinline__ void warp_tri_inv32(const float* T, int ld, int w, fl
 // ld), 0 elsewhere; 64 rows x 32 columns, each warp one row at a time
 // (coalesced).  In two halves, so that a kernel can keep the next chunk's
 // loads in flight while it computes on this one: inv_load_t, the eight loads
-// of a thread into v, then inv_put_t, their stores.
+// of a thread into v, then inv_put_t, their stores.  With kL2 the loads go
+// through L2 only (data that other CTAs of the same launch wrote: L1 is not
+// coherent between SMs).
+template <bool kL2 = false>
 __device__ __forceinline__ void inv_load_t(float v[8], const float* M, size_t ld, int rows, int cols) {
 #pragma unroll
   for (int u = 0; u < 8; ++u) {
     const int e = threadIdx.x + u * kInvThreads, r = e / kInvK, k = e % kInvK;
-    v[u] = (r < rows && k < cols) ? M[(size_t)r * ld + k] : 0.0f;
+    v[u] = (r < rows && k < cols) ? (kL2 ? __ldcg(M + (size_t)r * ld + k) : M[(size_t)r * ld + k]) : 0.0f;
   }
 }
 

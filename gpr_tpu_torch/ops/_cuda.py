@@ -210,13 +210,13 @@ DIAG_TRI_INV = Kernel("diag_tri_inv", "gpr_diag_tri_inv", "solve.cu", "pallas_so
 # (A, lda, L, ldl, WS, s): WS the published tiles' workspace; one cluster of s / 64 CTAs
 LEAF_CHOL = Kernel("leaf_chol", "gpr_leaf_chol", "leaf.cu", "pallas_leaf.py:47",
                    [_P, _I, _P, _I, _P, _I])
-# (A, lda, L, ldl, W, ldw, WS, s): K12's cluster factor, then W = L^-1 in 2 + 2 log2(s / 32)
-# kernels in stream order (WS their scratch), one launch
+# (A, lda, L, ldl, W, ldw, WS, flags, s): K12's cluster factor, then K14's launch on its L (WS
+# both workspaces), one launch
 LEAF_CHOL_WI = Kernel("leaf_chol_wi", "gpr_leaf_chol_wi", "leaf.cu", "pallas_leaf.py:118",
-                      [_P, _I, _P, _I, _P, _I, _P, _I])
-# (L, ldl, W, ldw, s, barrier)
+                      [_P, _I, _P, _I, _P, _I, _P, _P, _I])
+# (L, ldl, W, ldw, WS, flags, s): one persistent kernel, items by ticket; flags zero at rest
 TRI_INV_LEAF = Kernel("tri_inv_leaf", "gpr_tri_inv_leaf", "leaf.cu", "pallas_leaf.py:239",
-                      [_P, _I, _P, _I, _I, _P])
+                      [_P, _I, _P, _I, _P, _P, _I])
 
 # (P, ldp, out, W, WS, n): two kernels in stream order (the diagonal tile on a cluster, the
 # rows), one launch

@@ -15,14 +15,19 @@ version (``*_reference``) for a CPU tensor of any dtype, as JAX runs its
 kernels in interpret mode on the CPU.  K12 holds the leaf in the shared
 memory of one thread-block cluster of n / 64 CTAs (16 at n = 1024, a
 non-portable size; :func:`max_active_clusters` asks the card how many it
-places) and walks 32-wide diagonal blocks; K13 is K12's factor, then W by
-blocks over the whole card (the 64-wide diagonal blocks a CTA each, then a
-doubling level a kernel pair); K14 walks 64-wide diagonal blocks on a
-cooperative grid.  The plain versions walk 64-wide diagonal blocks: the
-diagonal block by ``torch.linalg.cholesky_ex`` (NaN where it
-fails) and its inverse by a triangular solve, the column solve and trailing
-update by products, and W by K13's block doubling
-(``_inverse_from_blocks``).
+places) and walks 32-wide diagonal blocks.  K14 is one launch of a
+persistent grid that takes work items by ticket: the 64-wide diagonal blocks
+(two warps' 32-wide inverses and one doubling level each), then per doubling
+level the 64x64 tiles of T = C inv(A) and of W_CA = -inv(D) T, each sum cut
+into pieces (32 to 128 terms, deeper at the higher levels) whose partials
+each consumer adds in a fixed order as it stages them; its scratch is the
+pieces' slots (:func:`_inv_scratch`), and its ticket and flags live in a
+small buffer a stream that each launch leaves zero (:func:`_flags`).  K13 is
+K12's factor, then K14's launch on that L, so its W is ``tri_inv_leaf`` of
+its L bit for bit.  The plain versions walk 64-wide diagonal blocks: the
+diagonal block by ``torch.linalg.cholesky_ex`` (NaN where it fails) and its
+inverse by a triangular solve, the column solve and trailing update by
+products, and W by the same block doubling (``_inverse_from_blocks``).
 
 Contracts (potrf 'L', as the TPU kernels'): only the lower triangle of the
 input is read; the outputs' strict upper triangles are exactly 0; a
@@ -38,7 +43,7 @@ import torch
 
 from . import _cuda
 
-BLOCK = 64  # csrc/leaf.cuh: kLeafBlock, K14's diagonal block and the plain versions'
+BLOCK = 64  # csrc/leaf.cu: kInvBase, K13's and K14's diagonal block and the plain versions'
 ALIGN = 256  # the JAX package's shape gate: its 256-wide diagonal block
 MAX_N = 1024  # the largest leaf (JAX: the whole leaf in VMEM)
 CLUSTER_BLOCK = 32  # csrc/chol.cuh: kCholNb, K12's diagonal block
@@ -163,8 +168,9 @@ def leaf_cholesky_wi(A: torch.Tensor, out: Optional[torch.Tensor] = None):
     _kernel_dtype("leaf_cholesky_wi", A)
     out = _new(A) if out is None else out
     W = _new(A)
+    ws = _workspace(A, _inv_scratch(n, A.device))
     _cuda.LEAF_CHOL_WI.launch(A.device, A.data_ptr(), A.stride(0), out.data_ptr(), out.stride(0),
-                              W.data_ptr(), W.stride(0), _workspace(A).data_ptr(), n)
+                              W.data_ptr(), W.stride(0), ws.data_ptr(), _flags(A.device).data_ptr(), n)
     return out, W
 
 
@@ -175,9 +181,10 @@ def tri_inv_leaf(L: torch.Tensor) -> torch.Tensor:
     if L.device.type == "cpu":
         return tri_inv_leaf_reference(L)
     _kernel_dtype("tri_inv_leaf", L)
-    W, bar = _new(L), _barrier(L)
-    _cuda.TRI_INV_LEAF.launch(L.device, L.data_ptr(), L.stride(0), W.data_ptr(), W.stride(0), n,
-                              bar.data_ptr())
+    W = _new(L)
+    ws = torch.empty(_inv_scratch(n, L.device), dtype=torch.float32, device=L.device)
+    _cuda.TRI_INV_LEAF.launch(L.device, L.data_ptr(), L.stride(0), W.data_ptr(), W.stride(0), ws.data_ptr(),
+                              _flags(L.device).data_ptr(), n)
     return W
 
 
@@ -185,17 +192,42 @@ def _new(A):
     return torch.empty(A.shape, dtype=torch.float32, device=A.device)
 
 
-def _workspace(A):
+def _workspace(A, least=0):
     # K12's published tiles of every panel (nt x nt slots of 32 x 32) and their
-    # scales; K13's inverse takes it as scratch after the factor
+    # scales, at least `least` floats: K13's inverse takes it as scratch after
+    # the factor
     nt = A.shape[0] // CLUSTER_BLOCK
-    return torch.empty(nt * (nt * CLUSTER_BLOCK * CLUSTER_BLOCK + CLUSTER_BLOCK), dtype=torch.float32,
-                       device=A.device)
+    return torch.empty(max(nt * (nt * CLUSTER_BLOCK * CLUSTER_BLOCK + CLUSTER_BLOCK), least),
+                       dtype=torch.float32, device=A.device)
 
 
-def _barrier(A):
-    # K14's grid barrier: an arrival count and a generation, zero at launch
-    return torch.zeros(2, dtype=torch.int32, device=A.device)
+_SCRATCH = {}
+
+
+def _inv_scratch(n, device) -> int:
+    """Floats of K14's scratch at leaf size n (its pieces' slots), as the
+    library computes it."""
+    if n not in _SCRATCH:
+        _SCRATCH[n] = _cuda.query("gpr_tri_inv_leaf_scratch", device, n)
+    return _SCRATCH[n]
+
+
+_FLAGS = {}
+
+
+def _flags(device):
+    """K14's ticket, arrival counts and ready flags on the current stream:
+    zeroed once, and each launch leaves them zero again (its last CTA resets
+    them), so a call makes no fill.  One buffer a stream, so that launches
+    that may run at once never share one."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    if key not in _FLAGS:
+        ints = _cuda.query("gpr_tri_inv_leaf_flags", device)
+        _FLAGS[key] = torch.zeros(ints, dtype=torch.int32, device=device)
+    return _FLAGS[key]
 
 
 def _kernel_dtype(name, A):

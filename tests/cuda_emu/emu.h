@@ -9,8 +9,7 @@
 // shared memory, and the cluster barrier (gpr::cluster_arrive / wait) in
 // phases, as csrc/cluster.cuh declares them; its cp.async copies at once.
 // Any cluster size places (cudaOccupancyMaxActiveClusters answers 1).  A
-// cooperative launch (leaf.cu's K14) compiles but is refused.  A fiber
-// that waits at a barrier is not switched to until the barrier moves.  It
+// fiber that waits at a barrier is not switched to until the barrier moves.  It
 // checks a kernel's index arithmetic, synchronisation and rounding, never its
 // speed.
 #pragma once
@@ -43,8 +42,6 @@ typedef void* cudaStream_t;
 enum {
   cudaSuccess = 0,
   cudaErrorInvalidValue = 1,
-  cudaErrorNotSupported = 801,
-  cudaErrorCooperativeLaunchTooLarge = 720,
   cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
   cudaFuncAttributeNonPortableClusterSizeAllowed = 12,
   cudaDevAttrMultiProcessorCount = 16,
@@ -62,6 +59,7 @@ inline int max(int a, int b) { return a > b ? a : b; }
 #define __shared__ static
 #define __align__(x)
 #define __launch_bounds__(...)
+#define __grid_constant__
 
 namespace emu {
 struct Cta {
@@ -150,7 +148,6 @@ inline cudaError_t cudaOccupancyMaxActiveClusters(int* out, F, const cudaLaunchC
   *out = 1;
   return cudaSuccess;
 }
-// leaf.cu's cooperative launch (K14) compiles; the shim does not run it
 inline cudaError_t cudaGetDevice(int* d) {
   *d = 0;
   return cudaSuccess;
@@ -166,22 +163,6 @@ inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* v, F, int,
   *v = 1;
   return cudaSuccess;
 }
-inline cudaError_t cudaLaunchCooperativeKernel(const void*, dim3, dim3, void**, size_t, cudaStream_t) {
-  return cudaErrorNotSupported;
-}
-inline unsigned atomicAdd(unsigned* p, unsigned v) {
-  const unsigned o = *p;
-  *p += v;
-  return o;
-}
-inline unsigned atomicExch(unsigned* p, unsigned v) {
-  const unsigned o = *p;
-  *p = v;
-  return o;
-}
-inline long long clock64() { return 0; }
-inline void __nanosleep(unsigned) {}
-inline void __trap() { abort(); }
 
 // the running fiber's indices, set by the scheduler at every switch
 extern uint3_ threadIdx, blockIdx, gridDim;
@@ -206,6 +187,7 @@ inline float __shfl_xor_sync(unsigned, float v, int mask) {
 inline void __threadfence() {}
 inline float __ldcg(const float* p) { return *p; }
 inline float4 __ldcg(const float4* p) { return *p; }
+inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
 inline int atomicAdd(int* p, int v) {
   const int o = *p;
   *p += v;

@@ -29,10 +29,12 @@ the narrow solve is held to a float64 solve at JAX's own 5e-6 relative
 factors.  A K7 factor is also held at every width b = 1-128 (the kernel pads
 to a multiple of 32 with the identity).
 K12-K14's factor and inverse get 1e-5 relative against their plain versions
-(K14 the same 64-block algorithm, K12 and K13 32-wide blocks and K13's W by
-64-wide blocks and 64x64 products; float32 sums in other orders) and
-|W L - I| < 1e-4, as tests/test_ops.py:457-499 holds JAX's leaf kernels;
-K12 and K15 are bit-equal from call to call, and K13's factor is K12's.  K15
+(K12 by 32-wide blocks, K13's and K14's W by 32-wide diagonal blocks and
+64x64 product tiles summed in pieces of 32 to 128 terms, the plain versions
+by 64-wide blocks; float32 sums in other orders) and |W L - I| < 1e-4, as
+tests/test_ops.py:457-499 holds JAX's leaf kernels; K12, K14 and K15 are
+bit-equal from call to call, K13's factor is K12's and its W is K14's of
+that factor, bit for bit.  K15
 and K17 (a panel factored by 32-blocks and products with W, against
 cholesky_ex and a triangular solve) and the in-place factorization get 1e-5
 relative; K16's
@@ -1092,6 +1094,35 @@ def test_leaf_kernels(dev, n):
     view.copy_(saved)
     Lv, Wv = leaf.leaf_cholesky_wi(view, out=view)  # in place, as the recursion factors
     assert Lv.data_ptr() == view.data_ptr() and _relerr(view, Lr) <= 1e-5 and _relerr(Wv, Wr) <= 1e-5
+
+
+@pytest.mark.parametrize("n", [256, 512, 768, 1024])
+def test_tri_inv_leaf_kernel(dev, n):
+    # K14 on a strided view with NaN above the diagonal and all around it
+    Lr = torch.linalg.cholesky(_leaf_spd(n, dev, seed=n + 1).double()).float().contiguous()
+    buf = torch.full((n + 64, n + 200), float("nan"), device=dev)
+    view = buf[32:32 + n, 100:100 + n]
+    view.copy_(Lr + torch.triu(torch.full_like(Lr, float("nan")), 1))
+    _cuda.reset_launch_counts()
+    W = leaf.tri_inv_leaf(view)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()["tri_inv_leaf"] == 1  # one counted launch a call
+    assert bool(torch.all(torch.triu(W, 1) == 0)) and _relerr(W, leaf.tri_inv_leaf_reference(Lr)) <= 1e-5
+    assert float((W @ Lr - torch.eye(n, device=dev)).abs().max()) < 1e-4
+    assert torch.equal(leaf.tri_inv_leaf(Lr), W)  # only the lower triangle is read
+    assert torch.equal(leaf.tri_inv_leaf(view), W)  # fixed sum order, and the flags came back zero
+    assert not bool(leaf._flags(dev).any()) and bool(torch.isnan(buf[:32]).all())
+    L13, W13 = leaf.leaf_cholesky_wi(_leaf_spd(n, dev, seed=n + 2))
+    assert torch.equal(leaf.tri_inv_leaf(L13), W13)  # K13's inverse is K14's launch
+
+
+@pytest.mark.parametrize("where,pivot", [(0, 0.0), (511, float("nan")), (1023, 0.0)])
+def test_tri_inv_leaf_failed_pivot(dev, where, pivot):
+    L = torch.linalg.cholesky(_leaf_spd(1024, dev, seed=5).double()).float().contiguous()
+    L[where, where] = pivot
+    W = leaf.tri_inv_leaf(L)
+    assert not bool(torch.isfinite(W).all()) and bool(torch.all(torch.triu(W, 1) == 0))
+    assert not bool(leaf._flags(dev).any())
 
 
 def test_leaf_kernels_poison_a_failed_leaf(dev):

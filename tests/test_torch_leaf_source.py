@@ -1,5 +1,5 @@
-"""K12 leaf_chol's and K13 leaf_chol_wi's CUDA source (gpr_tpu_torch/csrc/
-leaf.cu, with tri_inv.cuh) run on the CPU:
+"""K12 leaf_chol's, K13 leaf_chol_wi's and K14 tri_inv_leaf's CUDA source
+(gpr_tpu_torch/csrc/leaf.cu, with tri_inv.cuh) run on the CPU:
 compiled by the host's g++ against tests/cuda_emu/emu.h, a shim that runs
 every thread as a fiber and the CTAs of the kernel's thread-block cluster
 together (s / 64 of them: 4 at s = 256, 8 at 512), each with its own shared
@@ -19,19 +19,36 @@ bit-identical (only the lower triangle is read), the factor in place over a
 strided A is the same factor, and a failed pivot poisons its row, every
 later one and L[-1, -1].
 
-K13 (K12's cluster factor, then W = L^-1 in the inverse's kernels: 32-wide
-diagonal blocks, then one pair of product kernels a doubling level) at the
-same s: L bit-identical to K12's (the same kernel), W L - I within 1e-4 in
-the max norm (as tests/test_ops.py:457-499 holds JAX's kernel) and W within
-1e-5 of the largest entry of the port's plain W and JAX's
-leaf_cholesky_wi(interpret=True) (float32 sums in other orders: the kernel
-by 32-wide blocks and 64x64 product tiles, the plain version by 64-wide
-blocks, JAX's by 256-wide ones), L against JAX's at K12's 1e-5; exact-zero
+K14 (one launch of a persistent grid: items by ticket, 64-wide diagonal
+blocks, then per doubling level 64x64 tiles of T = C inv(A) and W_CA =
+-inv(D) T in pieces of 32 to 128 terms, whose partials each consumer adds as
+it stages them and the tile's last piece adds into W).  The emulator runs
+the CTAs one after another, so one CTA takes every item in ticket order and
+emu.h's flag_wait aborts at once on a wait that order does not meet; with
+EMU_SMS=3 the other CTAs find no item left, and the last of them resets the
+flags.  leaf_main.cpp runs each launch twice on one set of flags and fails
+unless they come back zero, the two W are bit-identical and nothing is
+written past the scratch (as large as gpr_tri_inv_leaf_scratch says) or the
+flags (as many as gpr_tri_inv_leaf_flags says).  At s = 256 and 512, on a seeded float32 factor: W L - I within 1e-4
+in the max norm and W within 1e-5 of the largest entry of the port's plain W
+and JAX's tri_inv_leaf(interpret=True) (float32 sums in other orders: the
+kernel by 32-wide blocks and 64x64 tiles in 32- to 128-term pieces, the
+plain version by 64-wide blocks, JAX's by 256-wide ones); an exact-zero
+strict upper; NaN above the diagonal, a strided L and three CTAs leave W
+bit-identical; a zero or NaN pivot gives a non-finite W.
+
+K13 (K12's cluster factor, then K14's launch on it) at the same s: L
+bit-identical to K12's (the same kernel) and W bit-identical to K14 of that
+L (the same launch), W L - I within 1e-4 in the max norm (as
+tests/test_ops.py:457-499 holds JAX's kernel) and W within 1e-5 of the
+largest entry of the port's plain W and JAX's
+leaf_cholesky_wi(interpret=True), L against JAX's at K12's 1e-5; exact-zero
 strict uppers; NaN above the diagonal leaves L and W bit-identical; in place
 over a strided buffer the same L and W; a failed pivot gives NaN at
 L[-1, -1] and a non-finite W, as JAX's kernel does.
 """
 
+import os
 import subprocess
 
 import jax.numpy as jnp
@@ -64,6 +81,26 @@ def _run(exe, A, lda=None, inplace=False, wi=False):
     assert r.stdout.split() == ["clusters", "1"]  # the shim places any cluster
     L = np.fromfile(d / "L.bin", np.float32).reshape(s, s)
     return (L, np.fromfile(d / "W.bin", np.float32).reshape(s, s)) if wi else L
+
+
+def _run_inv(exe, L, ldl=None, ctas=1):
+    """K14 of the (s, s) L, placed in an (s, ldl) buffer whose other entries
+    are NaN, on `ctas` emulated CTAs (EMU_SMS)."""
+    s = L.shape[0]
+    ldl = ldl or s
+    buf = np.full((s, ldl), np.nan, np.float32)
+    buf[:, :s] = L
+    d = exe.parent
+    buf.tofile(d / "L.bin")
+    r = subprocess.run([str(exe), "inv", str(s), str(ldl), str(d / "L.bin"), str(d / "W.bin")], check=True,
+                       capture_output=True, text=True, env={**os.environ, "EMU_SMS": str(ctas)})
+    assert r.stdout.split()[0] == "scratch"
+    return np.fromfile(d / "W.bin", np.float32).reshape(s, s)
+
+
+def _factor(s, seed):
+    # a float32 factor of chip_smoke.py phase 18's leaf
+    return np.linalg.cholesky(_spd(s, seed).astype(np.float64)).astype(np.float32)
 
 
 def _spd(n, seed):
@@ -149,3 +186,37 @@ def test_leaf_wi_source_failed_pivot(leaf_binary, s, where):
     assert np.all(np.triu(L, 1) == 0) and np.all(np.triu(W, 1) == 0)
     Lj, Wj = jleaf.leaf_cholesky_wi(jnp.asarray(A), interpret=True)
     assert np.isnan(np.asarray(Lj)[-1, -1]) and not np.isfinite(np.asarray(Wj)).all()  # JAX's kernel too
+
+
+@pytest.mark.parametrize("s", [256, 512])
+def test_tri_inv_source_matches_plain_and_jax(leaf_binary, s):
+    L = _factor(s, seed=s + 4)
+    W = _run_inv(leaf_binary, L)
+    assert np.all(np.triu(W, 1) == 0)
+    assert np.abs(W.astype(np.float64) @ L - np.eye(s)).max() <= 1e-4
+    assert _rel(W, leaf.tri_inv_leaf_reference(torch.tensor(L)).numpy()) <= 1e-5
+    assert _rel(W, np.asarray(jleaf.tri_inv_leaf(jnp.asarray(_nan_upper(L)), interpret=True))) <= 1e-5
+    assert np.array_equal(_run_inv(leaf_binary, _nan_upper(L)), W)  # the upper triangle is never read
+
+
+@pytest.mark.parametrize("s,ldl", [(256, 300), (512, 520)])
+def test_tri_inv_source_strided_and_three_ctas(leaf_binary, s, ldl):
+    L = _nan_upper(_factor(s, seed=s + 5))
+    W = _run_inv(leaf_binary, L)
+    assert np.array_equal(_run_inv(leaf_binary, L, ldl=ldl), W)
+    assert np.array_equal(_run_inv(leaf_binary, L, ctas=3), W)
+
+
+@pytest.mark.parametrize("s,where,pivot", [(256, 0, 0.0), (256, 100, np.nan), (512, 63, 0.0),
+                                           (512, 511, np.nan)])
+def test_tri_inv_source_failed_pivot(leaf_binary, s, where, pivot):
+    L = _factor(s, seed=11)
+    L[where, where] = pivot
+    W = _run_inv(leaf_binary, L)
+    assert not np.isfinite(W).all() and np.all(np.triu(W, 1) == 0)
+
+
+@pytest.mark.parametrize("s", [256, 512])
+def test_leaf_wi_source_w_is_tri_inv_of_its_l(leaf_binary, s):
+    L, W = _run(leaf_binary, _nan_upper(_spd(s, seed=s + 6)), wi=True)
+    assert np.array_equal(_run_inv(leaf_binary, L), W)  # K13's inverse is K14's launch
