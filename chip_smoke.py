@@ -151,22 +151,41 @@ process per source, in parallel), then:
      513, on float64 or on the CPU);
  26. times K19 and K20 (sw 8 and 16) at n=256 and 512 in turns with their
      plain versions and torch.linalg.cholesky_ex, beside their bounds: each
-     call queued behind a device sleep, and each with the host's enqueue.
+     call queued behind a device sleep, and each with the host's enqueue;
+ 27. runs the samplers on bench_hmc's posterior (Gaussian(1, 1), sigma 0.1,
+     n=512, d=1, q=1, X = linspace(0, 10), Y = sin + 0.1 N(0, 1), float32),
+     the chains one fleet of GPs on route "fleet-crout": (a) the log
+     posterior's value + gradient at 16 chains over [-1, 1]^2 (one K7 launch
+     per 128-panel) against float64, and a chain forced singular (sigma 0)
+     that the safe fleet factor retries alone with jitter; (b) sample_hmc,
+     16 chains, L=16, warmup 128, 64 draws, its posterior mean held to a
+     use_crout=False run within 4 Monte Carlo standard errors, and the
+     sampling stage timed by resume_hmc from its checkpoint (samples/s,
+     leapfrog evaluations/s); (c) sample_nuts, 8 chains at n=256, warmup
+     128, 32 draws, max_depth 6, then draws/s at max_depth 4, 6 and 8; (d)
+     predictive_from_hmc on 32 of (b)'s draws at 1024 points (K6 once, K7 per
+     panel), mean and variance against float64, and its latency; (e)
+     fit_advi, 200 steps of 8 samples, its mean within 3 posterior sd of
+     (b)'s; (f) with the fused fleet on (route "fleet-fused"), (a)'s value +
+     gradient (K9 forward, K8 backward) and (d) (K6, K9); then traces one HMC
+     and one NUTS transition with torch.profiler for the card's idle share.
 
 Phase 4's fit and phase 6's training steps are the standing check at the
 breathing-fixture shape: their gates go to chip_smoke_out/breathing_check.json
 (gitignored), summed up on one line.
 
-Phases 2-4, 6, 8, 12, 19 and 22 hold the port's mean and credible interval against a
+Phases 2-4, 6, 8, 12, 19, 22 and 27 hold the port's mean and credible interval against a
 float64 torch reference and pass when the port's error is at most 3x that
 of the plain float32 torch route (torch Gram, torch.linalg.cholesky,
-cholesky_solve; for fleets also variance and alpha).  Phases 6, 7, 9, 12 and 22
+cholesky_solve; for fleets also variance and alpha; for phase 27's mixture
+predictive its mean and variance).  Phases 6, 7, 9, 12, 22 and 27
 hold each value and gradient of the marginal likelihood (at each training
-step's parameters; phase 15 too) against a float64 plain torch MLL (torch.linalg.cholesky
+step's parameters; phase 15 too; in 27 the log posterior) against a float64
+plain torch MLL (torch.linalg.cholesky
 + autograd) with the same 3x gate against the plain float32 MLL.  The launch
 counters are reset before each path (phases 2-5, 6, 7, 8-9, each of
-phase 12's four, 15's two, 16, 19's four, 22's seven, 23's two and 25's
-dispatcher) and read after it: each kernel of the path must have been
+phase 12's four, 15's two, 16, 19's four, 22's seven, 23's two, 25's
+dispatcher and 27's seven) and read after it: each kernel of the path must have been
 launched there.  Any failure raises.  The last lines are the kernels' JSON, the card's name and power
 limit, then one JSON object with the device.  Exits non-zero, printing no result, where there is no CUDA device.
 """
@@ -2628,6 +2647,342 @@ def main() -> int:
               + "; ".join(f"{k} {m:.4f} ms (runs {runs_text(r)})" for k, (m, r) in res.items()))
         print("    cholesky_ex / kernel: " + "; ".join(
             f"{k} {res['cholesky_ex'][0] / res[k][0]:.2f}x" for k in ("K19", "K20 sw=8", "K20 sw=16")))
+
+    # --------------------------------------------------------------- 27 ----
+    # the samplers (inference/hmc.py, nuts.py, advi.py, predictive.py) on
+    # bench_hmc's posterior (benchmarks/bench_hmc.py:24-58): Gaussian(1, 1),
+    # sigma 0.1, X = linspace(0, 10), Y = sin(X) + 0.1 N(0, 1) (seed 0), d=1,
+    # q=1, float32.  The chains are one fleet of GPs that share X and Y (route
+    # fleet-crout: K7 once per 128-panel of every leapfrog step's
+    # factorization); each path is driven with the counts set to 0 just
+    # before it and read just after
+    from gpr_tpu_torch.inference import advi as tadvi
+    from gpr_tpu_torch.inference import hmc as thmc
+    from gpr_tpu_torch.inference import nuts as tnuts
+    from gpr_tpu_torch.inference import predictive as tpred
+
+    t27 = time.perf_counter()
+    sampler_counts = []
+
+    def bench_hmc_data(n_):
+        r_ = np.random.default_rng(0)
+        x_ = np.linspace(0, 10, n_)
+        return t32(x_[:, None]), t32((np.sin(x_) + 0.1 * r_.standard_normal(n_))[:, None])
+
+    def value_grad(logp, z):
+        zz = z.detach().clone().requires_grad_()
+        with torch.enable_grad():
+            v = logp(zz)
+            (g,) = torch.autograd.grad(v.sum(), zz)
+        return v.detach(), g
+
+    def plain_logp(z, X, Y, sigma):
+        """Value and gradient of the straightforward log posterior, one chain
+        at a time, in the dtype of X: torch Gram, torch.linalg.cholesky,
+        cholesky_solve, autograd; the same terms as make_gp_log_posterior."""
+        n_ = X.shape[0]
+        vals, grads = [], []
+        for zc in z.to(X.dtype):
+            zz = zc.detach().clone().requires_grad_()
+            with torch.enable_grad():
+                th_ = torch.exp(zz)
+                K = gaussian64(X, X, th_[0], th_[1])
+                K = K + sigma * sigma * torch.eye(n_, dtype=X.dtype, device=X.device)
+                L = torch.linalg.cholesky(K)
+                alpha = torch.cholesky_solve(Y, L)
+                v = (-0.5 * (Y * alpha).sum() - torch.log(torch.diagonal(L)).sum()
+                     - n_ / 2.0 * math.log(2 * math.pi) + zz.sum())
+                (g,) = torch.autograd.grad(v, zz)
+            vals.append(v.detach())
+            grads.append(g)
+        return torch.stack(vals), torch.stack(grads)
+
+    def plain_mixture(X, Y, Xs, theta, sigma):
+        """The mixture predictive's mean and variance by the straightforward
+        GP per draw in the dtype of X (predictive.py:67-90's formulas)."""
+        means, vars_ = [], []
+        for l_, s_ in theta.to(X.dtype):
+            K = gaussian64(X, X, l_, s_) + sigma * sigma * torch.eye(X.shape[0], dtype=X.dtype,
+                                                                      device=X.device)
+            L = torch.linalg.cholesky(K)
+            Ks = gaussian64(Xs, X, l_, s_)
+            means.append(Ks @ torch.cholesky_solve(Y, L))
+            v = s_ * s_ - (Ks * torch.cholesky_solve(Ks.T, L).T).sum(1) + sigma * sigma
+            vars_.append(v.clamp(min=0.0))
+        means, vars_ = torch.stack(means), torch.stack(vars_)
+        mix = means.mean(0)
+        q_ = means.shape[-1]
+        spread = ((means ** 2).sum(-1) / q_).mean(0) - (mix ** 2).sum(-1) / q_
+        return mix, vars_.mean(0) + spread.clamp(min=0.0)
+
+    def trace_idle(fn):
+        """fn under torch.profiler: (host wall ms, device kernel ms, idle share)."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_:
+            t_w = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ = (time.perf_counter() - t_w) * 1e3
+        busy_ = 0.0
+        for e in prof_.key_averages():
+            if "CUDA" in str(e.device_type):
+                us = getattr(e, "self_device_time_total", None)
+                busy_ += (e.self_cuda_time_total if us is None else us) / 1e3
+        check(busy_ > 0, "the profiler saw no device time in a sampler transition")
+        return wall_, busy_, 1.0 - busy_ / wall_
+
+    nh, C = 512, 16
+    Xh, Yh = bench_hmc_data(nh)
+    k_h = tg.Gaussian(1.0, 1.0)
+    print(f"phase 27 the samplers on bench_hmc's posterior: Gaussian(1, 1), sigma 0.1, n={nh} d=1 q=1, "
+          "float32")
+
+    # (a) the log posterior's value + gradient, 16 chains at z over [-1, 1]^2
+    lp_h = thmc.make_gp_log_posterior(k_h, Xh, Yh, 0.1)
+    check(lp_h.route == "fleet-crout", f"the log posterior took route {lp_h.route}")
+    ga, gb = np.meshgrid(np.linspace(-1, 1, 4), np.linspace(-1, 1, 4), indexing="ij")
+    z16 = t32(np.stack([ga.ravel(), gb.ravel()], 1))
+    _cuda.reset_launch_counts()
+    v_a, g_a = value_grad(lp_h, z16)
+    torch.cuda.synchronize()
+    c = _cuda.launch_counts()
+    sampler_counts.append(c)
+    check(c["crout_chol"] == nh // fbatched.PANEL and c["gram_batched"] == 0,
+          f"log posterior launches {c}: one K7 per panel forward, none in the backward")
+    v64a, g64a = plain_logp(z16.double(), Xh.double(), Yh.double(), 0.1)
+    v32a, g32a = plain_logp(z16, Xh, Yh, 0.1)
+    gates_a = {"value": gate(v_a, v32a, v64a), "gradient": gate(g_a, g32a, g64a)}
+    print(f"  (a) value + gradient of 16 chains, route {lp_h.route}: rel err vs f64: "
+          + "; ".join(f"{k} {r['err']:.3g} (plain f32 {r['plain_f32_err']:.3g})" for k, r in gates_a.items())
+          + f"; launches {c}")
+    check(all(r["ok"] for r in gates_a.values()), "log posterior: error above 3x the plain f32 route's")
+    # one chain forced singular (sigma 0, a lengthscale 3 grid steps wide: K is
+    # rank-deficient in float32) beside three near-diagonal ones: the safe
+    # fleet factor retries it alone, with jitter, and leaves the others' factor
+    # and solve as the first attempt gave them
+    z_s = t32([[-4.5, 0.0], [-4.5, 0.3], [-2.8, 0.0], [-4.6, -0.2]])
+    th_s = torch.exp(z_s)
+    K_s = thmc._chain_grams(k_h, [th_s[:, 0], th_s[:, 1]], Xh, torch.zeros((), device=dev))
+    Y_s = Yh.expand(4, nh, 1).contiguous()
+    L_0, a_0, _ = fbatched._attempt("fleet-crout", K_s, Y_s, fbatched.PANEL)
+    first_ok = torch.isfinite(L_0[:, -1, -1]).tolist()
+    _cuda.reset_launch_counts()
+    L_s, a_s, jit_s = fbatched.factor_solve_safe(K_s, Y_s, "fleet-crout")
+    k7_s = _cuda.launch_counts()["crout_chol"]
+    keep = [0, 1, 3]
+    check(first_ok == [True, True, False, True], f"forced-singular chain: first attempt ok {first_ok}")
+    check(float(jit_s[2]) > 0 and bool((jit_s[keep] == 0).all()), f"jitter {jit_s.tolist()}")
+    check(torch.equal(L_s[keep], L_0[keep]) and torch.equal(a_s[keep], a_0[keep]),
+          "the chains that factored at once changed in the retry")
+    v_s = thmc.make_gp_log_posterior(k_h, Xh, Yh, 0.0)(z_s)
+    print(f"  (a) forced-singular chain (sigma 0, lengthscale {float(th_s[2, 0]):.4f}): retried alone with "
+          f"jitter {float(jit_s[2]):.3g} ({(k7_s - nh // fbatched.PANEL) // (nh // fbatched.PANEL)} retries, "
+          f"{k7_s} K7 launches), factor finite {bool(torch.isfinite(L_s[2, -1, -1]))}; the other three bit "
+          f"for bit the first attempt's; log posterior {[round(float(v), 2) for v in v_s]}")
+    del K_s, L_0, a_0, L_s, a_s
+
+    # (b) sample_hmc: 16 chains, L = 16, warmup 128, 64 draws
+    cfg_b = thmc.HMCConfig(num_warmup=128, num_samples=64, num_leapfrog=16)
+    z0h = torch.zeros((C, 2), device=dev)
+    _cuda.reset_launch_counts()
+    t_b = time.perf_counter()
+    res_b = tg.sample_hmc(lp_h, z0h, torch.Generator(dev).manual_seed(0), cfg_b)
+    torch.cuda.synchronize()
+    t_b = time.perf_counter() - t_b
+    c = _cuda.launch_counts()
+    sampler_counts.append(c)
+    acc_b = float(res_b.accept_rate.mean())
+    check(c["crout_chol"] > 0 and c["crout_chol"] % (nh // fbatched.PANEL) == 0, f"sample_hmc launches {c}")
+    check(bool(torch.isfinite(res_b.samples).all()) and res_b.samples.shape == (C, 64, 2),
+          "sample_hmc draws")
+    check(0.5 < acc_b <= 1.0, f"sample_hmc mean accept rate {acc_b}")
+    lp_t = thmc.make_gp_log_posterior(k_h, Xh, Yh, 0.1, use_crout=False)
+    t_t = time.perf_counter()
+    res_t = tg.sample_hmc(lp_t, z0h, torch.Generator(dev).manual_seed(0), cfg_b)
+    torch.cuda.synchronize()
+    t_t = time.perf_counter() - t_t
+    mean_b, mean_t = res_b.samples.mean((0, 1)).double(), res_t.samples.mean((0, 1)).double()
+    sd_b = res_b.samples.reshape(-1, 2).double().std(0)
+    mcse = torch.sqrt(sd_b ** 2 / thmc.effective_sample_size(res_b.samples.double())
+                      + res_t.samples.reshape(-1, 2).double().std(0) ** 2
+                      / thmc.effective_sample_size(res_t.samples.double()))
+    diff_b = (mean_b - mean_t).abs()
+    print(f"  (b) sample_hmc 16 chains, L=16, warmup 128, 64 draws: {t_b:.2f} s (route {lp_h.route}; "
+          f"use_crout=False {t_t:.2f} s), accept {acc_b:.3f}, step size {float(res_b.step_size):.4g}, "
+          f"posterior mean z {mean_b.tolist()} vs use_crout=False {mean_t.tolist()}: |diff| "
+          f"{diff_b.tolist()} <= 4 MCSE {(4 * mcse).tolist()}; launches {c}")
+    check(bool((diff_b <= 4 * mcse).all()), "sample_hmc: the fleet route's posterior mean left 4 MCSE")
+    # the sampling stage alone: resume_hmc from (b)'s checkpoint, 16 draws
+    os.makedirs("chip_smoke_out", exist_ok=True)
+    thmc.save_chain_checkpoint("chip_smoke_out/hmc_chains", res_b)
+    evals = [0]
+
+    def lp_counted(z):
+        evals[0] += 1
+        return lp_h(z)
+
+    torch.cuda.synchronize()
+    t_s = time.perf_counter()
+    res_r = thmc.resume_hmc(lp_counted, "chip_smoke_out/hmc_chains.npz",
+                            torch.Generator(dev).manual_seed(1), 16, cfg_b, device=dev)
+    torch.cuda.synchronize()
+    t_s = time.perf_counter() - t_s
+    check(bool(torch.isfinite(res_r.samples).all()), "resume_hmc draws")
+    hmc_rate, lf_rate = C * 16 / t_s, evals[0] / t_s
+    print(f"  HMC samples/s (16 chains x 16 draws / sampling stage {t_s:.3f} s): {hmc_rate:.1f} ({smi})")
+    print(f"  leapfrog evaluations/s (one fleet value + gradient of 16 chains each, {evals[0]} in the "
+          f"stage): {lf_rate:.1f} ({smi})")
+
+    # (c) sample_nuts: 8 chains at n=256, warmup 128, 32 draws, max_depth 6
+    Xn, Yn = bench_hmc_data(256)
+    lp_n = thmc.make_gp_log_posterior(k_h, Xn, Yn, 0.1)
+    check(lp_n.route == "fleet-crout", f"NUTS posterior route {lp_n.route}")
+    cfg_c = tnuts.NUTSConfig(num_warmup=128, num_samples=32, max_depth=6)
+    _cuda.reset_launch_counts()
+    t_c = time.perf_counter()
+    res_c = tg.sample_nuts(lp_n, torch.zeros((8, 2), device=dev), torch.Generator(dev).manual_seed(0),
+                           cfg_c)
+    torch.cuda.synchronize()
+    t_c = time.perf_counter() - t_c
+    c = _cuda.launch_counts()
+    sampler_counts.append(c)
+    acc_c = float(res_c.accept_rate.mean())
+    check(c["crout_chol"] > 0 and bool(torch.isfinite(res_c.samples).all()), f"sample_nuts {c}")
+    check(0.5 < acc_c <= 1.0, f"sample_nuts mean accept statistic {acc_c}")
+    mean_c = res_c.samples.mean((0, 1)).double()
+    print(f"  (c) sample_nuts 8 chains n=256, warmup 128, 32 draws, max_depth 6: {t_c:.2f} s, accept "
+          f"{acc_c:.3f}, step size {float(res_c.step_size):.4g}, posterior mean z {mean_c.tolist()}; "
+          f"launches {c}")
+    nuts_rates = {}
+    vg_n = thmc._value_and_grad(lp_n)
+    for D in (4, 6, 8):
+        cfg_d = tnuts.NUTSConfig(max_depth=D)
+        st = thmc.init_chains(lp_n, res_c.samples[:, -1].contiguous())
+        gen_d = torch.Generator(dev).manual_seed(D)
+
+        def nuts_step(s, g_, e_, im_, cfg_d=cfg_d):
+            return tnuts._nuts_transition(vg_n, s, g_, e_, im_, cfg_d)
+
+        torch.cuda.synchronize()
+        t_d = time.perf_counter()
+        _, zs_d, _ = thmc._sample_loop(nuts_step, st, gen_d, res_c.step_size, res_c.inv_mass, 8)
+        torch.cuda.synchronize()
+        t_d = time.perf_counter() - t_d
+        check(bool(torch.isfinite(zs_d).all()), f"NUTS draws at max_depth {D}")
+        nuts_rates[D] = 8 * 8 / t_d
+        print(f"  NUTS draws/s at max_depth {D} (8 chains x 8 draws, sampling stage {t_d:.3f} s, (c)'s "
+              f"step size and mass): {nuts_rates[D]:.1f} ({smi})")
+
+    # (d) predictive_from_hmc: 32 draws of (b), 1024 test points
+    Xs_d = t32(np.linspace(0, 10, 1024)[:, None])
+    theta_d = tpred.subsample_draws(res_b.samples, 32)
+    m64d, v64d = plain_mixture(Xh.double(), Yh.double(), Xs_d.double(), theta_d.double(), 0.1)
+    m32d, v32d = plain_mixture(Xh, Yh, Xs_d, theta_d, 0.1)
+
+    def predictive_gates(name):
+        _cuda.reset_launch_counts()
+        pr_ = tpred.predictive_from_hmc(k_h, res_b, Xh, Yh, Xs_d, 0.1, num_draws=32)
+        torch.cuda.synchronize()
+        c_ = _cuda.launch_counts()
+        check(pr_.mean.shape == (1024, 1) and pr_.variance.shape == (1024,)
+              and bool(torch.isfinite(pr_.mean).all() and torch.isfinite(pr_.variance).all()),
+              f"{name}: shapes or non-finite")
+        gates_ = {"mean": gate(pr_.mean, m32d, m64d), "variance": gate(pr_.variance, v32d, v64d)}
+        print(f"  {name}: rel err vs f64: " + "; ".join(
+            f"{k} {r['err']:.3g} (plain f32 {r['plain_f32_err']:.3g})" for k, r in gates_.items())
+            + f"; launches {c_}")
+        check(all(r["ok"] for r in gates_.values()), f"{name}: error above 3x the plain f32 route's")
+        return c_
+
+    c = predictive_gates("(d) predictive_from_hmc, 32 draws of (b), 1024 test points, route fleet-crout")
+    sampler_counts.append(c)
+    check(c["gram_batched"] == 1 and c["crout_chol"] == nh // fbatched.PANEL,
+          "the predictive's fit: one K6 launch, one K7 per panel")
+    pred_ms = median_ms(lambda: tpred.predictive_from_hmc(k_h, res_b, Xh, Yh, Xs_d, 0.1, num_draws=32), 5)
+    print(f"  predictive_from_hmc latency (32 draws, n={nh}, 1024 test points), median of 5: "
+          f"{pred_ms:.3f} ms ({smi})")
+
+    # (e) fit_advi: 200 steps, 8 samples a step
+    stamps = []  # the host clock at each step's log-posterior call
+
+    def lp_stamped(z):
+        stamps.append(time.perf_counter())
+        return lp_h(z)
+
+    _cuda.reset_launch_counts()
+    t_e = t_e0 = time.perf_counter()
+    res_e = tadvi.fit_advi(lp_stamped, torch.zeros(2, device=dev), torch.Generator(dev).manual_seed(0),
+                           num_steps=200, num_samples=8)
+    torch.cuda.synchronize()
+    t_e = time.perf_counter() - t_e
+    c = _cuda.launch_counts()
+    step_ms = np.diff(stamps) * 1e3
+    sampler_counts.append(c)
+    tr_e = res_e.elbo_trace
+    sd_post = res_b.samples.reshape(-1, 2).double().std(0)
+    off_e = (res_e.mean.double() - mean_b).abs()
+    print(f"  (e) fit_advi 200 steps x 8 samples: {t_e:.2f} s (steps: median {float(np.median(step_ms)):.2f} ms, "
+          f"mean {float(step_ms.mean()):.2f}, longest {float(step_ms.max()):.2f}, the first call's "
+          f"{(stamps[0] - t_e0) * 1e3:.2f} ms before its first step), ELBO first 20 {float(tr_e[:20].mean()):.3f} "
+          f"-> last 20 {float(tr_e[-20:].mean()):.3f}, mean {res_e.mean.tolist()} std {res_e.std.tolist()}; "
+          f"|mean - (b)'s| {off_e.tolist()} <= 3 sd {(3 * sd_post).tolist()}; launches {c}")
+    check(bool(torch.isfinite(tr_e).all()) and float(tr_e[-20:].mean()) > float(tr_e[:20].mean()),
+          "fit_advi: ELBO not finite or not climbing")
+    check(bool((off_e <= 3 * sd_post).all()), "fit_advi: mean beyond 3 posterior sd of (b)'s")
+    check(c["crout_chol"] == 200 * nh // fbatched.PANEL, f"fit_advi launches {c}")
+
+    # (f) the fused fleet (as phase 12 turns it on): (a)'s value + gradient and (d)
+    saved_max_n = fbatched._FLEET_FUSED_MAX_N
+    fbatched._FLEET_FUSED_MAX_N = 1024
+    try:
+        lp_f = thmc.make_gp_log_posterior(k_h, Xh, Yh, 0.1)
+        check(lp_f.route == "fleet-fused", f"fused log posterior took route {lp_f.route}")
+        _cuda.reset_launch_counts()
+        v_f, g_f = value_grad(lp_f, z16)
+        torch.cuda.synchronize()
+        c = _cuda.launch_counts()
+        sampler_counts.append(c)
+        gates_f = {"value": gate(v_f, v32a, v64a), "gradient": gate(g_f, g32a, g64a)}
+        print(f"  (f) fused value + gradient, route {lp_f.route}: rel err vs f64: "
+              + "; ".join(f"{k} {r['err']:.3g} (plain f32 {r['plain_f32_err']:.3g})"
+                          for k, r in gates_f.items()) + f"; launches {c}")
+        check(all(r["ok"] for r in gates_f.values()), "fused log posterior: error above 3x plain f32")
+        check(c["fleet_fused"] == 1 and c["crout_chol_wi"] == 1 and c["crout_chol"] == 0,
+              "fused value + gradient: one K9 forward, one K8 in the backward, no K7")
+        c = predictive_gates("(f) fused predictive_from_hmc, route fleet-fused")
+        sampler_counts.append(c)
+        check(c["gram_batched"] == 1 and c["fleet_fused"] == 1 and c["crout_chol"] == 0,
+              "fused predictive: one K6 and one K9 launch")
+    finally:
+        fbatched._FLEET_FUSED_MAX_N = saved_max_n
+    for c in sampler_counts:
+        for name, v in c.items():
+            counts[name] += v
+
+    # where a transition's time goes: one HMC transition (16 chains, 16 fixed
+    # leapfrog steps) and one NUTS transition (8 chains, max_depth 6) traced
+    vg_h = thmc._value_and_grad(lp_h)
+    st_h = thmc.init_chains(lp_h, res_b.samples[:, -1].contiguous())
+    cfg_fixed = thmc.HMCConfig(num_leapfrog=16, jitter_steps=False)
+    gen_h = torch.Generator(dev).manual_seed(3)
+    thmc._hmc_transition(vg_h, st_h, gen_h, res_b.step_size, res_b.inv_mass, cfg_fixed)  # warm-up
+    idle_h = trace_idle(lambda: thmc._hmc_transition(vg_h, st_h, gen_h, res_b.step_size, res_b.inv_mass,
+                                                     cfg_fixed))
+    st_n = thmc.init_chains(lp_n, res_c.samples[:, -1].contiguous())
+    leaves = [0]
+
+    def vg_counted(z):
+        leaves[0] += 1
+        return vg_n(z)
+
+    idle_n = trace_idle(lambda: tnuts._nuts_transition(vg_counted, st_n, torch.Generator(dev).manual_seed(4),
+                                                       res_c.step_size, res_c.inv_mass, cfg_c))
+    print(f"  idle share, one HMC transition (16 chains, 16 leapfrog steps, torch.profiler on): host "
+          f"{idle_h[0]:.2f} ms, device kernels {idle_h[1]:.3f} ms, idle {100 * idle_h[2]:.1f} % ({smi})")
+    print(f"  idle share, one NUTS transition (8 chains, max_depth 6, {leaves[0]} leaves, torch.profiler "
+          f"on): host {idle_n[0]:.2f} ms, device kernels {idle_n[1]:.3f} ms, idle {100 * idle_n[2]:.1f} % "
+          f"({smi})")
+    print(f"  phase 27 wall time {time.perf_counter() - t27:.1f} s")
 
     print(f"wall time: {time.perf_counter() - t_start:.1f} s")
 

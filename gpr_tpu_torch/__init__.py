@@ -3,8 +3,10 @@
 Mirrors gpr_tpu/__init__.py for the names ported so far: the kernel algebra
 and its string DSL with hyperparameter gradients, exact GP fit -> predict,
 save/load of the reference's 5-file model artifacts, the marginal
-likelihood with its gradient, the prior densities, MLE / MAP training and
-fleets of small GPs (fit, predict, likelihood and MLE of B GPs at once).
+likelihood with its gradient, the prior densities, MLE / MAP training,
+fleets of small GPs (fit, predict, likelihood and MLE of B GPs at once) and
+the hyperparameter samplers (HMC, NUTS, ADVI and the mixture predictive,
+whose chains and draws run as one fleet).
 On a CUDA tensor the fit, the likelihood and the fleet run through
 hand-written CUDA kernels (ops/gram.py, ops/fullchol.py, ops/syrk.py,
 ops/crout.py, ops/solve.py, ops/leaf.py; sources in csrc/); on a CPU tensor through their
@@ -41,6 +43,8 @@ from .gp.exact import GP, extend, fit, load, shrink  # noqa: F401
 from .gp.batched import fit_batched, mll_batched, predict_batched  # noqa: F401
 from .gp import likelihood  # noqa: F401
 from .inference.optimize import fit_map, fit_mle  # noqa: F401
+from .inference.hmc import HMCConfig, sample_hmc, sample_hmc_chunked  # noqa: F401
+from .inference.nuts import NUTSConfig, sample_nuts, sample_nuts_chunked  # noqa: F401
 from .ops.leaf import leaf_cholesky, leaf_cholesky_wi, tri_inv_leaf  # noqa: F401
 from .utils import config  # noqa: F401
 

@@ -95,12 +95,18 @@ def fleet_route(n: int, dtype: torch.dtype, device, use_crout: Optional[bool] = 
     return "fleet-fused" if n <= fused_max_n else "fleet-crout"
 
 
-def _factor_and_solve(K, Y, use_crout: Optional[bool]):
+def _factor_and_solve(K, Y, use_crout: Optional[bool], safe: bool = False):
     """(L, alpha, route) of a fleet K (B, n, n), Y (B, n, q)
     (batched.py:45-95).  ``use_crout`` None picks the route by
-    :func:`fleet_route`; True forces a fleet kernel route, False torch's."""
+    :func:`fleet_route`; True forces a fleet kernel route, False torch's.
+    ``safe`` retries failed members with jitter on the same route
+    (``ops.batched.factor_solve_safe``)."""
     n = K.shape[-1]
     route = fleet_route(n, K.dtype, K.device, use_crout)
+    if safe:
+        panel = _panel(n, fleet_ops.FUSED_PANEL if route == "fleet-fused" else fleet_ops.PANEL)
+        L, alpha, _ = fleet_ops.factor_solve_safe(K, Y, route, panel)
+        return L, alpha, route
     if route == "fleet-fused":
         L, alpha = fleet_ops.factor_solve_fused_diff(K, Y, _panel(n, fleet_ops.FUSED_PANEL))
         return L, alpha, route
@@ -136,14 +142,16 @@ def _noisy_gram(k, x, noise):
 
 
 def fit_batched(kernel, X, Y, sigma, jitter: float = 0.0, batched_kernel: bool = False,
-                use_crout: Optional[bool] = None, device=None) -> BatchedGP:
+                use_crout: Optional[bool] = None, device=None, safe: bool = False) -> BatchedGP:
     """Train B GPs at once: X (B, n, d), Y (B, n, q) or (B, n), sigma a
     scalar or (B,).  K + (sigma^2 + jitter) I, then the fleet factorization
-    and solve (batched.py:98-129); the route is in ``BatchedGP.route``."""
+    and solve (batched.py:98-129); the route is in ``BatchedGP.route``.
+    ``safe`` escalates jitter per failed member, as JAX's per-draw
+    ``safe_cholesky`` in the mixture predictive (predictive.py:73-75)."""
     X, Y, sigma = _fleet_inputs(X, Y, sigma, device)
     with torch.no_grad():
         K = _fleet_gram(kernel, X, sigma**2 + jitter, batched_kernel)
-        L, alpha, route = _factor_and_solve(K, Y, use_crout)
+        L, alpha, route = _factor_and_solve(K, Y, use_crout, safe)
     return BatchedGP(kernel=kernel, X=X, Y=Y, sigma=sigma, alpha=alpha, L=L,
                      batched_kernel=batched_kernel, route=route)
 

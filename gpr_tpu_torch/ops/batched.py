@@ -4,7 +4,8 @@ Mirrors gpr_tpu/ops/pallas_batched.py:306-773 (``batched_usable``,
 ``_diag_impl``, ``_crout_blocked_L``, ``diag_factor_inverse``,
 ``cholesky_batched``, ``cho_solve_batched``, ``factor_solve_fused``,
 ``factor_solve_batched_diff``, ``factor_solve_fused_diff`` and their
-custom_vjp pullback).
+custom_vjp pullback), and, for the samplers' fleets, the per-member jitter
+escalation of gpr_tpu/ops/linalg.py:166-290 (``factor_solve_safe``).
 
 Two schedules.  The panel sweep, a right-looking sweep over all members at
 once; per panel step k:
@@ -290,3 +291,106 @@ def factor_solve_fused_diff(K: torch.Tensor, Y: torch.Tensor, panel: int = FUSED
     """:func:`factor_solve_fused`, differentiable in K and Y through the same
     pullback, its fleet solve without the inverses (pallas_batched.py:751-773)."""
     return _FactorSolveFused.apply(K, Y, int(panel))
+
+
+# ---------------------------------------------------------------------------
+# the safe fleet factor: jitter escalation per member (linalg.py:166-290)
+# ---------------------------------------------------------------------------
+
+def _attempt(route: str, K: torch.Tensor, Y: torch.Tensor, panel: int):
+    """(L, alpha, W or None) of one factorization of the fleet on ``route``
+    (the names of gp/batched.py::fleet_route), without autograd."""
+    if route == "fleet-crout":
+        L, W = cholesky_batched(K, panel=panel, return_winv=True)
+        return L, cho_solve_batched(L, Y, panel=panel, winv=W), W
+    if route == "fleet-fused":
+        L, alpha = factor_solve_fused(K, Y, panel)
+        return L, alpha, None
+    L, info = torch.linalg.cholesky_ex(K)
+    L = torch.where((info != 0)[:, None, None], torch.nan, L)
+    return L, torch.cholesky_solve(Y, L), None
+
+
+def _escalate(route, K, Y, panel, initial_jitter, max_tries):
+    """The forward of :func:`factor_solve_safe`: one attempt on the whole
+    fleet, then up to ``max_tries`` retries of the members whose last
+    diagonal entry is not finite, with JAX's schedule (linalg.py:197-263):
+    ``initial_jitter`` or eps * max(mean |diag(K)[:1024]|, 1) on the first
+    retry, 10x on every later one.  The retries factor the failed members
+    alone, on the same route; each member's jitter stays once it factors."""
+    L, alpha, W = _attempt(route, K, Y, panel)
+    ok = torch.isfinite(L[:, -1, -1])
+    jitter = torch.zeros(K.shape[0], dtype=K.dtype, device=K.device)
+    if bool(ok.all()):  # the success path: one factorization, one read
+        return L, alpha, W, jitter, ok, True
+    h = min(K.shape[-1], 1024)
+    diag_mean = torch.diagonal(K[:, :h, :h], dim1=-2, dim2=-1).abs().mean(-1)
+    if initial_jitter > 0:
+        base = torch.full_like(diag_mean, initial_jitter)
+    else:
+        base = torch.finfo(K.dtype).eps * torch.clamp(diag_mean, min=1.0)
+    for tries in range(max_tries):
+        idx = torch.nonzero(~ok).squeeze(1)
+        jitter[idx] = base[idx] if tries == 0 else jitter[idx] * 10.0
+        Ln, an, Wn = _attempt(route, linalg.add_diagonal(K[idx], jitter[idx]), Y[idx], panel)
+        L[idx], alpha[idx] = Ln, an
+        if W is not None:
+            W[idx] = Wn
+        ok[idx] = torch.isfinite(Ln[:, -1, -1])
+        if bool(ok.all()):
+            return L, alpha, W, jitter, ok, True
+    return L, alpha, W, jitter, ok, False
+
+
+def _route_solve(route, L, B, panel, W):
+    if route == "torch-cholesky":
+        return torch.cholesky_solve(B, L)
+    # the fused route re-derives the inverses from L, one K8 launch (768-770)
+    return cho_solve_batched(L, B, panel=panel, winv=W)
+
+
+class _FactorSolveSafe(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, K, Y, route, panel, initial_jitter, max_tries):
+        L, alpha, W, jitter, ok, all_ok = _escalate(route, K, Y, panel, initial_jitter, max_tries)
+        ctx.save_for_backward(L, alpha, ok, *(() if W is None else (W,)))
+        ctx.route, ctx.panel, ctx.all_ok = route, panel, all_ok
+        ctx.mark_non_differentiable(jitter)
+        return L, alpha, jitter
+
+    @staticmethod
+    def backward(ctx, Lbar, abar, _jitter_bar):
+        L, alpha, ok, *W = ctx.saved_tensors
+        W = W[0] if W else None
+        # the pullback at the jittered point (the jitter is piecewise
+        # constant in K), exactly 0 for a member that never factored
+        # (linalg.py:272-287): its factor is replaced by I before the solves
+        if not ctx.all_ok:
+            okb = ok[:, None, None]
+            eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+            L = torch.where(okb, L, eye)
+            alpha, Lbar, abar = (torch.where(okb, t, 0.0) for t in (alpha, Lbar, abar))
+            if W is not None:
+                W = torch.where(ok[:, None, None, None], W, torch.eye(W.shape[-1], dtype=W.dtype,
+                                                                      device=W.device))
+        Ybar = _route_solve(ctx.route, L, abar, ctx.panel, W)
+        Ka = torch.matmul(Ybar, alpha.mT)
+        Kbar = linalg._chol_pullback(L, Lbar) - 0.5 * (Ka + Ka.mT)
+        if not ctx.all_ok:
+            Kbar, Ybar = torch.where(okb, Kbar, 0.0), torch.where(okb, Ybar, 0.0)
+        return Kbar, Ybar, None, None, None, None
+
+
+def factor_solve_safe(K: torch.Tensor, Y: torch.Tensor, route: str, panel: int = PANEL,
+                      initial_jitter: float = 0.0, max_tries: int = 6):
+    """(L, alpha, jitter) of a fleet K (B, n, n), Y (B, n, q) on ``route``
+    (``fleet-crout``, ``fleet-fused`` or ``torch-cholesky``) with JAX's
+    per-member jitter escalation (``safe_cholesky`` on a batch,
+    linalg.py:166-290): only members whose factor fails are retried, on the
+    same route, and a member that never factors comes back NaN with an
+    exactly-zero gradient.  Differentiable in K and Y; where every member
+    factors at once, the factor, alpha and the pullback are those of the
+    route's own functions (:func:`factor_solve_batched_diff`,
+    :func:`factor_solve_fused_diff`) on the same inputs.  Each attempt reads
+    ``ok.all()`` on the host once; the success path is one attempt."""
+    return _FactorSolveSafe.apply(K, Y, route, int(panel), float(initial_jitter), int(max_tries))

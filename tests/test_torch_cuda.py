@@ -1455,3 +1455,125 @@ def test_tile_chol_refuses_what_the_kernel_does_not_take(dev):
                  lambda: chol.cholesky_tile(_leaf_spd(513, dev, seed=7))):
         with pytest.raises(ValueError):
             call()
+
+
+# ---------------------------------------------------------------------------
+# the samplers on the fleet route (inference/hmc.py, nuts.py)
+# ---------------------------------------------------------------------------
+
+def _sampler_data(n=256, seed=30):
+    rng = np.random.default_rng(seed)
+    X = np.linspace(0, 10, n)[:, None]
+    return X, np.sin(X) + 0.1 * rng.standard_normal((n, 1))
+
+
+def test_log_posterior_route_and_launches_on_the_card(dev):
+    from gpr_tpu_torch.inference import hmc
+
+    X, Y = _sampler_data()
+    z = np.random.default_rng(31).uniform(-1, 1, (4, 2))
+    k = tg.Gaussian(1.0, 1.0)
+    f64 = hmc._value_and_grad(hmc.make_gp_log_posterior(k, X, Y, 0.1, device="cpu"))
+    f32 = hmc._value_and_grad(hmc.make_gp_log_posterior(k, X.astype(np.float32),
+                                                        Y.astype(np.float32), 0.1, device="cpu"))
+    lp = hmc.make_gp_log_posterior(k, _t(X, dev), _t(Y, dev), 0.1)
+    assert lp.route == "fleet-crout"
+    v64, g64 = f64(torch.tensor(z))
+    v32, g32 = f32(torch.tensor(z, dtype=torch.float32))
+    _cuda.reset_launch_counts()
+    v, g = hmc._value_and_grad(lp)(_t(z, dev))
+    # one factorization in the forward, none in the backward
+    assert _cuda.launch_counts()["crout_chol"] == 256 // fleet_ops.PANEL
+    assert _relerr(v.cpu().double(), v64) <= 3 * _relerr(v32.double(), v64) + 1e-7
+    assert _relerr(g.cpu().double(), g64) <= 3 * _relerr(g32.double(), g64) + 1e-6
+
+
+def test_safe_fleet_factor_retries_on_the_card(dev):
+    rng = np.random.default_rng(32)
+    B, n = 3, 256
+    K = np.stack([_spd_batch(rng, 1, n)[0] / n for _ in range(B)])
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    lam = np.linspace(0.1, 1.0, n)
+    lam[0] = -3e-3  # float32 eps * 10^k first passes it at k = 5, far from rounding
+    K[1] = (Q * lam) @ Q.T
+    Y = rng.standard_normal((B, n, 2))
+    Kt = _t(K, dev).requires_grad_()
+    _cuda.reset_launch_counts()
+    L, alpha, jitter = fleet_ops.factor_solve_safe(Kt, _t(Y, dev), "fleet-crout")
+    # the first attempt on all three, six retries of member 1 alone (eps * 10^k, k = 0..5)
+    assert _cuda.launch_counts()["crout_chol"] == 7 * n // fleet_ops.PANEL
+    eps = float(torch.finfo(torch.float32).eps)
+    assert jitter.tolist() == [0.0, pytest.approx(eps * 1e5, rel=1e-6), 0.0]
+    L0 = fleet_ops.cholesky_batched(Kt.detach())
+    assert torch.equal(L[[0, 2]], L0[[0, 2]])
+    truth = np.linalg.solve(K + jitter.cpu().double().numpy()[:, None, None] * np.eye(n), Y)
+    assert _relerr(alpha.detach().cpu().double(), torch.tensor(truth)) < 1e-2
+    (gK,) = torch.autograd.grad(alpha.sum() + torch.log(torch.diagonal(L, dim1=1, dim2=2)).sum(), Kt)
+    assert torch.isfinite(gK).all()
+
+
+def test_hmc_transition_on_the_card_matches_the_cpu(dev):
+    from gpr_tpu_torch.inference import hmc
+
+    X, Y = _sampler_data()
+    k = tg.Gaussian(1.0, 1.0)
+    z0 = np.random.default_rng(33).uniform(-0.3, 0.3, (4, 2)).astype(np.float32)
+    cfg = hmc.HMCConfig(num_leapfrog=4)
+    out = {}
+    for where in ("cpu", dev):
+        lp = hmc.make_gp_log_posterior(k, X.astype(np.float32), Y.astype(np.float32), 0.1,
+                                       use_crout=True, device=where)
+        st = hmc.init_chains(lp, torch.tensor(z0, device=where))
+        g = torch.Generator().manual_seed(0)
+        draws = hmc._hmc_draws(g, hmc.ChainState(*(t.cpu() for t in st)), cfg)
+        draws = hmc.HMCDraws(*(t.to(where) for t in draws))
+        _cuda.reset_launch_counts()
+        s1, acc = hmc._hmc_step(hmc._value_and_grad(lp), st, draws,
+                                torch.tensor(0.02, device=where), torch.ones(2, device=where), cfg)
+        out[str(where)] = (s1, acc, draws.u, _cuda.launch_counts()["crout_chol"])
+    (sc, ac, u, kc), (sg, ag, _, kg) = out["cpu"], out[str(dev)]
+    assert kc == 0 and kg == int(draws.n_steps.max()) * 256 // fleet_ops.PANEL
+    # both float32: the log posteriors (~1e2) differ by ~1e-3, and so do
+    # the log accept ratios
+    assert (ag.cpu() - ac).abs().max() < 1e-2
+    same = (u - ac).abs() > 2e-2  # decisions far from the uniform agree
+    assert same.any()
+    assert torch.allclose(sg.z.cpu()[same], sc.z[same], rtol=1e-4, atol=1e-5)
+
+
+def test_nuts_transition_on_the_card_matches_the_cpu(dev):
+    from gpr_tpu_torch.inference import hmc, nuts
+
+    mu = np.array([0.5, -1.0, 2.0])
+    sd = np.array([0.7, 1.2, 0.4])
+
+    def target(where):
+        m, s = torch.tensor(mu, device=where), torch.tensor(sd, device=where)
+        return lambda z: -0.5 * (((z - m) / s) ** 2).sum(-1)
+
+    cfg = nuts.NUTSConfig(max_depth=6)
+    z0 = np.random.default_rng(34).standard_normal((5, 3))
+    g = torch.Generator().manual_seed(1)
+    draws = nuts._nuts_draws(g, hmc.ChainState(torch.tensor(z0), torch.zeros(5),
+                                               torch.zeros(5, 3)), cfg)
+    out = []
+    for where in ("cpu", dev):
+        f = target(where)
+        st = hmc.init_chains(f, torch.tensor(z0, device=where))
+        s1, acc = nuts._nuts_step(hmc._value_and_grad(f), st, nuts.NUTSDraws(*(t.to(where) for t in draws)),
+                                  torch.tensor(0.3, dtype=torch.float64, device=where),
+                                  torch.ones(3, dtype=torch.float64, device=where), cfg)
+        out.append((s1.z.cpu(), acc.cpu()))
+    assert torch.allclose(out[0][0], out[1][0], rtol=1e-10, atol=1e-12)
+    assert torch.allclose(out[0][1], out[1][1], rtol=1e-10, atol=1e-12)
+    # and on the fleet route: every leaf one factorization of n / 128 K7 launches
+    X, Y = _sampler_data()
+    lp = hmc.make_gp_log_posterior(tg.Gaussian(1.0, 1.0), _t(X, dev), _t(Y, dev), 0.1)
+    st = hmc.init_chains(lp, _t(np.zeros((4, 2)), dev))
+    _cuda.reset_launch_counts()
+    s1, acc = nuts._nuts_transition(hmc._value_and_grad(lp), st, torch.Generator(dev).manual_seed(2),
+                                    torch.tensor(0.02, device=dev), torch.ones(2, device=dev),
+                                    nuts.NUTSConfig(max_depth=4))
+    launches = _cuda.launch_counts()["crout_chol"]
+    assert launches > 0 and launches % (256 // fleet_ops.PANEL) == 0
+    assert torch.isfinite(s1.z).all() and ((acc >= 0) & (acc <= 1)).all()
