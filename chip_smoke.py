@@ -168,13 +168,45 @@ process per source, in parallel), then:
      fit_advi, 200 steps of 8 samples, its mean within 3 posterior sd of
      (b)'s; (f) with the fused fleet on (route "fleet-fused"), (a)'s value +
      gradient (K9 forward, K8 backward) and (d) (K6, K9); then traces one HMC
-     and one NUTS transition with torch.profiler for the card's idle share.
+     and one NUTS transition with torch.profiler for the card's idle share;
+ 28. runs the sparse GP, its log posterior, the learn -> predict apps and
+     the PCA at full width (``phase_28``, sizes in ``P28``;
+     chip_tools/phase28.py runs it alone): (a) at bench_sparse's shape
+     (benchmarks/bench_sparse.py:45-58: Gaussian(2, 1), sigma 0.3, jitter
+     1e-4, n=16384, d=8, q=4, Z = X[::n // m][:m]) fit_sparse at m=512
+     (route torch-cholesky) and 1024 (fused-matrix: K2-K4), the mean at 1024
+     points, the credible interval at 64, the likelihood's value + gradient,
+     the inducing gradient and the Titsias bound, each against the plain
+     sparse GP in float64 and float32 (torch Gram, cholesky_ex with
+     safe_cholesky's jitter schedule, cholesky_solve), the jitter each took,
+     and CUDA-event times of the fit and of the value + gradient beside the
+     exact fit at the same n; (b) optimize_inducing and fit_svgp at n=4096,
+     m=256, 20 Adam steps each (the trace finite and ending above its
+     start); (c) the sparse log posterior of 16 chains on a 4 x 4 grid of z
+     over [-1, 1]^2, n=16384, m=512 (route fleet-crout: K7 once a panel of
+     each factorization of the 32-member fleet) against the plain one a
+     chain at a time; (d) learn -> predict through main(argv) on a synthetic
+     breathing dataset written under chip_smoke_out/phase28 (3773 training
+     and 64 test frames, tests/test_apps.py's recipe with 64 x 64 US frames
+     and 3 x 16^3 DVFs, cut from full image size so that ~7.7k files write
+     and parse within the phase): the exact mode (route fused-gram: K2-K4 in
+     learn), sparse_inducing 512 and tests/test_ar_pipeline.py's perform_ar
+     configuration, each in float32 and under the parity policy (float64)
+     on the card; the predicted DVFs of each float32 run held to the float64
+     run's beside the plain float32 chain (the port's PCA, then the plain
+     GP), and the per-frame predict latency (the median of
+     -latestInferenceTime.txt); (e) fit_pca's Gram trick at d = 3 * 64^3,
+     N = 1024 in float32 against float64 (64 modes 100 * 0.95^k over noise
+     1e-3; fit_pca runs no kernel of the port, so its plain float32 route is
+     itself: the bounds are stated, max |d sigma| <= 8 sqrt(eps32) sigma_1
+     for every mode, the null one included, and the rank-64 reconstruction
+     within 1e-3), timed.
 
 Phase 4's fit and phase 6's training steps are the standing check at the
 breathing-fixture shape: their gates go to chip_smoke_out/breathing_check.json
 (gitignored), summed up on one line.
 
-Phases 2-4, 6, 8, 12, 19, 22 and 27 hold the port's mean and credible interval against a
+Phases 2-4, 6, 8, 12, 19, 22, 27 and 28 hold the port's mean and credible interval against a
 float64 torch reference and pass when the port's error is at most 3x that
 of the plain float32 torch route (torch Gram, torch.linalg.cholesky,
 cholesky_solve; for fleets also variance and alpha; for phase 27's mixture
@@ -185,7 +217,7 @@ plain torch MLL (torch.linalg.cholesky
 + autograd) with the same 3x gate against the plain float32 MLL.  The launch
 counters are reset before each path (phases 2-5, 6, 7, 8-9, each of
 phase 12's four, 15's two, 16, 19's four, 22's seven, 23's two, 25's
-dispatcher and 27's seven) and read after it: each kernel of the path must have been
+dispatcher, 27's seven and 28's seven) and read after it: each kernel of the path must have been
 launched there.  Any failure raises.  The last lines are the kernels' JSON, the card's name and power
 limit, then one JSON object with the device.  Exits non-zero, printing no result, where there is no CUDA device.
 """
@@ -225,6 +257,17 @@ def gate(port, plain, ref):
     return {"err": e, "plain_f32_err": p, "limit": 3 * p, "ok": e <= 3 * p}
 
 
+def gate32(port, plain, ref):
+    """:func:`gate` with a floor at float32's resolution: a result is not
+    held closer to float64 than two float32 ulps of its largest entry
+    (2 eps relative), where the plain route's error is below one by the luck
+    of its rounding (a sum of 16384 terms near 1e5 is exact to ~1 ulp)."""
+    g = gate(port, plain, ref)
+    g["limit"] = max(g["limit"], 2 * float(np.finfo(np.float32).eps))
+    g["ok"] = g["err"] <= g["limit"]
+    return g
+
+
 def gaussian64(A, B, sigma, scale):
     """Gaussian Gram matrix k(A, B) in the dtype of A."""
     d2 = (A * A).sum(1)[:, None] + (B * B).sum(1)[None, :] - 2.0 * (A @ B.T)
@@ -254,6 +297,655 @@ def fit_gates(gp, X, Y, Xs, kfun, kss, sigma):
     return {"mean": gate(gp.predict(Xs), m32, m64),
             "credible_interval": gate(gp.credible_interval(Xs), c32, c64),
             "alpha": gate(gp.alpha, a32, a64)}
+
+
+# ---------------------------------------------------------------------------
+# phase 28: the sparse GP, its log posterior, the learn -> predict apps, PCA
+# ---------------------------------------------------------------------------
+
+def events_ms(fn, reps):
+    """Median of CUDA events around fn over ``reps`` calls, after one warm-up."""
+    import torch
+
+    fn()
+    out = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return float(np.median(out))
+
+
+def plain_chol(A):
+    """(L, jitter): torch.linalg.cholesky_ex, retried on failure with
+    safe_cholesky's schedule (eps * max(mean |diag|, 1), then 10x a try)."""
+    import torch
+
+    L, info = torch.linalg.cholesky_ex(A)
+    if int(info) == 0:
+        return L, 0.0
+    jit = torch.finfo(A.dtype).eps * max(float(A.detach().diagonal()[:1024].abs().mean()), 1.0)
+    eye = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+    for _ in range(6):
+        L, info = torch.linalg.cholesky_ex(A + jit * eye)
+        if int(info) == 0:
+            return L, jit
+        jit *= 10.0
+    raise RuntimeError("chip_smoke: FAILED: a plain factorization failed at every jitter")
+
+
+def plain_sparse(Z, X, Y, ls, sc, sigma, jitter, Xs=None, Xc=None):
+    """The straightforward sparse GP of gp/sparse.py's algebra with a Gaussian
+    kernel (lengthscale ls, scale sc) in the dtype of X: torch Gram,
+    plain_chol, cholesky_solve; differentiable where ls, sc or Z carry a
+    graph.  Returns the likelihood's value (q,) and scalar, the Titsias
+    bound, the mean at Xs, the credible interval at Xc and the jitters."""
+    import torch
+
+    n, m = X.shape[0], Z.shape[0]
+    s2 = sigma * sigma
+    Kmm = gaussian64(Z, Z, ls, sc) + jitter * torch.eye(m, dtype=X.dtype, device=X.device)
+    Knm = gaussian64(X, Z, ls, sc)
+    Lmm, j_mm = plain_chol(Kmm)
+    Li, j_in = plain_chol(Kmm + Knm.T @ Knm / s2)
+    t = Knm.T @ Y
+    CinvY = (Y - Knm @ torch.cholesky_solve(t / s2, Li)) / s2
+    df = -0.5 * (Y * CinvY).sum(0)
+    cp = -0.5 * (n * math.log(s2) + 2 * torch.log(Li.diagonal()).sum() - 2 * torch.log(Lmm.diagonal()).sum())
+    ct = -n / 2.0 * math.log(2 * math.pi)
+    scalar = df.sum() + cp + ct
+    V = torch.linalg.solve_triangular(Lmm, Knm.T, upper=False)
+    out = {"value": df + cp + ct, "scalar": scalar, "jitter": (j_mm, j_in),
+           "elbo": scalar - (n * sc * sc - (V * V).sum()) / (2 * s2)}
+    if Xs is not None:
+        out["mean"] = gaussian64(Xs, Z, ls, sc) @ (torch.cholesky_solve(t, Li) / s2)
+    if Xc is not None:
+        Kc = gaussian64(Xc, Z, ls, sc)
+        var = (sc * sc - (Kc * torch.cholesky_solve(Kc.T, Lmm).T).sum(1)
+               + (Kc * torch.cholesky_solve(Kc.T, Li).T).sum(1))
+        out["ci"] = 2.0 * torch.sqrt(var.clamp(min=0.0))
+    return out
+
+
+def residual_gate(L, Lp, A64):
+    """The backward error ||F F^T - A||_F / ||A||_F of the port's factor L
+    beside the plain factor Lp's, for one matrix or a fleet (the fleet's
+    largest), A in float64; passes within 3x the plain error."""
+    import torch
+
+    def resid(F):
+        F = F.double()
+        return float((torch.linalg.matrix_norm(F @ F.mT - A64) / torch.linalg.matrix_norm(A64)).max())
+
+    r, rp = resid(L), resid(Lp)
+    return {"err": r, "plain_f32_err": rp, "limit": 3 * rp, "ok": r <= 3 * rp}
+
+
+def launches_since(c0):
+    from gpr_tpu_torch.ops import _cuda
+
+    return {k: v - c0[k] for k, v in _cuda.launch_counts().items() if v != c0[k]}
+
+
+def factor_gates(A, jm, port, plain):
+    """A factorization route's kernels against the route's plain torch
+    version on the identical float32 matrix (or fleet) A + jm I, on the card:
+    ``port(Aj)`` -> (L, jitter), ``plain(Aj)`` -> L.  jm is 10x the largest
+    jitter the route or torch's Cholesky needed on A (0 where none did), so
+    both factor at the first attempt.  Returns the port's launches and the
+    gates, each within 3x the plain version's error: the backward error of
+    L L^T, and L against float64's factor; with torch's ``cholesky_ex``
+    beside them."""
+    import torch
+
+    from gpr_tpu_torch.ops import _cuda
+    from gpr_tpu_torch.ops import linalg as tlin
+
+    Aj = tlin.add_diagonal(A, jm)
+    c0 = _cuda.launch_counts()
+    L, j = port(Aj)
+    torch.cuda.synchronize()
+    launches = launches_since(c0)
+    Lr = plain(Aj)
+    Lc, info = torch.linalg.cholesky_ex(Aj)
+    check(bool((j == 0).all()) and bool(torch.isfinite(Lr[..., -1, -1]).all()) and bool((info == 0).all()),
+          f"factor check at jitter {jm}: the port retried {int((j != 0).sum())}, the plain version failed "
+          f"{int((~torch.isfinite(Lr[..., -1, -1])).sum())}, cholesky_ex {int((info != 0).sum())}")
+    A64 = Aj.double()
+    L64 = torch.linalg.cholesky(A64)
+    return launches, {"LL^T": residual_gate(L, Lr, A64), "L": gate(L, Lr, L64),
+                      "cholesky_ex LL^T": residual_gate(Lc, Lr, A64), "cholesky_ex L": gate(Lc, Lr, L64)}
+
+
+def factor_check(A):
+    """``safe_cholesky`` (K2-K4 on ``fused-matrix``) on a float32 matrix
+    against ``fused_cholesky_reference``, the plain version of its steps
+    (see :func:`factor_gates`); returns jm, the launches and the gates."""
+    from gpr_tpu_torch.ops import fullchol
+    from gpr_tpu_torch.ops import linalg as tlin
+
+    jm = 10.0 * max(float(tlin.safe_cholesky(A)[1]), plain_chol(A)[1])
+    return (jm, *factor_gates(A, jm, tlin.safe_cholesky, lambda Aj: fullchol.fused_cholesky_reference(Aj)[0]))
+
+
+def fleet_factor_check(K, panel):
+    """The sparse log posterior's fleet factor (``factor_solve_safe`` on
+    ``fleet-crout``: K7 on the diagonal blocks) on a fleet K (B, m, m)
+    against the same panel sweep with K7's plain version (see
+    :func:`factor_gates`), each member at its own jitter."""
+    import torch
+
+    from gpr_tpu_torch.ops import batched as fbatched
+    from gpr_tpu_torch.ops import crout as fcrout
+
+    Y = torch.zeros(K.shape[0], K.shape[-1], 1, dtype=K.dtype, device=K.device)
+    jm = 10.0 * torch.maximum(fbatched.factor_solve_safe(K, Y, "fleet-crout", panel)[2],
+                              fbatched.factor_solve_safe(K, Y, "torch-cholesky")[2])
+
+    def plain_diag(D, out):
+        L = out.copy_(fcrout.crout_chol_reference(D))
+        return L, fbatched._tri_inverse(L)
+
+    def port(Kj):
+        L, _, j = fbatched.factor_solve_safe(Kj, Y, "fleet-crout", panel)
+        return L, j
+
+    return (jm, *factor_gates(K, jm, port, lambda Kj: fbatched.cholesky_batched(Kj, panel=panel,
+                                                                                diag=plain_diag)))
+
+
+def write_breathing_dataset(root, n_train, n_test, hw, dvf_shape, seed=0):
+    """tests/test_apps.py's synthetic_dataset at other sizes, written with the
+    port's imageio as float32 VTK: hw x hw 'US' frames whose intensity
+    pattern moves with a phase of 12 frames a breath, and 3-component DVFs
+    (sin, 0.5 cos, 0.25 sin 2 of the phase, noise 0.005) that follow it."""
+    from gpr_tpu_torch.pipeline import imageio as tio
+
+    rng = np.random.default_rng(seed)
+    yy = np.mgrid[0:hw, 0:hw][0]
+    paths = {}
+    for split, count, start in (("train", n_train, 0), ("test", n_test, n_train)):
+        us_dir, dvf_dir = os.path.join(root, split, "us"), os.path.join(root, split, "dvf")
+        os.makedirs(us_dir)
+        os.makedirs(dvf_dir)
+        for i, ph in enumerate(2 * np.pi * np.arange(start, start + count) / 12.0):
+            us = np.clip(127 + 100 * np.sin(2 * np.pi * yy / hw + ph) + rng.normal(0, 1.0, (hw, hw)), 0, 255)
+            base = np.stack([np.full(dvf_shape, np.sin(ph)), np.full(dvf_shape, 0.5 * np.cos(ph)),
+                             np.full(dvf_shape, 0.25 * np.sin(2 * ph))], axis=-1)
+            dvf = base + rng.normal(0, 0.005, base.shape)
+            tio.write_image(tio.Image(us.astype(np.float32), (1, 1), (0, 0)), f"{us_dir}/us{i:05d}.vtk")
+            tio.write_image(tio.Image(dvf.astype(np.float32), (1, 1, 1), (0, 0, 0), ncomponents=3),
+                            f"{dvf_dir}/df{i:05d}.vtk")
+        paths[split] = (us_dir, dvf_dir)
+    return paths
+
+
+AR_P = 2  # tests/test_ar_pipeline.py's configuration: AR order = frames a sweep
+AR_CONFIG_MODEL = {"perform_ar": True, "n_inputModes": 4, "n_outputModes": 3, "ar_n": 1, "ar_p": AR_P,
+                   "kernel_string": "GaussianKernel(2, 1,)", "data_noise": 0.01}
+AR_CONFIG_LEARN = {"use_precomputed": False, "n_trainImgs": 0, "start_trainInd": 0,
+                   "ar_batchSizeTrain": [AR_P], "ar_batchRepetitionTrain": [10],
+                   "ar_batchSizeTest": [AR_P], "ar_batchRepetitionTest": [4],
+                   "ar_onePredictionPerBatchTest": True, "ar_batchSize": [AR_P],
+                   "ar_batchRepetition": [16], "ar_onePredictionPerBatch": True}
+AR_CONFIG_PREDICT = {"use_precomputed": False, "compute_groundtruth_features": False,
+                     "ar_batchSize": [AR_P], "ar_batchRepetition": [6], "ar_onePredictionPerBatch": True}
+
+
+def write_ar_dataset(root, seed=0):
+    """tests/test_ar_pipeline.py's ar_dataset: sweeps of 2 frames (10 x 10),
+    one DVF (2 x 3 x 4) a sweep at the phase one frame past its end; 16
+    training and 6 test sweeps, 10 and 4 AR sweeps."""
+    from gpr_tpu_torch.pipeline import imageio as tio
+
+    rng = np.random.default_rng(seed)
+    dphi = 2 * np.pi / 10
+    yy = np.mgrid[0:10, 0:10][0]
+    dirs = {}
+    for name in ("us_train", "us_test", "dvf_train", "dvf_test", "ar/train", "ar/test"):
+        dirs[name] = os.path.join(root, name)
+        os.makedirs(dirs[name])
+
+    def dvf_frame(ph):
+        return np.stack([np.full((2, 3, 4), np.sin(ph)), np.full((2, 3, 4), 0.6 * np.cos(ph)),
+                         np.full((2, 3, 4), 0.3 * np.sin(ph))], axis=-1)
+
+    def sweeps(us_dir, dvf_dir, count, phase0):
+        for s in range(count):
+            base = phase0 + s * AR_P * dphi
+            for f in range(AR_P):
+                us = np.clip(127 + 100 * np.sin(2 * np.pi * yy / 10 + base + f * dphi)
+                             + rng.normal(0, 0.5, (10, 10)), 0, 255)
+                tio.write_image(tio.Image(us, (1, 1), (0, 0)), f"{us_dir}/us{s * AR_P + f:05d}.vtk")
+            if dvf_dir is not None:
+                dvf = dvf_frame(base + AR_P * dphi) + rng.normal(0, 0.003, (2, 3, 4, 3))
+                tio.write_image(tio.Image(dvf, (1, 1, 1), (0, 0, 0), ncomponents=3), f"{dvf_dir}/df{s:05d}.vtk")
+
+    sweeps(dirs["us_train"], dirs["dvf_train"], 16, 0.0)
+    sweeps(dirs["us_test"], dirs["dvf_test"], 6, 1.234)
+    sweeps(dirs["ar/train"], None, 10, 0.321)
+    sweeps(dirs["ar/test"], None, 4, 2.1)
+    return dirs
+
+
+def plain_app(learn_dirs, test_us, cm, dev, ar=None):
+    """The learn -> predict chain computed straightforwardly in float32 on
+    the card: the port's PCA (plain torch; no kernel of the port), then the
+    plain GP (torch Gram, plain_chol, cholesky_solve) or plain_sparse, and
+    for AR a per-feature pinv least squares with one prediction a batch.
+    Returns the predicted DVFs (features, frames)."""
+    import torch
+
+    from gpr_tpu_torch.pipeline import dataparser as tdp
+    from gpr_tpu_torch.pipeline import pca as tpca
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    us = tdp.parse_image_files(tdp.list_files(learn_dirs[0]))
+    dvf = t(tdp.parse_displacement_files(tdp.list_files(learn_dirs[1])))
+    te = tdp.parse_image_files(tdp.list_files(test_us))
+    n_in, n_out = cm["n_inputModes"], cm["n_outputModes"]
+    out_pca = tpca.fit_pca(dvf)
+    Ytr = out_pca.reduce(dvf, n_out).T
+    if ar is None:
+        in_pca = tpca.fit_pca(t(us))
+        Xtr, Xte = in_pca.reduce(t(us), n_in).T, in_pca.reduce(t(te), n_in).T
+    else:
+        ar_tr = tdp.parse_image_files(tdp.list_files(ar + "/train"))
+        ar_te = tdp.parse_image_files(tdp.list_files(ar + "/test"))
+        concat = t(np.concatenate([us, ar_tr, ar_te], axis=1))
+        in_pca = tpca.fit_pca(concat)
+        F = in_pca.reduce(concat, n_in)
+        f_in, f_ar = F[:, :us.shape[1]].T, F[:, us.shape[1]:us.shape[1] + ar_tr.shape[1]].T
+
+        def design(series):
+            # batches of AR_P frames: per batch one row [x_t, x_{t-1}, ...], zero-padded
+            rows = []
+            for b in range(series.shape[0] // AR_P):
+                xb = series[b * AR_P:(b + 1) * AR_P]
+                for r in range(AR_P - 1):
+                    rows.append(torch.stack([xb[r - k] if r >= k else torch.zeros_like(xb[0])
+                                             for k in range(AR_P)]))
+            return torch.stack(rows), series.reshape(-1, AR_P, series.shape[1])[:, 1:].reshape(-1, series.shape[1])
+
+        D, Yar = design(f_ar)  # (K, p, F), (K, F)
+        theta = torch.stack([torch.linalg.pinv(D[:, :, f]) @ Yar[:, f] for f in range(D.shape[2])], 1)
+
+        def rollout(series):
+            Dp, _ = design(series)
+            return torch.einsum("kpf,pf->kf", Dp, theta)  # one step ahead; one row a batch at p = 2
+
+        Xtr, Xte = rollout(f_in), rollout(in_pca.reduce(t(te), n_in).T)
+    ls, sc = 2.0, 1.0
+    noise = float(cm["data_noise"])
+    if cm.get("sparse_inducing"):
+        idx = np.linspace(0, Xtr.shape[0] - 1, cm["sparse_inducing"]).astype(int)
+        mean = plain_sparse(Xtr[idx], Xtr, Ytr, ls, sc, noise, 1e-8, Xs=Xte)["mean"]
+    else:
+        K = gaussian64(Xtr, Xtr, ls, sc)
+        K.diagonal().add_(noise * noise)
+        L, _ = plain_chol(K)
+        mean = gaussian64(Xte, Xtr, ls, sc) @ torch.cholesky_solve(Ytr, L)
+    return out_pca.reconstruct(mean.T, n_out)
+
+
+def read_dvfs(result_dir):
+    from gpr_tpu_torch.pipeline import imageio as tio
+
+    names = sorted(os.listdir(result_dir))
+    return np.stack([tio.read_image(os.path.join(result_dir, f)).flatten() for f in names], axis=1)
+
+
+# phase 28's sizes: (a) bench_sparse's n and m and the lengthscale of the
+# well-conditioned case, (b) the Adam runs, (c) the chains, (d) the apps'
+# dataset (the breathing shape's 3773 frames, images cut), (e) the PCA at
+# full image width
+P28 = {"n": 16384, "ms": (512, 1024), "ls_wc": 0.8, "nb": 4096, "mb": 256, "chains": 16, "mc": 512,
+       "n_train": 3773, "n_test": 64, "hw": 64, "dvf": (16, 16, 16), "m_app": 512,
+       "dP": 3 * 64 ** 3, "NP": 1024, "r": 64}
+
+
+def phase_28(dev, smi, t32):
+    """Phase 28 at the sizes of ``P28``; returns the launch counts of its paths."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    import gpr_tpu_torch as tg
+    from gpr_tpu_torch.apps import learn as tlearn
+    from gpr_tpu_torch.apps import predict as tpredict
+    from gpr_tpu_torch.gp import batched as fleet
+    from gpr_tpu_torch.gp import sparse as tsp
+    from gpr_tpu_torch.inference import hmc as thmc
+    from gpr_tpu_torch.ops import _cuda
+    from gpr_tpu_torch.ops import batched as fbatched
+    from gpr_tpu_torch.ops import linalg as tlin
+    from gpr_tpu_torch.pipeline import pca as tpca
+    from gpr_tpu_torch.utils import config as tconfig
+
+    t28 = time.perf_counter()
+    path_counts = []
+    fused = ("panel_update", "diag_factor_inv", "panel_solve")
+
+    def show(gates):
+        return "; ".join(f"{k} {r['err']:.3g} (plain f32 {r['plain_f32_err']:.3g})" for k, r in gates.items())
+
+    # (a) benchmarks/bench_sparse.py:45-58: Gaussian(2, 1), sigma 0.3, jitter
+    # 1e-4, X and Y standard normal from default_rng(0), Z = X[::n // m][:m];
+    # then m=1024 at lengthscale 0.8, where the inner matrix's cond is ~7e3
+    # and float32 resolves it, so that the 3x gates separate a right kernel
+    # from a wrong one (at lengthscale 2 its cond is 1.4e10, and every
+    # float32 route misses float64 by 40-90 %)
+    n, d, q, sig, jit = P28["n"], 8, 4, 0.3, 1e-4
+    rng = np.random.default_rng(0)
+    X64 = torch.tensor(rng.standard_normal((n, d)), device=dev)
+    Y64 = torch.tensor(rng.standard_normal((n, q)), device=dev)
+    Xs64 = torch.tensor(np.random.default_rng(1).standard_normal((1024, d)), device=dev)
+    X, Y, Xs = X64.float(), Y64.float(), Xs64.float()
+    print(f"phase 28 the sparse GP at bench_sparse's shape: Gaussian(2, 1), sigma {sig}, jitter {jit}, n={n} "
+          f"d={d} q={q}, float32; the learn -> predict apps; PCA")
+    times_a = {}
+    for m, ls in [(m_, 2.0) for m_ in P28["ms"]] + [(1024, P28["ls_wc"])]:
+        k = tg.Gaussian(ls, 1.0)
+        bench = ls == 2.0
+        Z64 = X64[:: n // m][:m].contiguous()
+        Z = Z64.float()
+        want = "fused-matrix" if m >= 1024 else "torch-cholesky"
+        _cuda.reset_launch_counts()
+        sg = tsp.fit_sparse(k, Z, X, Y, sig, jit)
+        port = {"mean": sg.predict(Xs), "credible_interval": torch.stack([sg.credible_interval(x)
+                                                                          for x in Xs[:64]])}
+        port["value"], port["gradient"] = tsp.sparse_mll_value_and_grad(k, Z, X, Y, sig, jit)
+        port["inducing_gradient"] = tsp.sparse_mll_and_grad_inducing(k, Z, X, Y, sig, jit)[1]
+        port["elbo"] = tsp.titsias_elbo(k, Z, X, Y, sig, jit)
+        torch.cuda.synchronize()
+        c = _cuda.launch_counts()
+        path_counts.append(c)
+        check(sg.route == want, f"sparse fit at m={m} took route {sg.route}, not {want}")
+        if want == "fused-matrix":
+            check(all(c[f] > 0 for f in fused) and c["syrk_update"] == 0, f"sparse m={m} launches {c}")
+        else:
+            check(sum(c.values()) == 0, f"sparse m={m} launched {c} on torch-cholesky")
+        # the port's two m x m matrices (fit_sparse's), the jitter its
+        # factorizations took, and their condition numbers in float64
+        Kmm = tlin.add_diagonal(tg.gram(k, Z), jit)
+        Knm = tg.gram(k, X, Z)
+        mats = {"Kmm": Kmm, "inner": Kmm + Knm.T @ Knm / sig ** 2}
+        j_port = [float(tlin.safe_cholesky(A)[1]) for A in mats.values()]
+        Kmm64 = gaussian64(Z64, Z64, ls, 1.0) + jit * torch.eye(m, dtype=torch.float64, device=dev)
+        Knm64 = gaussian64(X64, Z64, ls, 1.0)
+        conds = [float(e[-1] / e[0]) for e in (torch.linalg.eigvalsh(A) for A in
+                                               (Kmm64, Kmm64 + Knm64.T @ Knm64 / sig ** 2))]
+        del Knm, Kmm64, Knm64
+        if not bench:
+            check(conds[1] <= 1e5, f"m={m} lengthscale {ls}: cond(inner) {conds[1]:.3g}, not well conditioned")
+        # each factorization on its kernels (K2-K4 at m=1024) against the
+        # plain version of its steps on the identical float32 matrix: the
+        # backward error gates in every case, the factor's forward error
+        # where float32 resolves it
+        if want == "fused-matrix":
+            for name, A in mats.items():
+                jm, fl, fg = factor_check(A)
+                print(f"  (a) m={m} lengthscale {ls}: {name} + {jm:.3g} I on {want} (launches {fl}) against "
+                      f"its plain version on the same matrix: {show(fg)}")
+                check(all(fl.get(f, 0) > 0 for f in fused), f"m={m} {name}: the compared factor launched {fl}")
+                check(fg["LL^T"]["ok"] and (bench or fg["L"]["ok"]),
+                      f"m={m} lengthscale {ls} {name}: factor above 3x its plain version's error")
+        del mats, Kmm
+        ref = {}
+        for name, (Zp, Xp, Yp, Xsp) in (("f64", (Z64, X64, Y64, Xs64)), ("f32", (Z, X, Y, Xs))):
+            ls_, sc_ = (torch.tensor(v, dtype=Xp.dtype, device=dev, requires_grad=True) for v in (ls, 1.0))
+            Zr = Zp.clone().requires_grad_()
+            with torch.enable_grad():
+                r = plain_sparse(Zr, Xp, Yp, ls_, sc_, sig, jit, Xsp, Xsp[:64])
+                gl, gs, gz = torch.autograd.grad(r["scalar"], (ls_, sc_, Zr))
+            ref[name] = {"mean": r["mean"].detach(), "credible_interval": r["ci"].detach(),
+                         "value": r["value"].detach(), "gradient": torch.stack([gl, gs]),
+                         "inducing_gradient": gz, "elbo": r["elbo"].detach(), "jitter": r["jitter"]}
+        gates = {key: (gate if bench else gate32)(v, ref["f32"][key], ref["f64"][key]) for key, v in port.items()}
+        print(f"  (a) m={m} lengthscale {ls}: route {sg.route}; float64 cond (Kmm, inner) {conds[0]:.3g}, "
+              f"{conds[1]:.3g}; jitter (Kmm, inner): port {j_port}, plain f32 {list(ref['f32']['jitter'])}, "
+              f"f64 {list(ref['f64']['jitter'])}; rel err vs f64: {show(gates)}; launches {c}")
+        check(all(r["ok"] for r in gates.values()),
+              f"sparse m={m} lengthscale {ls}: error above 3x the plain f32 route's")
+        if bench:
+            times_a[m] = (events_ms(lambda: tsp.fit_sparse(k, Z, X, Y, sig, jit), 5),
+                          events_ms(lambda: tsp.sparse_mll_value_and_grad(k, Z, X, Y, sig, jit), 5))
+        del sg, port, ref
+    k = tg.Gaussian(2.0, 1.0)
+    t_exact = events_ms(lambda: tg.fit(k, X, Y, sigma=sig, use_pallas_gram=True), 3)
+    torch.cuda.empty_cache()
+    print(f"  (a) CUDA-event medians of 5 ({smi}): " + "; ".join(
+        f"m={m} fit {f:.3f} ms, value + gradient {v:.3f} ms" for m, (f, v) in times_a.items())
+        + f"; the exact fit at n={n} (route fused-gram, median of 3) {t_exact:.3f} ms")
+
+    # (b) optimize_inducing and fit_svgp, n=4096, m=256, 20 Adam steps each
+    nb, mb = P28["nb"], P28["mb"]
+    Xb, Yb = X[:nb], Y[:nb]
+    Zb = Xb[:: nb // mb][:mb]
+    _cuda.reset_launch_counts()
+    t_b = time.perf_counter()
+    _, tr_o = tsp.optimize_inducing(k, Zb, Xb, Yb, sig, jit, iterations=20)
+    torch.cuda.synchronize()
+    t_o, t_b = time.perf_counter() - t_b, time.perf_counter()
+    svgp, tr_s = tsp.fit_svgp(k, Zb, Xb, Yb, sig, jit, iterations=20)
+    torch.cuda.synchronize()
+    t_s = time.perf_counter() - t_b
+    path_counts.append(_cuda.launch_counts())
+    for name, tr, t_ in (("optimize_inducing", tr_o, t_o), ("fit_svgp", tr_s, t_s)):
+        print(f"  (b) {name} n={nb} m={mb}, 20 steps: {t_:.3f} s, objective {float(tr[0]):.3f} -> "
+              f"{float(tr[-1]):.3f}")
+        check(bool(torch.isfinite(tr).all()) and float(tr[-1]) > float(tr[0]), f"{name}: trace {tr.tolist()}")
+    print(f"  (b) fit_svgp's kernel: {tg.kernel_to_string(svgp.kernel)}")
+
+    # (c) the sparse log posterior: 16 chains on a 4 x 4 grid of z over
+    # [-1, 1]^2, then 16 chains at lengthscales 0.6-0.85 and scales
+    # 0.61-1.28, where every chain's inner matrix has cond <= ~1e4 and the
+    # 3x gates separate a right fleet factor from a wrong one
+    mc = P28["mc"]
+    Zc64 = X64[:: n // mc][:mc].contiguous()
+    Zc = Zc64.float()
+    side = int(round(math.sqrt(P28["chains"])))
+    grids = {"bench": (np.linspace(-1, 1, side), np.linspace(-1, 1, side)),
+             "well-conditioned": (np.linspace(math.log(0.6), math.log(0.85), side),
+                                  np.linspace(-0.5, 0.25, side))}
+    lp = thmc.make_sparse_gp_log_posterior(k, Zc, X, Y, sig, jitter=jit)
+    check(lp.route == "fleet-crout", f"the sparse log posterior took route {lp.route}")
+    per = mc // fbatched.PANEL
+
+    def plain_logp(z, Zp, Xp, Yp):
+        vals, grads = [], []
+        for zc_ in z.to(Xp.dtype):
+            zz = zc_.detach().clone().requires_grad_()
+            with torch.enable_grad():
+                th_ = torch.exp(zz)
+                val = plain_sparse(Zp, Xp, Yp, th_[0], th_[1], sig, jit)["scalar"] + zz.sum()
+                (gg,) = torch.autograd.grad(val, zz)
+            vals.append(val.detach())
+            grads.append(gg)
+        return torch.stack(vals), torch.stack(grads)
+
+    def chain_fleet(z, Zp, Xp):
+        # every chain's Kmm + jitter I, then every chain's inner matrix, as
+        # the log posterior stacks them; with the inner matrices' cond
+        kmm, inner = [], []
+        for ls_, sc_ in torch.exp(z.double()).tolist():
+            Kmm_ = gaussian64(Zp, Zp, ls_, sc_) + jit * torch.eye(mc, dtype=Zp.dtype, device=dev)
+            Knm_ = gaussian64(Xp, Zp, ls_, sc_)
+            kmm.append(Kmm_)
+            inner.append(Kmm_ + Knm_.T @ Knm_ / sig ** 2)
+        return torch.stack(kmm + inner)
+
+    t_c = None
+    for gname, (za, zb) in grids.items():
+        ga, gb = np.meshgrid(za, zb, indexing="ij")
+        zc = t32(np.stack([ga.ravel(), gb.ravel()], 1))
+
+        def value_grad():
+            zz = zc.clone().requires_grad_()
+            with torch.enable_grad():
+                v_ = lp(zz)
+                (g_,) = torch.autograd.grad(v_.sum(), zz)
+            return v_.detach(), g_
+
+        _cuda.reset_launch_counts()
+        v_c, g_c = value_grad()
+        torch.cuda.synchronize()
+        c = _cuda.launch_counts()
+        path_counts.append(c)
+        check(c["crout_chol"] >= per and c["crout_chol"] % per == 0 and c["gram_batched"] == 0,
+              f"sparse log posterior launches {c}: K7 once a panel a factorization")
+        v64, g64 = plain_logp(zc.double(), Zc64, X64, Y64)
+        v32, g32 = plain_logp(zc, Zc, X, Y)
+        gfun = gate if gname == "bench" else gate32
+        gates_c = {"value": gfun(v_c, v32, v64), "gradient": gfun(g_c, g32, g64)}
+        # the fleet's factor (K7) against torch's batched Cholesky of the
+        # identical float32 fleet; cond of every inner matrix in float64
+        conds_c = torch.linalg.eigvalsh(chain_fleet(zc, Zc64, X64)[side * side:])
+        cond_c = float((conds_c[:, -1] / conds_c[:, 0]).max())
+        jm, fl, fg = fleet_factor_check(chain_fleet(zc, Zc, X), fleet._panel(mc, fbatched.PANEL))
+        if gname == "bench":
+            t_c = events_ms(value_grad, 3)
+        else:
+            check(cond_c <= 1e5, f"(c) {gname}: largest cond(inner) {cond_c:.3g}")
+        print(f"  (c) sparse log posterior, {gname} grid, {side * side} chains, n={n} m={mc}, route {lp.route}: "
+              f"largest float64 cond(inner) {cond_c:.3g}; rel err vs f64: {show(gates_c)}; K7 launches "
+              f"{c['crout_chol']} ({c['crout_chol'] // per - 1} retry rounds)")
+        print(f"      the fleet's factor at jitter {float(jm.min()):.3g}-{float(jm.max()):.3g} on fleet-crout "
+              f"(launches {fl}) against its plain version on the same fleet: {show(fg)}")
+        check(fl.get("crout_chol", 0) > 0, f"(c) the compared fleet factor launched {fl}")
+        check(all(r["ok"] for r in gates_c.values()),
+              f"sparse log posterior, {gname} grid: error above 3x the plain f32 route's")
+        check(fg["LL^T"]["ok"] and (gname == "bench" or fg["L"]["ok"]),
+              f"(c) {gname}: the fleet's factor above 3x its plain version's error")
+    print(f"  (c) value + gradient of the bench grid {t_c:.3f} ms (CUDA events, median of 3, {smi})")
+    del X64, Y64, Xs64, X, Y, Xs, lp
+    torch.cuda.empty_cache()
+
+    # (d) learn -> predict through main(argv), in process, at the breathing
+    # shape (n=3773, d=5, q=3) with the image sizes cut (US 64 x 64, DVFs
+    # 3 x 16^3) so that ~7.7k files write and parse within the phase
+    root = "chip_smoke_out/phase28"
+    shutil.rmtree(root, ignore_errors=True)
+    t_w = time.perf_counter()
+    paths = write_breathing_dataset(root + "/breathing", P28["n_train"], P28["n_test"], P28["hw"], P28["dvf"])
+    ar_dirs = write_ar_dataset(root + "/ar")
+    t_w = time.perf_counter() - t_w
+    cm = {"perform_ar": False, "n_inputModes": 5, "n_outputModes": 3, "ar_n": 1, "ar_p": 2,
+          "kernel_string": "GaussianKernel(2, 1,)", "data_noise": 0.01}
+    cl = {"use_precomputed": False, "n_trainImgs": 0, "start_trainInd": 0}
+    cp = {"use_precomputed": False, "compute_groundtruth_features": True}
+    ref_file = os.path.join(paths["train"][1], "df00000.vtk")
+    modes = {
+        "exact": (cm, cl, cp, list(paths["train"]), list(paths["test"]), ref_file, None),
+        "sparse": (dict(cm, sparse_inducing=P28["m_app"]), cl, cp, list(paths["train"]), list(paths["test"]),
+                   ref_file, None),
+        "ar": (AR_CONFIG_MODEL, AR_CONFIG_LEARN, AR_CONFIG_PREDICT,
+               [ar_dirs["us_train"], ar_dirs["dvf_train"], root + "/ar/ar"],
+               [ar_dirs["us_test"], ar_dirs["dvf_test"]], os.path.join(ar_dirs["dvf_train"], "df00000.vtk"),
+               root + "/ar/ar"),
+    }
+    apps = {}
+    for mode, (cm_, cl_, cp_, learn_dirs, test_dirs, ref_, ar) in modes.items():
+        cfg = []
+        for name, c_ in (("cm", cm_), ("cl", cl_), ("cp", cp_)):
+            cfg.append(f"{root}/{mode}-{name}.json")
+            with open(cfg[-1], "w") as f:
+                json.dump(c_, f)
+        for policy in ("fast", "parity"):
+            prefix, results = f"{root}/{mode}-{policy}", f"{root}/{mode}-{policy}-results"
+            os.makedirs(results)
+            out = io.StringIO()
+            with tconfig.policy_scope(policy), contextlib.redirect_stdout(out):
+                _cuda.reset_launch_counts()
+                t_l = time.perf_counter()
+                rc_l = tlearn.main([cfg[0], cfg[1], prefix, *learn_dirs])
+                torch.cuda.synchronize()
+                t_l = time.perf_counter() - t_l
+                c_l = _cuda.launch_counts()
+                t_p = time.perf_counter()
+                rc_p = tpredict.main([cfg[0], cfg[2], prefix, *test_dirs, results, ref_])
+                t_p = time.perf_counter() - t_p
+                c_p = _cuda.launch_counts()
+            text = out.getvalue()
+            check(rc_l == 0 and rc_p == 0, f"{mode} {policy}: learn {rc_l}, predict {rc_p}:\n{text[-2000:]}")
+            route = re.search(r"route ([\w-]+)", text)
+            with open(prefix + "-latestInferenceTime.txt") as f:
+                frame_s = [float(v) for v in f.read().split(",") if v.strip()]
+            stages = "; ".join(f"{name.strip()} {float(sec):.2f} s" for name, sec in
+                               re.findall(r"^([^\n]*?)\.\.\. ([\d.]+)s \[done\]", text, re.M))
+            apps[(mode, policy)] = {"route": route.group(1) if route else "?", "learn_s": t_l, "stages": stages,
+                                    "predict_s": t_p, "frame_ms": 1e3 * float(np.median(frame_s)),
+                                    "frames": len(frame_s), "dvf": read_dvfs(results)}
+            if policy == "fast":
+                path_counts.append(c_p)  # learn's and predict's launches
+                apps[(mode, policy)]["learn_launches"] = {k_: v for k_, v in c_l.items() if v}
+        a32, a64 = apps[(mode, "fast")], apps[(mode, "parity")]
+        plain = plain_app(learn_dirs, test_dirs[0], cm_, dev, ar).detach().cpu().double()
+        g_ = gate(torch.tensor(a32["dvf"]), plain, torch.tensor(a64["dvf"]))
+        print(f"  (d) {mode}: learn route {a32['route']} (float64 run {a64['route']}); learn {a32['learn_s']:.2f} s, "
+              f"predict {a32['predict_s']:.2f} s (float64 {a64['learn_s']:.2f} / {a64['predict_s']:.2f} s); "
+              f"per-frame predict, median of {a32['frames']}: {a32['frame_ms']:.4f} ms (float64 "
+              f"{a64['frame_ms']:.4f} ms); DVFs rel err vs the float64 run {g_['err']:.3g} (plain f32 "
+              f"{g_['plain_f32_err']:.3g}); learn launches {a32['learn_launches']}")
+        print(f"      stages (float32): {a32['stages']}")
+        check(g_["ok"], f"{mode}: predicted DVFs above 3x the plain f32 route's error")
+    # the learn app's parsing + PCA stage taken apart: the parse of the
+    # training frames (host clock) and the two PCAs on the card (CUDA events)
+    # at the app's shapes: US d=64^2 <= 4096, the thin SVD; DVFs d=3 * 16^3
+    # > N, the Gram trick; the rest of the stage writes the feature caches
+    from gpr_tpu_torch.pipeline import dataparser as tdp
+
+    t_parse = time.perf_counter()
+    us_tr = tdp.parse_image_files(tdp.list_files(paths["train"][0]))
+    dvf_tr = tdp.parse_displacement_files(tdp.list_files(paths["train"][1]))
+    t_parse = time.perf_counter() - t_parse
+    us_tr, dvf_tr = t32(us_tr), t32(dvf_tr)
+    t_svd = events_ms(lambda: tpca.fit_pca(us_tr), 3)
+    t_gram = events_ms(lambda: tpca.fit_pca(dvf_tr), 3)
+    print(f"  (d) the parsing + PCA stage apart ({smi}): parse of the {2 * P28['n_train']} training files "
+          f"{t_parse:.2f} s (host clock); fit_pca of the US frames ({tuple(us_tr.shape)}, thin SVD) {t_svd:.2f} ms, "
+          f"of the DVFs ({tuple(dvf_tr.shape)}, Gram trick) {t_gram:.2f} ms (CUDA events, medians of 3)")
+    del us_tr, dvf_tr
+    print(f"  (d) dataset written in {t_w:.1f} s; predict latency per frame (apps/predict.py, exact model, "
+          f"n={P28['n_train']}, d=5, q=3, float32): {apps[('exact', 'fast')]['frame_ms']:.4f} ms ({smi})")
+    exact32 = apps[("exact", "fast")]
+    check(exact32["route"] == "fused-gram" and all(exact32["learn_launches"].get(f, 0) > 0 for f in fused)
+          and "syrk_update" not in exact32["learn_launches"],
+          f"learn took route {exact32['route']} with launches {exact32['learn_launches']}")
+
+    # (e) fit_pca's Gram-trick branch at full image width: d = 3 * 64^3, N = 1024
+    dP, NP, r = P28["dP"], P28["NP"], P28["r"]
+    gen = torch.Generator(dev).manual_seed(28)
+    U0, _ = torch.linalg.qr(torch.randn((dP, r), generator=gen, device=dev, dtype=torch.float64))
+    V0, _ = torch.linalg.qr(torch.randn((NP, r), generator=gen, device=dev, dtype=torch.float64))
+    s0 = 100.0 * 0.95 ** torch.arange(r, device=dev, dtype=torch.float64)
+    XP64 = (U0 * s0) @ V0.T
+    del U0, V0
+    XP64 += torch.randn((dP, 1), generator=gen, device=dev, dtype=torch.float64)
+    XP64 += 1e-3 * torch.randn((dP, NP), generator=gen, device=dev, dtype=torch.float64)
+    XP = XP64.float()
+    t_p32 = events_ms(lambda: tpca.fit_pca(XP), 3)
+    m32 = tpca.fit_pca(XP)
+    m64 = tpca.fit_pca(XP64)
+    t_p64 = events_ms(lambda: tpca.fit_pca(XP64), 1)
+    sig_err = float((m32.sigma.double() - m64.sigma).abs().max() / m64.sigma[0])
+    rec_err = relerr(m32.reconstruct(m32.reduce(XP, r), r), m64.reconstruct(m64.reduce(XP64, r), r))
+    eps32 = float(torch.finfo(torch.float32).eps)
+    print(f"  (e) fit_pca Gram trick, d={dP} N={NP} ({r} modes 100 * 0.95^k over noise 1e-3): float32 "
+          f"{t_p32:.2f} ms (median of 3), float64 {t_p64:.2f} ms ({smi}); singular values: max |err| / sigma_1 "
+          f"{sig_err:.3g} <= {8 * math.sqrt(eps32):.3g}; rank-{r} reconstruction rel err {rec_err:.3g} <= 1e-3")
+    check(sig_err <= 8 * math.sqrt(eps32) and rec_err <= 1e-3, "fit_pca float32 beyond its bounds")
+    del XP, XP64, m32, m64
+    torch.cuda.empty_cache()
+    print(f"  phase 28 wall time {time.perf_counter() - t28:.1f} s")
+    return path_counts
 
 
 def main() -> int:
@@ -755,7 +1447,7 @@ def main() -> int:
     check(r_mle.route == "blocked-syrk" and r_map.route == "blocked-syrk",
           f"training took routes {r_mle.route}, {r_map.route}")
     sg, sc = (float(v) for v in k_mle.params)
-    gp = tg.fit(k_mle, X4, Y4, sigma=0.1)
+    gp = tg.fit(k_mle, X4, Y4, sigma=0.1, use_pallas_gram=False)
     check(gp.route == "blocked-syrk", f"fit with the learned kernel took route {gp.route}")
     torch.cuda.synchronize()
     counts_train = _cuda.launch_counts()
@@ -1712,7 +2404,7 @@ def main() -> int:
 
     def phase15_fit():
         _cuda.reset_launch_counts()
-        gp_ = tg.fit(bench_k, Xb, Yb, sigma=0.1)
+        gp_ = tg.fit(bench_k, Xb, Yb, sigma=0.1, use_pallas_gram=False)
         gp_.credible_interval(Xt[:128])
         torch.cuda.synchronize()
         c_ = _cuda.launch_counts()
@@ -1758,7 +2450,7 @@ def main() -> int:
 
     def phase16():
         _cuda.reset_launch_counts()
-        gw = tg.fit(k4, Xw[:nw], Yw[:nw], sigma=0.1)
+        gw = tg.fit(k4, Xw[:nw], Yw[:nw], sigma=0.1, use_pallas_gram=False)
         ge = tg.extend(gw, Xw[nw:], Yw[nw:])
         gs = tg.shrink(ge, kw)
         gs.predict(Xs16)
@@ -1785,9 +2477,10 @@ def main() -> int:
 
     path_counts.append(with_env(narrow_env, phase16))
     # ROADMAP's open cell: shrink by 64 at the breathing shape, against a refit
-    gp4 = tg.fit(k4, X4, Y4, sigma=0.1)
+    gp4 = tg.fit(k4, X4, Y4, sigma=0.1, use_pallas_gram=False)
     shrink_ms = [timed(lambda: tg.shrink(gp4, 64)) for _ in range(3)]
-    refit_ms = [timed(lambda: tg.fit(k4, X4[64:], Y4[64:], sigma=0.1)) for _ in range(3)]
+    refit_ms = [timed(lambda: tg.fit(k4, X4[64:], Y4[64:], sigma=0.1, use_pallas_gram=False))
+                for _ in range(3)]
     judge("shrink by 64 at n=3773", tg.shrink(gp4, 64), X4[64:], Y4[64:], Xs4, k16, 1.0, sig, True)
     del gp4
     print(f"  shrink k=64 at n=3773 (two products, then blocked-syrk at 3709): "
@@ -1838,9 +2531,11 @@ def main() -> int:
     libw = median_ms(lambda: torch.cholesky_solve(B3, Lw), 10)
     del L16, Lj16, Lr16, Ljr16, W16, W128, Lw, Lwr, Ww
     torch.cuda.empty_cache()
-    fit_cmp17 = rotate({"narrow": lambda: with_env(narrow_env, lambda: tg.fit(bench_k, Xb, Yb, sigma=0.1)),
-                        "default": lambda: with_env({"GPR_SOLVE_SCHEDULE": "blocked"},
-                                                    lambda: tg.fit(bench_k, Xb, Yb, sigma=0.1))}, 4)
+    def fit17():
+        return tg.fit(bench_k, Xb, Yb, sigma=0.1, use_pallas_gram=False)
+
+    fit_cmp17 = rotate({"narrow": lambda: with_env(narrow_env, fit17),
+                        "default": lambda: with_env({"GPR_SOLVE_SCHEDULE": "blocked"}, fit17)}, 4)
     mll_cmp17 = rotate({"narrow": lambda: with_env(narrow_env, lambda: lk.mll_value_and_grad(bench_k, Xb, Yb, 0.1)),
                         "default": lambda: with_env({"GPR_SOLVE_SCHEDULE": "blocked"},
                                                     lambda: lk.mll_value_and_grad(bench_k, Xb, Yb, 0.1))}, 4)
@@ -1953,7 +2648,7 @@ def main() -> int:
         _cuda.reset_launch_counts()
         k_mle19, r_mle19 = tg.fit_mle(k0, X4, Y4, 0.1, iterations=5)
         k_map19, r_map19 = tg.fit_map(k0, X4, Y4, 0.1, prior, iterations=3)
-        gp19 = tg.fit(k_mle19, X4, Y4, sigma=0.1)
+        gp19 = tg.fit(k_mle19, X4, Y4, sigma=0.1, use_pallas_gram=False)
         torch.cuda.synchronize()
         c_ = _cuda.launch_counts()
         check(r_mle19.route == "blocked-syrk-leaf" and r_map19.route == "blocked-syrk-leaf"
@@ -2251,7 +2946,7 @@ def main() -> int:
         _cuda.reset_launch_counts()
         k_mle22, r_mle22 = tg.fit_mle(k0, Xn, Yn, 0.1, iterations=5)
         k_map22, r_map22 = tg.fit_map(k0, Xn, Yn, 0.1, prior, iterations=3)
-        gw = tg.fit(k_mle22, Xn, Yn, sigma=0.1)
+        gw = tg.fit(k_mle22, Xn, Yn, sigma=0.1, use_pallas_gram=False)
         torch.cuda.synchronize()
         c_ = _cuda.launch_counts()
         check(r_mle22.route == r_map22.route == gw.route == "inplace",
@@ -2273,7 +2968,7 @@ def main() -> int:
         for label, step, n_, expect in (
                 ("extend by 512", lambda: tg.extend(gw, Xw[nw:], Yw[nw:]), None, 0),
                 ("shrink by 512", lambda: tg.shrink(ge, kw), nw, 1),
-                ("refit n=4608", lambda: tg.fit(k_mle22, Xw, Yw, sigma=0.1), nw + kw, 1)):
+                ("refit n=4608", lambda: tg.fit(k_mle22, Xw, Yw, sigma=0.1, use_pallas_gram=False), nw + kw, 1)):
             _cuda.reset_launch_counts()
             g_ = step()
             torch.cuda.synchronize()
@@ -2983,6 +3678,11 @@ def main() -> int:
           f"on): host {idle_n[0]:.2f} ms, device kernels {idle_n[1]:.3f} ms, idle {100 * idle_n[2]:.1f} % "
           f"({smi})")
     print(f"  phase 27 wall time {time.perf_counter() - t27:.1f} s")
+
+    # --------------------------------------------------------------- 28 ----
+    for c in phase_28(dev, smi, t32):
+        for name, v in c.items():
+            counts[name] += v
 
     print(f"wall time: {time.perf_counter() - t_start:.1f} s")
 

@@ -2,11 +2,14 @@
 
 Mirrors gpr_tpu/__init__.py for the names ported so far: the kernel algebra
 and its string DSL with hyperparameter gradients, exact GP fit -> predict,
-save/load of the reference's 5-file model artifacts, the marginal
-likelihood with its gradient, the prior densities, MLE / MAP training,
-fleets of small GPs (fit, predict, likelihood and MLE of B GPs at once) and
-the hyperparameter samplers (HMC, NUTS, ADVI and the mixture predictive,
-whose chains and draws run as one fleet).
+save/load of the reference's 5-file model artifacts, the sparse
+(inducing-point) GP, the marginal likelihood with its gradient, the prior
+densities, MLE / MAP training, fleets of small GPs (fit, predict,
+likelihood and MLE of B GPs at once) and the hyperparameter samplers (HMC,
+NUTS, ADVI and the mixture predictive, whose chains and draws run as one
+fleet).  The feature pipeline (``pipeline``: PCA, AR, image I/O, the data
+parser) and the learn / predict apps (``python -m gpr_tpu_torch.apps.learn``,
+``.predict``) sit beside them.
 On a CUDA tensor the fit, the likelihood and the fleet run through
 hand-written CUDA kernels (ops/gram.py, ops/fullchol.py, ops/syrk.py,
 ops/crout.py, ops/solve.py, ops/leaf.py; sources in csrc/); on a CPU tensor through their
@@ -40,6 +43,7 @@ from .kernels.kernels import (  # noqa: F401
 from .kernels.dsl import kernel_to_string, parse_kernel  # noqa: F401
 from .kernels.utils import get_general_kernel  # noqa: F401
 from .gp.exact import GP, extend, fit, load, shrink  # noqa: F401
+from .gp.sparse import SparseGP, fit_sparse, fit_svgp  # noqa: F401
 from .gp.batched import fit_batched, mll_batched, predict_batched  # noqa: F401
 from .gp import likelihood  # noqa: F401
 from .inference.optimize import fit_map, fit_mle  # noqa: F401

@@ -16,6 +16,10 @@ nothing here concerns them: a factor travels as the ``L`` of a GP state.
                 "core"}`` of numpy arrays (``L`` and ``core`` may be None).
   fleet state   a dict ``{"kernel": tree, "X", "Y", "sigma", "alpha", "L",
                 "batched_kernel"}`` from a ``gpr_tpu`` ``BatchedGP``.
+  sparse state  a dict ``{"kernel": tree, "Z", "X", "Y", "sigma", "jitter",
+                "alpha", "R", "Lmm"}`` from a ``gpr_tpu`` ``SparseGP``.
+  PCA basis     the ``mean``, ``sigma`` and ``U`` arrays of a ``gpr_tpu``
+                ``PCAModel``.
   density       ``(class_name, args)``: a prior density's class name and its
                 constructor arguments, e.g. ``("LogGaussianDensity", [mu,
                 sigma])``, so that both packages build the same MAP objective.
@@ -28,9 +32,11 @@ import torch
 
 from .gp.batched import BatchedGP
 from .gp.exact import GP
+from .gp.sparse import SparseGP
 from .inference import priors
 from .kernels import kernels as kermod
 from .kernels.dsl import parse_kernel
+from .pipeline.pca import PCAModel
 from .utils import config
 
 _CLASSES = {
@@ -95,3 +101,23 @@ def fleet_from_numpy(state: dict, device=None) -> BatchedGP:
     return BatchedGP(kernel_from_numpy(state["kernel"]), tensor("X"), tensor("Y"),
                      tensor("sigma"), tensor("alpha"), tensor("L"),
                      bool(state.get("batched_kernel", False)), route="converted")
+
+
+def sparse_from_numpy(state: dict, device=None) -> SparseGP:
+    """The port's ``SparseGP`` from the numpy state of a ``gpr_tpu``
+    ``SparseGP``, on ``device`` (by default the card, utils/config.py)."""
+    device = config.resolve_device(device)
+
+    def tensor(key):
+        return torch.as_tensor(np.array(state[key]), device=device)
+
+    return SparseGP(kernel_from_numpy(state["kernel"]), tensor("Z"), tensor("X"), tensor("Y"),
+                    tensor("sigma"), tensor("jitter"), tensor("alpha"), tensor("R"), tensor("Lmm"),
+                    route="converted")
+
+
+def pca_from_numpy(mean, sigma, U, device=None) -> PCAModel:
+    """The port's ``PCAModel`` from a ``gpr_tpu`` ``PCAModel``'s arrays, on
+    ``device`` (by default the card)."""
+    device = config.resolve_device(device)
+    return PCAModel(*(torch.as_tensor(np.array(a), device=device) for a in (mean, sigma, U)))

@@ -11,18 +11,26 @@ the explicit inverse exists only as the reference's CoreMatrix artifact.
 the tensor's device where JAX keys on ``jax.default_backend() == "tpu"``, and
 records the route it took in ``GP.route``:
 
-  ``"fused-gram"``   use_pallas_gram, a stationary form of
-                     ``fullchol.GRAM_FORMS``, float32, n >= 512, CUDA: the
-                     Gram-mode panel Cholesky (K2-K4, never storing K), then
+  ``"fused-gram"``   use_pallas_gram True or None (the default), a
+                     stationary form of ``fullchol.GRAM_FORMS``, float32,
+                     n >= 512, CUDA: the Gram-mode panel Cholesky (K2-K4,
+                     never storing K, any n by pad masking), then
                      ``cho_solve_panels``.
-  ``"gram-kernel"``  use_pallas_gram otherwise (periodic, n < 512, CPU): K
-                     from the Gram kernel (K1; lower triangle only at
+  ``"gram-kernel"``  use_pallas_gram True otherwise (periodic, n < 512, CPU):
+                     K from the Gram kernel (K1; lower triangle only at
                      n >= 1024), then ``safe_cholesky``.
   otherwise          the torch Gram, then ``safe_cholesky``, whose route
                      (``linalg.cholesky_route``) is recorded: ``"fused-matrix"``,
                      ``"blocked-syrk"``, ``"blocked"``, their ``-leaf`` forms
                      under ``GPR_CHOL_LEAF_INV=1``, ``"inplace"`` under
                      ``GPR_CHOL_SCHEDULE=inplace``, or ``"torch-cholesky"``.
+
+JAX's ``fit`` leaves its Gram kernel off unless asked; on its TPU a float32
+fit then takes the fused factorization at any n.  The port's fused
+factorization of a matrix needs n % 128 == 0, so its default (None) takes
+``"fused-gram"`` wherever that route applies and the matrix ladder
+elsewhere; ``use_pallas_gram=False`` keeps the matrix ladder everywhere, as
+JAX's default.  On the CPU and in float64 the three agree with JAX.
 
 ``fit_route`` names the route without fitting.  The switches are read at
 call time, as JAX reads them at trace time: ``GPR_FIT_SCHEDULE=twopass`` or
@@ -293,29 +301,31 @@ class GP(nn.Module):
 # ---------------------------------------------------------------------------
 
 def fit_route(kernel: kermod.Kernel, n: int, dtype: torch.dtype, device,
-              use_pallas_gram: bool = False) -> str:
+              use_pallas_gram: Optional[bool] = None) -> str:
     """The route :func:`fit` takes for n samples of this dtype on this device
     (exact.py:347-443), with the switches read now."""
     device = torch.device(device)
-    if use_pallas_gram:
+    if use_pallas_gram is not False:
         disp = kermod.kernel_form(kernel)
         if disp is not None:
             if (disp[0] in fullchol.GRAM_FORMS and dtype == torch.float32 and n >= 512
                     and device.type == "cuda" and linalg._chol_schedule() == "fused"
                     and os.environ.get("GPR_FIT_SCHEDULE", "fused") == "fused"):
                 return "fused-gram"
-            return "gram-kernel"
+            if use_pallas_gram:
+                return "gram-kernel"
     return linalg.route_for(n, dtype, device)
 
 
 def fit(kernel: kermod.Kernel, X, Y, sigma: float = 0.0, efficient_storage: bool = False,
-        jitter: float = 0.0, use_pallas_gram: bool = False, device=None) -> GP:
+        jitter: float = 0.0, use_pallas_gram: Optional[bool] = None, device=None) -> GP:
     """Train an exact GP: factor K + sigma^2 I and solve for the regression
     vectors (reference Initialize -> ComputeRegressionVectors,
     lib/GaussianProcess.cpp:117-130, 641-672, through a Cholesky solve).
-    ``use_pallas_gram`` (the JAX package's name) routes the stationary
-    kernels through the hand-written Gram and fused-factorization kernels;
-    see the module docstring for the routes.  X and Y run on ``device``
+    ``use_pallas_gram`` (the JAX package's name) True routes the stationary
+    kernels through the hand-written Gram and fused-factorization kernels,
+    False never, None (the default) where the fused Gram route applies; see
+    the module docstring for the routes.  X and Y run on ``device``
     (see utils/config.py: the card unless told otherwise)."""
     X = config.as_input(X, device)
     Y = config.as_input(Y, X.device)

@@ -1,10 +1,11 @@
 """Hamiltonian Monte Carlo over GP hyperparameters.
 
 Mirrors gpr_tpu/inference/hmc.py:44-83 (``_shrunk_mass``, ``_tree_mean``),
-111-129 (``make_gp_log_posterior``), 159-250 (the configuration, the chain
-state, ``_leapfrog``, ``_hmc_transition``, ``HMCResult``), 285-584 (the
-dual-averaging warmup, ``_window_schedule``, ``init_chains``,
-``_adapt_phase``, ``sample_hmc``), 585-706 (``sample_hmc_chunked``) and
+111-152 (``make_gp_log_posterior``, ``make_sparse_gp_log_posterior``),
+159-250 (the configuration, the chain state, ``_leapfrog``,
+``_hmc_transition``, ``HMCResult``), 285-584 (the dual-averaging warmup,
+``_window_schedule``, ``init_chains``, ``_adapt_phase``, ``sample_hmc``),
+585-706 (``sample_hmc_chunked``) and
 713-841 (diagnostics, chain checkpoints, ``resume_hmc``).  Instead of the
 reference's point estimate (include/GaussianProcessInference.h:84-229) the
 hyperparameter posterior is sampled, in log space (theta = exp(z), the
@@ -52,6 +53,7 @@ import torch
 
 from ..gp import batched as fleet
 from ..gp import likelihood as lk
+from ..kernels import kernels as kermod
 from ..ops import linalg
 from ..utils import config
 
@@ -150,6 +152,79 @@ def make_gp_log_posterior(kernel, X, Y, sigma, priors: Optional[Sequence] = None
         return (val + z.sum(-1) + (z * poison[:, None]).sum(-1)).to(z.dtype)
 
     logp.route = fleet.fleet_route(n, X.dtype, X.device, use_crout)
+    return logp
+
+
+# rows of Knm a block of the chains' cross products (see _cross_products)
+_CROSS_BLOCK = 1024
+
+
+def _cross_products(Knm: torch.Tensor) -> torch.Tensor:
+    """Kmn Knm of every chain, (C, m, m), summed over blocks of
+    ``_CROSS_BLOCK`` rows, one batched GEMM a block.  One batched GEMM over
+    all n rows is less accurate on the card: at n=16384 it gave the log
+    posterior's float32 gradient 17x the plain float32 route's error on an H100
+    (chip_tools/sparse_logp_probe.py); by blocks the error is one chain's
+    GEMM's."""
+    out = None
+    for s in range(0, Knm.shape[-2], _CROSS_BLOCK):
+        blk = Knm[:, s:s + _CROSS_BLOCK]
+        out = blk.mT @ blk if out is None else torch.baddbmm(out, blk.mT, blk)
+    return out
+
+
+def make_sparse_gp_log_posterior(kernel, Z, X, Y, sigma, priors: Optional[Sequence] = None,
+                                 jitter: float = 0.0, use_crout: Optional[bool] = None,
+                                 device=None) -> Callable:
+    """log p(z | data) of every chain under the sparse model, z (C, dim) ->
+    (C,) (hmc.py:132-152): ``gp.sparse.sparse_mll_scalar(exp z)`` + sum_p log
+    prior_p(exp z_p) + sum(z), with the inducing inputs Z fixed.
+
+    Each chain's Kmm + jitter I and Woodbury inner matrix Kmm + s^-2 Kmn Knm
+    are factored together, one fleet of 2C (m, m) matrices, by
+    ``gp/batched.py::_factor_and_solve(..., safe=True)`` on ``fleet_route(m,
+    dtype, device, use_crout)`` (``logp.route``): on the card in float32 with
+    m % 128 == 0 that is ``fleet-crout``, K7 on every diagonal block.  Each
+    member escalates its own jitter, as JAX's vmapped ``safe_cholesky``
+    does.  The cross Gram Knm is (C, n, m), its products summed by row
+    blocks (:func:`_cross_products`); differentiable by autograd.  A
+    chain whose exp(z) is not finite and positive gets NaN value and
+    gradient."""
+    X, Y = lk._inputs(X, Y, device)
+    Z = torch.atleast_2d(config.as_input(Z, X.device)).to(X.dtype)
+    n, num = X.shape[0], kernel.num_params
+    s2 = torch.as_tensor(sigma, dtype=X.dtype, device=X.device) ** 2
+    const = -n / 2.0 * math.log(2 * math.pi) - 0.5 * n * torch.log(s2)
+
+    def grams(k):
+        return linalg.add_diagonal(kermod.gram(k, Z), jitter), kermod.gram(k, X, Z)
+
+    def logp(z: torch.Tensor) -> torch.Tensor:
+        theta = torch.exp(z)
+        ok = (torch.isfinite(theta) & (theta > 0)).all(-1)
+        safe = torch.where(ok[:, None], theta, 1.0)
+        Kmm, Knm = torch.func.vmap(lambda ps: grams(kernel.with_params(ps)))(
+            [safe[:, i] for i in range(num)])
+        C = z.shape[0]
+        t = Knm.mT @ Y / s2  # (C, m, q)
+        # one fleet call factors both matrices of every chain; the fleet's
+        # factor and its solve are one pass over one (2C, m, q) right-hand
+        # side, so the Kmm members solve zeros (q columns of batched GEMMs),
+        # of which only their factor's log-determinant is used
+        L, sol, _ = fleet._factor_and_solve(torch.cat([Kmm, Kmm + _cross_products(Knm) / s2]),
+                                            torch.cat([torch.zeros_like(t), t]), use_crout, safe=True)
+        CinvY = (Y - Knm @ sol[C:]) / s2  # the Woodbury solve (sparse.py:196-205)
+        logdet = linalg.logdet_from_chol(L)
+        val = -0.5 * (Y * CinvY).sum((1, 2)) - 0.5 * (logdet[C:] - logdet[:C]) + const
+        if priors is not None:
+            for i, prior in enumerate(priors):
+                if prior is not None:
+                    val = val + prior.log_pdf(safe[:, i])
+        # NaN value and gradient where exp(z) left the finite positive range
+        poison = torch.where(ok, 0.0, torch.nan).to(z.dtype)
+        return (val + z.sum(-1) + (z * poison[:, None]).sum(-1)).to(z.dtype)
+
+    logp.route = fleet.fleet_route(Z.shape[0], X.dtype, X.device, use_crout)
     return logp
 
 

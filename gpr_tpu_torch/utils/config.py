@@ -68,6 +68,11 @@ def default_dtype() -> torch.dtype:
     return _active.default_dtype
 
 
+def default_numpy_dtype() -> np.dtype:
+    """:func:`default_dtype` as a numpy dtype, for arrays read from files."""
+    return torch.empty((), dtype=_active.default_dtype).numpy().dtype
+
+
 @contextlib.contextmanager
 def policy_scope(name: str):
     global _active

@@ -354,8 +354,8 @@ def test_fit_routes_reach_the_kernels(dev):
     routes = {
         "fused-gram": tg.fit(k, X[:600], Y[:600], 0.1, use_pallas_gram=True),
         "gram-kernel": tg.fit(k, X[:384], Y[:384], 0.1, use_pallas_gram=True),
-        "fused-matrix": tg.fit(k, X[:1024], Y[:1024], 0.1),
-        "blocked-syrk": tg.fit(k, X, Y, 0.1),
+        "fused-matrix": tg.fit(k, X[:1024], Y[:1024], 0.1, use_pallas_gram=False),
+        "blocked-syrk": tg.fit(k, X, Y, 0.1, use_pallas_gram=False),
     }
     Xs = X[:16].cpu()
     for route, gp in routes.items():
@@ -998,7 +998,7 @@ def test_narrow_routes_reach_the_kernels(dev, monkeypatch):
     Y = np.sin(X.sum(1, keepdims=True)) + 0.1 * rng.standard_normal((n, 2))
     k = tg.Gaussian(1.5, 1.0)
     _cuda.reset_launch_counts()
-    gp = tg.fit(k, _t(X, dev), _t(Y, dev), 0.1)
+    gp = tg.fit(k, _t(X, dev), _t(Y, dev), 0.1, use_pallas_gram=False)
     assert gp.route == "fused-matrix" and linalg.solve_route(gp.L, gp.Y) == "narrow"
     counts = _cuda.launch_counts()
     assert counts["narrow_subst"] == 2 and counts["diag_tri_inv"] == 1
@@ -1025,7 +1025,7 @@ def test_sliding_window_on_the_card(dev, monkeypatch):
     Y = np.sin(X[:, :3]) + 0.1 * rng.standard_normal((n + k, 3))
     kern = tg.Gaussian(2.0, 1.0)
     _cuda.reset_launch_counts()
-    gp = tg.fit(kern, _t(X[:n], dev), _t(Y[:n], dev), 0.1)
+    gp = tg.fit(kern, _t(X[:n], dev), _t(Y[:n], dev), 0.1, use_pallas_gram=False)
     gp = tg.extend(gp, _t(X[n:], dev), _t(Y[n:], dev))
     gp = tg.shrink(gp, k)
     mean, var, lpd = exact.loo_cv(gp)
@@ -1577,3 +1577,116 @@ def test_nuts_transition_on_the_card_matches_the_cpu(dev):
     launches = _cuda.launch_counts()["crout_chol"]
     assert launches > 0 and launches % (256 // fleet_ops.PANEL) == 0
     assert torch.isfinite(s1.z).all() and ((acc >= 0) & (acc <= 1)).all()
+
+
+# ---------------------------------------------------------------------------
+# the sparse GP (gp/sparse.py) and its log posterior (inference/hmc.py)
+# ---------------------------------------------------------------------------
+
+def _sparse_data(n, m, d=8, q=4):
+    # benchmarks/bench_sparse.py's recipe at a smaller n
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((n, d))
+    return X, rng.standard_normal((n, q)), X[:: n // m][:m]
+
+
+def _factor_residual_gate(A):
+    """safe_cholesky on the card (K2-K4 at n=1024) against the plain version
+    of its steps (``fullchol.fused_cholesky_reference``) on the identical
+    float32 matrix A + jm I, jm 10x the larger of the jitters that the route
+    and cholesky_ex needed on A: the backward error ||L L^T - A'||_F /
+    ||A'||_F within 3x the plain version's (a wrong factor is off by O(1)).
+    Returns the two factors' errors against float64's factor of A'."""
+    jm = 10.0 * float(linalg.safe_cholesky(A)[1])
+    info = torch.linalg.cholesky_ex(A)[1]
+    j = torch.finfo(A.dtype).eps * max(float(A.diagonal().abs().mean()), 1.0)
+    while int(info):
+        info = torch.linalg.cholesky_ex(linalg.add_diagonal(A, j))[1]
+        jm, j = max(jm, 10.0 * j), 10.0 * j
+    Aj = linalg.add_diagonal(A, jm)
+    _cuda.reset_launch_counts()
+    L, jit = linalg.safe_cholesky(Aj)
+    assert float(jit) == 0.0
+    assert all(_cuda.launch_counts()[f] > 0 for f in ("panel_update", "diag_factor_inv", "panel_solve"))
+    Lp = fullchol.fused_cholesky_reference(Aj)[0]
+    assert bool(torch.isfinite(Lp[-1, -1]))
+    A64 = Aj.double()
+
+    def resid(F):
+        F = F.double()
+        return float(torch.linalg.matrix_norm(F @ F.T - A64) / torch.linalg.matrix_norm(A64))
+
+    assert resid(L) <= 3 * resid(Lp)
+    L64 = torch.linalg.cholesky(A64)
+    return _relerr(L.double(), L64), _relerr(Lp.double(), L64)
+
+
+# lengthscale 0.8 keeps the Woodbury inner matrix at cond <= 4e3 at n=4096,
+# m=1024: float32 resolves it, so the 3x gates compare K2-K4's route with
+# the plain one on rounding (at bench_sparse's lengthscale 2 its cond
+# is 6.6e9 and every float32 route misses float64's mean by tens of percent);
+# the bench lengthscale keeps the route, launch and backward-error checks
+@pytest.mark.parametrize("m,route,ls", [(1024, "fused-matrix", 0.8), (512, "torch-cholesky", 0.8),
+                                        (1024, "fused-matrix", 2.0)])
+def test_sparse_fit_route_and_launches_on_the_card(dev, m, route, ls):
+    from gpr_tpu_torch.gp import sparse
+
+    X, Y, Z = _sparse_data(4096, m)
+    Xs = np.random.default_rng(1).standard_normal((64, 8))
+    k = tg.Gaussian(ls, 1.0)
+    _cuda.reset_launch_counts()
+    sg = sparse.fit_sparse(k, _t(Z, dev), _t(X, dev), _t(Y, dev), 0.3, 1e-4)
+    torch.cuda.synchronize()
+    c = _cuda.launch_counts()
+    assert sg.route == route
+    fused = ("panel_update", "diag_factor_inv", "panel_solve")
+    if route == "fused-matrix":  # both m x m factorizations on K2-K4
+        assert all(c[name] > 0 for name in fused) and c["syrk_update"] == 0
+        Zt, Xt = _t(Z, dev), _t(X, dev)
+        Kmm = linalg.add_diagonal(tg.gram(k, Zt), 1e-4)
+        Knm = tg.gram(k, Xt, Zt)
+        for A in (Kmm, Kmm + Knm.T @ Knm / 0.09):
+            err, plain = _factor_residual_gate(A)
+            if ls < 1.0:  # float32 resolves the factor itself
+                assert err <= 3 * plain
+    else:
+        assert sum(c.values()) == 0
+    if ls > 1.0:
+        return
+    ref = sparse.fit_sparse(k, Z, X, Y, 0.3, 1e-4, device="cpu")
+    cpu32 = sparse.fit_sparse(k, *(a.astype(np.float32) for a in (Z, X, Y)), 0.3, 1e-4, device="cpu")
+    Xs_t = _t(Xs, dev)
+    m64, m32 = ref.predict(Xs), cpu32.predict(Xs.astype(np.float32)).double()
+    assert _relerr(sg.predict(Xs_t).cpu().double(), m64) <= 3 * _relerr(m32, m64) + 1e-6
+    c64 = torch.stack([ref.credible_interval(x) for x in Xs[:8]])
+    c32 = torch.stack([cpu32.credible_interval(x) for x in Xs[:8].astype(np.float32)]).double()
+    got = torch.stack([sg.credible_interval(x) for x in Xs_t[:8]]).cpu().double()
+    assert _relerr(got, c64) <= 3 * _relerr(c32, c64) + 1e-6
+
+
+def test_sparse_log_posterior_route_and_launches_on_the_card(dev):
+    from gpr_tpu_torch.inference import hmc
+
+    X, Y, Z = _sparse_data(2048, 512, q=1)
+    # lengthscales 0.61-1.0 keep the Woodbury inner matrix at cond <= 3e4:
+    # float32 resolves it, so the fleet route and the plain one are compared
+    # on rounding (at lengthscale 1.65 its cond is 1.5e7, and two float32
+    # factorizations of it differ by more than 3x at random)
+    z = np.random.default_rng(2).uniform([-0.5, -0.5], [0.0, 0.5], (4, 2))
+    k = tg.Gaussian(1.0, 1.0)
+
+    def value_grad(dtype, use_crout):
+        t = [torch.tensor(a, dtype=dtype, device=dev) for a in (Z, X, Y, z)]
+        f = hmc.make_sparse_gp_log_posterior(k, *t[:3], 0.3, jitter=1e-4, use_crout=use_crout)
+        return f.route, hmc._value_and_grad(f)(t[3])
+
+    # float64 and the plain float32 route (torch's batched Cholesky) on the card
+    (_, (v64, g64)), (_, (v32, g32)) = value_grad(torch.float64, None), value_grad(torch.float32, False)
+    _cuda.reset_launch_counts()
+    route, (v, g) = value_grad(torch.float32, None)
+    assert route == "fleet-crout"
+    # Kmm and the inner matrix of the 4 chains: one fleet of 8, one
+    # factorization in the forward, none in the backward
+    assert _cuda.launch_counts()["crout_chol"] == 512 // fleet_ops.PANEL
+    assert _relerr(v.double(), v64) <= 3 * _relerr(v32.double(), v64) + 1e-7
+    assert _relerr(g.double(), g64) <= 3 * _relerr(g32.double(), g64) + 1e-6

@@ -351,7 +351,16 @@ def test_fit_schedule_switches_pick_jax_routes(monkeypatch):
     k = tg.Gaussian(1.5, 1.0)
     f32 = torch.float32
     assert exact.fit_route(k, 2048, f32, "cuda", True) == "fused-gram"
-    assert exact.fit_route(k, 2048, f32, "cuda") == "fused-matrix"
+    # the default takes the fused Gram route wherever it applies (any n on
+    # the card in float32), False keeps JAX's default, the matrix ladder
+    assert exact.fit_route(k, 2048, f32, "cuda") == "fused-gram"
+    assert exact.fit_route(k, 2048, f32, "cuda", False) == "fused-matrix"
+    assert exact.fit_route(k, 3773, f32, "cuda") == "fused-gram"
+    assert exact.fit_route(k, 3773, f32, "cuda", False) == "blocked-syrk"
+    assert exact.fit_route(k, 3773, torch.float64, "cuda") == "blocked"
+    assert exact.fit_route(k, 3773, f32, "cpu") == "blocked"
+    assert exact.fit_route(k, 384, f32, "cuda") == "torch-cholesky"
+    assert exact.fit_route(tg.Periodic(1.0, 1.0, 2.0), 2048, f32, "cuda") == "fused-matrix"
     monkeypatch.setenv("GPR_FIT_SCHEDULE", "twopass")  # exact.py:392: K1 + safe_cholesky
     assert exact.fit_route(k, 2048, f32, "cuda", True) == "gram-kernel"
     assert exact.fit_route(k, 2048, f32, "cuda") == "fused-matrix"

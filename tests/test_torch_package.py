@@ -19,7 +19,9 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
 def test_import_loads_no_jax():
-    code = "import sys, gpr_tpu_torch, gpr_tpu_torch.convert; print('jax' in sys.modules)"
+    code = ("import sys, gpr_tpu_torch, gpr_tpu_torch.convert, gpr_tpu_torch.pipeline, "
+            "gpr_tpu_torch.apps.learn, gpr_tpu_torch.apps.predict, gpr_tpu_torch.utils.native; "
+            "print('jax' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True)
     assert out.stdout.strip() == "False"
@@ -34,9 +36,21 @@ def test_sources_import_neither_jax_nor_gpr_tpu():
     assert {"gpr_tpu_torch/ops/syrk.py", "gpr_tpu_torch/ops/blocked.py",
             "gpr_tpu_torch/gp/likelihood.py", "gpr_tpu_torch/inference/priors.py",
             "gpr_tpu_torch/inference/prior_utils.py",
-            "gpr_tpu_torch/inference/optimize.py"} <= names
+            "gpr_tpu_torch/inference/optimize.py", "gpr_tpu_torch/gp/sparse.py",
+            "gpr_tpu_torch/pipeline/pca.py", "gpr_tpu_torch/pipeline/autoregression.py",
+            "gpr_tpu_torch/pipeline/dataparser.py", "gpr_tpu_torch/pipeline/imageio.py",
+            "gpr_tpu_torch/utils/logutils.py", "gpr_tpu_torch/utils/native.py",
+            "gpr_tpu_torch/apps/learn.py", "gpr_tpu_torch/apps/predict.py"} <= names
     for f in files:
         assert not pat.search(f.read_text()), f
+
+
+def test_top_level_names_include_the_sparse_gp():
+    # as gpr_tpu/__init__.py:35 exports them
+    from gpr_tpu_torch.gp import sparse
+
+    assert (tg.SparseGP, tg.fit_sparse, tg.fit_svgp) == (sparse.SparseGP, sparse.fit_sparse,
+                                                          sparse.fit_svgp)
 
 
 def test_tf32_is_off():
