@@ -200,7 +200,35 @@ process per source, in parallel), then:
      1e-3; fit_pca runs no kernel of the port, so its plain float32 route is
      itself: the bounds are stated, max |d sigma| <= 8 sqrt(eps32) sigma_1
      for every mode, the null one included, and the rank-64 reconstruction
-     within 1e-3), timed.
+     within 1e-3), timed;
+ 29. runs the image pipeline, the serving loop and the study apps
+     (``phase_29``, sizes in ``P29``; chip_tools/phase29.py runs it alone):
+     (a) warp_array of a 64^3 float32 volume by a smooth field of up to 3
+     voxels at order 3 (mirror) and at orders 0-1 in all five modes, each
+     against scipy.ndimage.map_coordinates in float64 where scipy's mode is
+     the same function and against the port's float64 CPU run elsewhere,
+     within 3x the error of the port's float32 CPU run (or 2 eps), timed;
+     (b) on phase 28's 3773 x 64 x 64 US series gaussian_smoothing
+     slice-wise at variance 4, image_pyramid_series at 3 scales and
+     histogram_matching of one frame onto another, the same gate against the
+     port's float64 CPU run, and median_filter r=1 on a 64^3 volume equal to
+     scipy's median_filter(mode='nearest'), timed; (c) serve: phase 28 (d)'s
+     exact float32 model (n=3773, d=5, q=3) serves its 64 test frames through
+     watch(), one CUDA-graph replay and one host read a frame (replays
+     counted; torch.profiler sees a frame as one cudaGraphLaunch, no kernel
+     launch, one copy in, one device-to-host copy out and one
+     cudaStreamSynchronize), the graph's packed output equal to the same Server's eager
+     program bit for bit (or within 2 float32 ulp), its DVFs within 3x phase
+     28 (d)'s float32 error of predict's DVFs for the same frames, and the
+     per-frame latency with the graph, eagerly and on predict's _packed path;
+     (d) run_drift_config over three 1024-frame windows of phase 28's data
+     (route fused-gram: K2-K4 in each window's learn) and run_experiment_config
+     on a small study it writes (8 MiniDicom files for the preprocessing
+     stage, then the split, regression and evaluation), each on the card in
+     float32 and on the CPU in float64, each window's and the study's DVFs
+     held to the CPU's within 3x the plain float32 chain's error on the same
+     training frames (plain_app, or 2 eps), the percentiles printed beside,
+     with each stage's wall time.
 
 Phase 4's fit and phase 6's training steps are the standing check at the
 breathing-fixture shape: their gates go to chip_smoke_out/breathing_check.json
@@ -217,7 +245,7 @@ plain torch MLL (torch.linalg.cholesky
 + autograd) with the same 3x gate against the plain float32 MLL.  The launch
 counters are reset before each path (phases 2-5, 6, 7, 8-9, each of
 phase 12's four, 15's two, 16, 19's four, 22's seven, 23's two, 25's
-dispatcher, 27's seven and 28's seven) and read after it: each kernel of the path must have been
+dispatcher, 27's seven, 28's seven and 29's one) and read after it: each kernel of the path must have been
 launched there.  Any failure raises.  The last lines are the kernels' JSON, the card's name and power
 limit, then one JSON object with the device.  Exits non-zero, printing no result, where there is no CUDA device.
 """
@@ -531,12 +559,14 @@ def write_ar_dataset(root, seed=0):
     return dirs
 
 
-def plain_app(learn_dirs, test_us, cm, dev, ar=None):
+def plain_app(learn_dirs, test_us, cm, dev, ar=None, window=None):
     """The learn -> predict chain computed straightforwardly in float32 on
     the card: the port's PCA (plain torch; no kernel of the port), then the
     plain GP (torch Gram, plain_chol, cholesky_solve) or plain_sparse, and
     for AR a per-feature pinv least squares with one prediction a batch.
-    Returns the predicted DVFs (features, frames)."""
+    ``window`` (start, n) trains on frames start .. start + n - 1 only, as
+    learn's ``start_trainInd`` / ``n_trainImgs`` do without AR.  Returns the
+    predicted DVFs (features, frames)."""
     import torch
 
     from gpr_tpu_torch.pipeline import dataparser as tdp
@@ -545,8 +575,9 @@ def plain_app(learn_dirs, test_us, cm, dev, ar=None):
     def t(a):
         return torch.as_tensor(a, dtype=torch.float32, device=dev)
 
-    us = tdp.parse_image_files(tdp.list_files(learn_dirs[0]))
-    dvf = t(tdp.parse_displacement_files(tdp.list_files(learn_dirs[1])))
+    sel = slice(None) if window is None else slice(window[0], window[0] + window[1])
+    us = tdp.parse_image_files(tdp.list_files(learn_dirs[0])[sel])
+    dvf = t(tdp.parse_displacement_files(tdp.list_files(learn_dirs[1])[sel]))
     te = tdp.parse_image_files(tdp.list_files(test_us))
     n_in, n_out = cm["n_inputModes"], cm["n_outputModes"]
     out_pca = tpca.fit_pca(dvf)
@@ -945,6 +976,358 @@ def phase_28(dev, smi, t32):
     del XP, XP64, m32, m64
     torch.cuda.empty_cache()
     print(f"  phase 28 wall time {time.perf_counter() - t28:.1f} s")
+    return path_counts
+
+
+# ---------------------------------------------------------------------------
+# phase 29: the image pipeline, the serving loop's CUDA graph, drift, experiments
+# ---------------------------------------------------------------------------
+
+# phase 29's sizes: (a) the warped volume and the field's amplitude in voxels,
+# (b) the slice-wise variance and the pyramid's scales, (c) the served
+# frames, (d) the drift windows and the synthetic study's frames
+P29 = {"vol": 64, "amp": 3.0, "var": 4.0, "scales": 3, "frames": 64, "window": 1024, "starts": (0, 1024, 2048),
+       "study_train": 32, "study_test": 8}
+P28_ROOT = "chip_smoke_out/phase28"  # phase 28 (d)'s dataset and models
+# JAX's 'wrap' and 'constant' at order 1 are scipy's 'grid-wrap' and 'grid-constant'
+SCIPY_SAME = {(0, "nearest"): "nearest", (0, "mirror"): "mirror", (0, "reflect"): "reflect",
+              (1, "nearest"): "nearest", (1, "mirror"): "mirror", (1, "reflect"): "reflect",
+              (1, "wrap"): "grid-wrap", (1, "constant"): "grid-constant", (3, None): "mirror"}
+
+
+def gate_f32(port, plain, ref):
+    """The port's float32 result on the card and its own float32 run on the
+    CPU, each against the float64 reference: the card within 3x the CPU
+    run's error, or 2 float32 eps where that is smaller."""
+    import torch
+
+    e, p = relerr(port, ref), relerr(plain, ref)
+    lim = max(3 * p, 2 * float(torch.finfo(torch.float32).eps))
+    return {"err": e, "plain_f32_err": p, "limit": lim, "ok": e <= lim}
+
+
+def percentile_diff(stats32, stats64):
+    """The largest gap between two runs' error percentiles (a printout: it
+    moves by at most the largest per-voxel change of the field, whatever
+    that change is, so it is no gate)."""
+    return max(abs(float(stats32[k]) - float(stats64[k])) for k in stats64)
+
+
+def read_vtk_dir(path, suffix=".vtk"):
+    from gpr_tpu_torch.pipeline import imageio as tio
+
+    names = sorted(f for f in os.listdir(path) if f.endswith(suffix))
+    return np.stack([tio.read_image(os.path.join(path, f)).flatten() for f in names], axis=1)
+
+
+def write_study(root, n_train, n_test, seed=29):
+    """A small study for apps/experiments.py: 8 MiniDicom files (2 slice
+    positions) for the preprocessing stage, and 10 x 10 'US' frames and
+    3 x 4 x 5 DVFs (tests/test_experiments.py's recipe) that the split stage
+    divides into n_train / n_test."""
+    from gpr_tpu_torch.data import dicom as tdicom
+    from gpr_tpu_torch.pipeline import imageio as tio
+
+    rng = np.random.default_rng(seed)
+    for sub in ("data", "us", "reg3d"):
+        os.makedirs(os.path.join(root, sub))
+    for i in range(1, 9):
+        tdicom.write_minimal_dicom(os.path.join(root, "data", f"raw{i:03d}.ima"), instance_number=i)
+    yy = np.mgrid[0:10, 0:10][0]
+    for i in range(n_train + n_test):
+        ph = 2 * np.pi * i / 10.0
+        frame = np.clip(127 + 100 * np.sin(2 * np.pi * yy / 10 + ph) + rng.normal(0, 1, (10, 10)), 0, 255)
+        tio.write_image(tio.Image(frame, (1, 1), (0, 0)), os.path.join(root, "us", f"us{i:05d}.vtk"))
+        df = np.stack([np.full((3, 4, 5), np.sin(ph)), np.full((3, 4, 5), 0.5 * np.cos(ph)),
+                       np.full((3, 4, 5), 0.2 * np.sin(ph))], axis=-1) + rng.normal(0, 0.003, (3, 4, 5, 3))
+        tio.write_image(tio.Image(df, (1, 1, 1), (0, 0, 0), ncomponents=3),
+                        os.path.join(root, "reg3d", f"df{i:05d}.vtk"))
+    return {
+        "options": {"preprocessing": True, "splitting_data": True, "regression": True, "evaluation": True},
+        "general": {"root_dir": root, "n_slices": 2, "surrogate_type": 1,
+                    "n_training_sweeps": n_train // 2, "surrogate_dir": "us", "registration_dir": "reg3d",
+                    "input_format": "vtk", "output_format": "vtk", "master_volume": "reg3d/train/00000.vtk"},
+        "gpr_model": {"perform_ar": False, "n_inputModes": 4, "n_outputModes": 3, "ar_n": 1, "ar_p": 2,
+                      "kernel_string": "GaussianKernel(2, 1,)", "data_noise": 0.01, "subdir": "test"},
+        "gpr_learn": {"use_precomputed": False, "n_trainImgs": 0, "start_trainInd": 0},
+        "gpr_predict": {"use_precomputed": False, "compute_groundtruth_features": False},
+    }
+
+
+def phase_29(dev, smi, t32):
+    """Phase 29 at the sizes of ``P29`` on phase 28 (d)'s dataset and exact
+    float32 model; returns the launch counts of its paths."""
+    import contextlib
+    import glob
+    import io
+    import shutil
+
+    import scipy.ndimage as ndi
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from gpr_tpu_torch.apps import drift as tdrift
+    from gpr_tpu_torch.apps import experiments as texp
+    from gpr_tpu_torch.apps import predict as tpredict
+    from gpr_tpu_torch.apps import serve as tserve
+    from gpr_tpu_torch.gp import exact as texact
+    from gpr_tpu_torch.ops import _cuda
+    from gpr_tpu_torch.pipeline import dataparser as tdp
+    from gpr_tpu_torch.pipeline import filters as tflt
+    from gpr_tpu_torch.pipeline import imageio as tio
+    from gpr_tpu_torch.pipeline import warp as twarp
+    from gpr_tpu_torch.utils import config as tconfig
+    from gpr_tpu_torch.utils import profiling as tprof
+
+    t29 = time.perf_counter()
+    path_counts = []
+    root = "chip_smoke_out/phase29"
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    check(os.path.exists(P28_ROOT + "/exact-fast-ParameterFile.txt"), "phase 29 needs phase 28 (d)'s exact model")
+    print(f"phase 29 the image pipeline (warp, filters), serve's per-frame CUDA graph, drift and experiments "
+          f"on phase 28 (d)'s data")
+
+    def show(gates):
+        return "; ".join(f"{k} {r['err']:.3g} (CPU f32 {r['plain_f32_err']:.3g})" for k, r in gates.items())
+
+    # (a) a 64^3 float32 volume warped by a smooth field of up to +-3 voxels
+    n = P29["vol"]
+    rng = np.random.default_rng(29)
+    zz, yy, xx = np.meshgrid(*(np.arange(n, dtype=np.float64),) * 3, indexing="ij")
+    vol = (np.sin(6 * np.pi * xx / n) * np.cos(4 * np.pi * yy / n) + 0.5 * np.sin(2 * np.pi * zz / n)
+           + 0.1 * rng.standard_normal((n, n, n))).astype(np.float32)
+    # (the phases keep 3 sin off its exact halves, where scipy's order-0
+    # rounding and JAX's differ)
+    field = np.stack([P29["amp"] * np.sin(2 * np.pi * (c + 1) * (xx + yy + zz) / (3 * n) + c + 0.3)
+                      for c in range(3)], axis=-1).astype(np.float32)
+    vol_d, field_d = t32(vol), t32(field)
+    vol_c, field_c = torch.from_numpy(vol), torch.from_numpy(field)
+    # the card's coordinates in float64 arithmetic on the same float32 inputs
+    coords64 = [(zz, yy, xx)[ax] + field[..., 2 - ax].astype(np.float64) for ax in range(3)]
+    cases = [(3, None)] + [(o, m) for o in (0, 1) for m in ("nearest", "mirror", "reflect", "wrap", "constant")]
+    gates_a, times_a = {}, {}
+    for order, mode in cases:
+        out = twarp.warp_array(vol_d, field_d, order=order, mode=mode)
+        check(out.device.type == "cuda" and out.dtype == torch.float32, f"warp order {order}: {out.device}")
+        plain = twarp.warp_array(vol_c, field_c, order=order, mode=mode)
+        if (order, mode) in SCIPY_SAME:
+            ref = torch.from_numpy(ndi.map_coordinates(vol.astype(np.float64), coords64, order=order,
+                                                       mode=SCIPY_SAME[(order, mode)]))
+            src = "scipy"
+        else:
+            ref = twarp.warp_array(vol_c.double(), field_c.double(), order=order, mode=mode)
+            src = "port f64"
+        key = f"order {order} {mode or 'mirror'} ({src})"
+        gates_a[key] = gate_f32(out, plain, ref)
+        gates_a[key]["card_vs_cpu_f32"] = float((out.cpu() - plain).abs().max())
+        if mode in (None, "nearest"):
+            times_a[order] = events_ms(lambda: twarp.warp_array(vol_d, field_d, order=order, mode=mode), 5)
+    print(f"  (a) warp of a {n}^3 float32 volume by a smooth field of up to {P29['amp']} voxels, rel err against "
+          f"float64: {show(gates_a)}")
+    print(f"      max |card - CPU f32|: " + "; ".join(f"{k.split(' (')[0]} {r['card_vs_cpu_f32']:.3g}"
+                                                    for k, r in gates_a.items()))
+    print(f"      CUDA-event medians of 5 ({smi}): " + "; ".join(f"order {o} {t:.3f} ms" for o, t in times_a.items()))
+    check(all(r["ok"] for r in gates_a.values()), "warp on the card above 3x its CPU float32 run's error")
+    del vol_d, field_d, coords64
+
+    # (b) the filters on phase 28's US series: 3773 x 64 x 64
+    us = tdp.parse_image_files(tdp.list_files(P28_ROOT + "/breathing/train/us"))  # (4096, 3773), /255
+    hw = int(round(math.sqrt(us.shape[0])))
+    series64 = torch.from_numpy(np.ascontiguousarray(us.T.reshape(-1, hw, hw)))
+    series_c = series64.float()
+    series_d = series_c.to(dev)
+    vol_s = series_c[:n].contiguous()  # the first 64 frames as a 64^3 volume
+    runs = {
+        "gaussian_smoothing var 4 slice-wise": lambda s: tflt.gaussian_smoothing(s, P29["var"], axes=(1, 2)),
+        f"image_pyramid_series {P29['scales']} scales": lambda s: torch.cat(
+            [lv.reshape(-1) for lv in tflt.image_pyramid_series(s, P29["scales"])]),
+        "histogram_matching frame 0 onto 1": lambda s: tflt.histogram_matching(s[0], s[1]),
+    }
+    gates_b, times_b = {}, {}
+    for name, fn in runs.items():
+        out = fn(series_d)
+        check(out.device.type == "cuda", f"{name} ran on {out.device}")
+        gates_b[name] = gate_f32(out, fn(series_c), fn(series64))
+        times_b[name] = events_ms(lambda: fn(series_d), 3)
+    med = tflt.median_filter(vol_s.to(dev), 1)
+    med_ref = ndi.median_filter(vol_s.numpy(), size=3, mode="nearest")
+    med_ok = bool(np.array_equal(med.cpu().numpy(), med_ref))
+    times_b["median_filter r=1 64^3"] = events_ms(lambda: tflt.median_filter(vol_s.to(dev), 1), 3)
+    print(f"  (b) filters on the US series {tuple(series_d.shape)} float32, rel err against float64: "
+          f"{show(gates_b)}; median_filter r=1 on {tuple(vol_s.shape)} equals scipy's median_filter(mode='nearest'): "
+          f"{med_ok}")
+    print(f"      CUDA-event medians of 3 ({smi}): " + "; ".join(f"{k} {t:.3f} ms" for k, t in times_b.items()))
+    check(all(r["ok"] for r in gates_b.values()) and med_ok, "a filter on the card above its gate")
+    del series_d, series64, series_c, vol_s, med
+    torch.cuda.empty_cache()
+
+    # (c) serve phase 28 (d)'s exact float32 model (n=3773, d=5, q=3, US 64^2,
+    # DVF 3 x 16^3) from a copy of its files, 64 test frames through watch
+    prefix = root + "/serve/gpr"
+    os.makedirs(root + "/serve")
+    for path in glob.glob(P28_ROOT + "/exact-fast-*"):
+        if path.endswith((".txt", ".bin")) and "latest" not in path and "credible" not in path:
+            shutil.copy(path, prefix + path[len(P28_ROOT + "/exact-fast"):])
+    with open(P28_ROOT + "/exact-cm.json") as f:
+        cm = json.load(f)
+    watch_dir = root + "/watch"
+    os.makedirs(watch_dir)
+    test_us = tdp.list_files(P28_ROOT + "/breathing/test/us")[:P29["frames"]]
+    for path in test_us:
+        shutil.copy(path, watch_dir)
+    server = tserve.Server(cm, prefix, root + "/served")
+    check(server.device.type == "cuda" and server.dtype == torch.float32, f"Server on {server.device}")
+    served = tserve.watch(server, watch_dir, poll=0.01, max_frames=P29["frames"], idle_timeout=5.0)
+    check(served == P29["frames"], f"watch served {served} of {P29['frames']} frames")
+    replays = server.replays / served
+    check(replays == 1 and len(server._graphs) == 1,
+          f"serve: {replays} replays a frame, {len(server._graphs)} graphs")
+    with open(prefix + "-latestInferenceTime.txt") as f:
+        watch_s = [float(v) for v in f.read().split(",") if v.strip()]
+    frames = [np.asarray(tio.read_image(p).data) for p in test_us]
+    # the graph against the same Server's eager program, frame by frame
+    ulps = 0.0
+    for fr in frames:
+        g_, e_ = server.run(fr), server.run_eager(fr)
+        if not np.array_equal(g_, e_):
+            ulps = max(ulps, float(np.max(np.abs(g_.astype(np.float64) - e_) / np.spacing(np.abs(e_)))))
+    print(f"  (c) serve: graph against eager program over {len(frames)} frames: "
+          + ("bit for bit" if ulps == 0 else f"max {ulps:.1f} float32 ulp"))
+    check(ulps <= 2, f"serve's graph differs from its eager program by {ulps} ulp")
+    # what the card's runtime saw a frame: one graph launch, no kernel launch,
+    # one copy in and one copy out (the host read), one synchronisation; the
+    # profiler's warm-up frames start its device tracing before the 8 counted
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=2, active=8, repeat=1)) as prof:
+        for fr in frames[:10]:
+            server.run(fr)
+            prof.step()
+    names = [e.name for e in prof.events()]
+    rt = {k: sum(nm == k for nm in names) / 8 for k in ("cudaGraphLaunch", "cudaLaunchKernel", "cudaMemcpyAsync",
+                                                         "cudaStreamSynchronize")}
+    rt.update({f"Memcpy {k}": sum(nm.startswith(f"Memcpy {k}") for nm in names) / 8 for k in ("HtoD", "DtoH")})
+    reads = rt["Memcpy DtoH"]
+    print(f"      torch.profiler over 8 frames, runtime calls and copies a frame: {rt}")
+    check(rt == {"cudaGraphLaunch": 1, "cudaLaunchKernel": 0, "cudaMemcpyAsync": 2, "cudaStreamSynchronize": 1,
+                 "Memcpy HtoD": 1, "Memcpy DtoH": 1}, f"serve's runtime calls and copies a frame {rt}")
+    # serve's DVFs against predict's (phase 28 (d)) for the same frames, within
+    # 3x the float32 error phase 28 (d) measured against its float64 run
+    p32 = read_vtk_dir(P28_ROOT + "/exact-fast-results")[:, :served]
+    p64 = read_vtk_dir(P28_ROOT + "/exact-parity-results")[:, :served]
+    s32 = np.stack([np.load(os.path.join(root + "/served", f"dvf{i:05d}.npy")) for i in range(served)], axis=1)
+    err28 = relerr(torch.from_numpy(p32), torch.from_numpy(p64))
+    err_sp = relerr(torch.from_numpy(s32), torch.from_numpy(p32))
+    print(f"      serve's DVFs against predict's: rel err {err_sp:.3g} <= 3 x {err28:.3g} (predict float32 against "
+          f"float64, phase 28 (d))")
+    check(err_sp <= 3 * err28, "serve's DVFs beyond 3x predict's float32 error")
+
+    def host_ms(fn, args):
+        out = []
+        for a in args:
+            t0 = time.perf_counter()
+            fn(a)
+            out.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(out))
+
+    gp = texact.load(prefix, np.float32, dev)
+    feats = server.in_pca.reduce(t32(np.stack([server._frame_col(fr)[:, 0] for fr in frames], 1)),
+                                 server.n_input_modes).T.cpu().numpy()
+    lat = {"watch (graph + np.save)": 1e3 * float(np.median(watch_s)),
+           "graph": host_ms(server.run, frames),
+           "eager": host_ms(server.run_eager, frames),
+           "predict's _packed (GP only)": host_ms(
+               lambda v: tpredict._packed(gp, torch.as_tensor(v, dtype=torch.float32, device=dev)).cpu().numpy(),
+               feats)}
+    print(f"      per-frame latency, medians of {served} frames, host clock ({smi}): "
+          + "; ".join(f"{k} {v:.4f} ms" for k, v in lat.items())
+          + f"; CUDA-graph replays a frame {replays:g}, host reads (device-to-host copies) a frame {reads:g}")
+    del server, gp
+
+    # (d) drift: three 1024-frame windows of phase 28's training frames (route
+    # fused-gram, K2-K4, in each learn), on the card in float32 and on the CPU
+    # in float64; then experiments on a small study with DICOM preprocessing
+    def drift_tree(where):
+        r = os.path.abspath(f"{root}/drift-{where}")
+        for sub, src in (("us/train", "train/us"), ("us/test", "test/us"), ("reg3d/train", "train/dvf"),
+                         ("reg3d/test", "test/dvf")):
+            os.makedirs(os.path.dirname(os.path.join(r, sub)), exist_ok=True)
+            os.symlink(os.path.abspath(f"{P28_ROOT}/breathing/{src}"), os.path.join(r, sub))
+        return r
+
+    dcfg = {"general": {"surrogate_dir": "us", "registration_dir": "reg3d",
+                        "master_volume": "reg3d/train/df00000.vtk"},
+            "gpr_model": dict(cm, subdir="test"),
+            "gpr_learn": {"use_precomputed": False},
+            "gpr_predict": {"use_precomputed": False, "compute_groundtruth_features": False}}
+    drift, dtimes, dlogs = {}, {}, {}
+    for where, policy, device in (("card", "fast", None), ("cpu", "parity", "cpu")):
+        r = drift_tree(where)
+        timer = tprof.StageTimer()
+        out = io.StringIO()
+        with tconfig.policy_scope(policy), contextlib.redirect_stdout(out):
+            _cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            drift[where] = tdrift.run_drift_config(dcfg, r, P29["window"], P29["starts"], device=device, timer=timer)
+            torch.cuda.synchronize()
+            dtimes[where] = (time.perf_counter() - t0, timer.totals())
+            c = _cuda.launch_counts()
+        dlogs[where] = out.getvalue()
+        if where == "card":
+            path_counts.append(c)
+            routes = re.findall(r"route ([\w-]+)", dlogs[where])
+            check(routes == ["fused-gram"] * len(P29["starts"]) and
+                  all(c[f] > 0 for f in ("panel_update", "diag_factor_inv", "panel_solve")),
+                  f"drift's learns took routes {routes} with launches {c}")
+        else:
+            check(sum(c.values()) == 0, f"drift on the CPU launched {c}")
+    # each window's DVFs (card float32 against CPU float64) within 3x the
+    # plain float32 route's error on the same window (plain_app), as 28 (d)
+    breathing = [f"{P28_ROOT}/breathing/train/us", f"{P28_ROOT}/breathing/train/dvf"]
+    for tag in drift["card"]:
+        rc_, r64 = drift["card"][tag], drift["cpu"][tag]
+        d32 = read_vtk_dir(f"{root}/drift-card/reg3d/test_pred_{tag}")
+        d64 = read_vtk_dir(f"{root}/drift-cpu/reg3d/test_pred_{tag}")
+        plain = plain_app(breathing, f"{P28_ROOT}/breathing/test/us", cm, dev,
+                          window=(rc_["start"], P29["window"])).detach().cpu().double()
+        g_ = gate32(torch.from_numpy(d32), plain, torch.from_numpy(d64))
+        st = "; ".join(f"{k.split()[1]} {v:.2f} s" for k, v in dtimes["card"][1].items() if k.startswith(tag))
+        print(f"  (d) drift {tag} ({P29['window']} frames from {rc_['start']}): DVFs rel err vs the CPU float64 run "
+              f"{g_['err']:.3g} <= {g_['limit']:.3g} (plain f32 {g_['plain_f32_err']:.3g}); percentiles (card f32) "
+              + ", ".join(f"{k}% {float(v):.5f}" for k, v in rc_["percentiles"].items())
+              + f", max |card f32 - CPU f64| {percentile_diff(rc_['percentiles'], r64['percentiles']):.3g}; "
+              f"stages (card) {st}")
+        check(g_["ok"], f"drift {tag}: DVFs above 3x the plain f32 route's error")
+    print(f"      drift wall time: card {dtimes['card'][0]:.1f} s, CPU float64 {dtimes['cpu'][0]:.1f} s; launches on "
+          f"the card {({k: v for k, v in path_counts[-1].items() if v})}")
+
+    evals = {}
+    for where, policy, device in (("card", "fast", None), ("cpu", "parity", "cpu")):
+        r = os.path.abspath(f"{root}/study-{where}")
+        cfg = write_study(r, P29["study_train"], P29["study_test"])
+        timer = tprof.StageTimer()
+        out = io.StringIO()
+        with tconfig.policy_scope(policy), contextlib.redirect_stdout(out):
+            rc = texp.run_experiment_config(cfg, r, device=device, timer=timer)
+        check(rc == 0, f"experiments on the {where}: rc {rc}\n{out.getvalue()[-2000:]}")
+        with open(os.path.join(r, "evaluation.json")) as f:
+            evals[where] = (json.load(f), read_vtk_dir(os.path.join(r, "reg3d", "test_pred")), timer.totals())
+        check(os.path.exists(os.path.join(r, "credible_interval_test_.tex"))
+              and sorted(os.listdir(os.path.join(r, "data_mod", "sorted"))) == ["slice01", "slice02"]
+              and len(os.listdir(os.path.join(r, "us", "train"))) == P29["study_train"],
+              f"experiments on the {where}: artifacts missing")
+    # the study's DVFs the same way: the plain float32 route on the card's split
+    r = os.path.abspath(f"{root}/study-card")
+    plain = plain_app([f"{r}/us/train", f"{r}/reg3d/train"], f"{r}/us/test", cfg["gpr_model"],
+                      dev).detach().cpu().double()
+    g_ = gate32(torch.from_numpy(evals["card"][1]), plain, torch.from_numpy(evals["cpu"][1]))
+    print(f"  (d) experiments ({P29['study_train']} + {P29['study_test']} frames, 8 DICOM files): DVFs rel err vs "
+          f"the CPU float64 run {g_['err']:.3g} <= {g_['limit']:.3g} (plain f32 {g_['plain_f32_err']:.3g}); "
+          "evaluation " + ", ".join(f"{k}% {v:.5f}" for k, v in evals["card"][0].items())
+          + f", max |card f32 - CPU f64| {percentile_diff(evals['card'][0], evals['cpu'][0]):.3g}; stages (card) "
+          + "; ".join(f"{k} {v:.3f} s" for k, v in evals["card"][2].items()))
+    check(g_["ok"], "experiments: DVFs above 3x the plain f32 route's error")
+    print(f"  phase 29 wall time {time.perf_counter() - t29:.1f} s")
     return path_counts
 
 
@@ -3681,6 +4064,11 @@ def main() -> int:
 
     # --------------------------------------------------------------- 28 ----
     for c in phase_28(dev, smi, t32):
+        for name, v in c.items():
+            counts[name] += v
+
+    # --------------------------------------------------------------- 29 ----
+    for c in phase_29(dev, smi, t32):
         for name, v in c.items():
             counts[name] += v
 

@@ -8,8 +8,12 @@ densities, MLE / MAP training, fleets of small GPs (fit, predict,
 likelihood and MLE of B GPs at once) and the hyperparameter samplers (HMC,
 NUTS, ADVI and the mixture predictive, whose chains and draws run as one
 fleet).  The feature pipeline (``pipeline``: PCA, AR, image I/O, the data
-parser) and the learn / predict apps (``python -m gpr_tpu_torch.apps.learn``,
-``.predict``) sit beside them.
+parser), the image pipeline (``pipeline.bspline``, ``.warp``, ``.filters``),
+the dataset preparation (``data``: DICOM ingestion, pair splitting), the
+per-stage timer and tracer (``utils.profiling``) and the apps (``python -m
+gpr_tpu_torch.apps.learn``, ``.predict``, ``.serve``, whose per-frame program
+is one CUDA graph on the card, ``.drift``, ``.experiments``, ``.validate``,
+``.tikz``, ``.analysis``) sit beside them.
 On a CUDA tensor the fit, the likelihood and the fleet run through
 hand-written CUDA kernels (ops/gram.py, ops/fullchol.py, ops/syrk.py,
 ops/crout.py, ops/solve.py, ops/leaf.py; sources in csrc/); on a CPU tensor through their

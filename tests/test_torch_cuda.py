@@ -43,7 +43,15 @@ is bit-exact.  K19 and K20
 get 1e-5 of the largest entry against their plain versions (the gate
 tests/test_ops.py:318 puts on JAX's kernel) and ||L L^T - A|| / ||A|| < 1e-5
 (Frobenius, float64 arithmetic on the float32 factor).
+The serve app's CUDA graph replays its eager program's kernels on the same
+inputs: equal bit for bit.  An order-3 warp in float64 on the card gets
+1e-10 of the image's range against scipy, in float32 1e-5 (float32 taps of
+the prefilter).  median_filter is a selection, equal to its CPU run;
+histogram_matching gets 1e-12 (float64) and 2e-6 (float32) of its range
+against its CPU run (the same elementwise arithmetic).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -1690,3 +1698,109 @@ def test_sparse_log_posterior_route_and_launches_on_the_card(dev):
     assert _cuda.launch_counts()["crout_chol"] == 512 // fleet_ops.PANEL
     assert _relerr(v.double(), v64) <= 3 * _relerr(v32.double(), v64) + 1e-7
     assert _relerr(g.double(), g64) <= 3 * _relerr(g32.double(), g64) + 1e-6
+
+
+# ---------------------------------------------------------------------------
+# the serving loop's CUDA graph and the image pipeline on the card
+# ---------------------------------------------------------------------------
+
+SERVE_CONFIG = {"n_inputModes": 5, "n_outputModes": 3}
+
+
+def _serve_model(tmp_path, dev, n=600, hw=16, dvf=3 * 4 ** 3, seed=60):
+    """A model the serve app loads: PCA bases of random frames and DVFs and an
+    exact GP on their features, saved in float32 by the port."""
+    from gpr_tpu_torch.pipeline import pca
+
+    rng = np.random.default_rng(seed)
+    frames = rng.uniform(0, 255, (hw * hw, n)) / 255.0
+    fields = rng.standard_normal((dvf, n))
+    in_pca, out_pca = pca.fit_pca(_t(frames, dev)), pca.fit_pca(_t(fields, dev))
+    X = in_pca.reduce(_t(frames, dev), SERVE_CONFIG["n_inputModes"]).T.contiguous()
+    Y = out_pca.reduce(_t(fields, dev), SERVE_CONFIG["n_outputModes"]).T.contiguous()
+    prefix = str(tmp_path / "gpr")
+    tg.fit(tg.Gaussian(2.0, 1.0), X, Y, sigma=0.1).save(prefix)
+    in_pca.save(prefix + "-input")
+    out_pca.save(prefix + "-output")
+    return prefix, [rng.uniform(0, 255, (hw, hw)) for _ in range(4)]
+
+
+def test_serve_graph_matches_its_eager_program(dev, tmp_path):
+    from gpr_tpu_torch.apps import serve
+
+    prefix, frames = _serve_model(tmp_path, dev)
+    server = serve.Server(SERVE_CONFIG, prefix, str(tmp_path / "out"))
+    assert server.device.type == "cuda" and server.gp.X.dtype == torch.float32
+    server.warmup(frames[0])
+    for i, f in enumerate(frames):
+        got, want = server.run(f), server.run_eager(f)
+        assert got.dtype == np.float32 and got.shape == want.shape == (3 + 1 + 3 * 4 ** 3,)
+        # the graph replays the eager program's kernels on the same inputs
+        np.testing.assert_array_equal(got, want)
+        server.handle_frame(f, i)
+    assert len(server._graphs) == 1
+    assert server.replays == 2 * len(frames)
+    # a frame is one graph launch, one copy in, one host read and one synchronisation
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    # the warm-up frame starts the profiler's device tracing before the counted one
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for f in frames[:2]:
+            server.run(f)
+            prof.step()
+    names = [e.name for e in prof.events()]
+    seen = {k: sum(nm.startswith(k) for nm in names) for k in (
+        "cudaGraphLaunch", "cudaLaunchKernel", "cudaStreamSynchronize", "Memcpy HtoD", "Memcpy DtoH")}
+    assert seen == {"cudaGraphLaunch": 1, "cudaLaunchKernel": 0, "cudaStreamSynchronize": 1,
+                    "Memcpy HtoD": 1, "Memcpy DtoH": 1}, seen
+    assert sorted(os.listdir(tmp_path / "out")) == [f"dvf{i:05d}.npy" for i in range(len(frames))]
+    # a frame of another size is another program: the basis refuses it while its graph is made
+    with pytest.raises(RuntimeError):
+        server.run(np.zeros((8, 8)))
+
+
+def test_serve_capture_failure_raises(dev, tmp_path):
+    from gpr_tpu_torch.apps import serve
+
+    prefix, frames = _serve_model(tmp_path, dev, n=200)
+    server = serve.Server(SERVE_CONFIG, prefix, str(tmp_path / "out"))
+    # a host read inside the per-frame program cannot be captured
+    server._pipeline = lambda col: col * col.sum().item()
+    with pytest.raises(RuntimeError, match="capturing the per-frame program"):
+        server.warmup(frames[0])
+    assert server.replays == 0 and not server._graphs
+
+
+def test_warp_order_3_against_scipy_on_the_card(dev):
+    import scipy.ndimage as ndi
+
+    from gpr_tpu_torch.pipeline import warp
+
+    rng = np.random.default_rng(61)
+    img = rng.standard_normal((12, 10, 9))
+    disp = rng.uniform(-3.0, 3.0, img.shape + (3,))
+    grid = np.meshgrid(*[np.arange(s, dtype=np.float64) for s in img.shape], indexing="ij")
+    want = ndi.map_coordinates(img, [grid[ax] + disp[..., 2 - ax] for ax in range(3)], order=3, mode="mirror")
+    got64 = warp.warp_array(torch.tensor(img, device=dev), torch.tensor(disp, device=dev), order=3)
+    assert got64.device.type == "cuda"
+    np.testing.assert_allclose(got64.cpu().numpy(), want, rtol=0, atol=1e-10 * np.abs(want).max())
+    got32 = warp.warp_array(_t(img, dev), _t(disp, dev), order=3)
+    # float32 taps of a float64 prefilter: a few ulp of the image's range
+    np.testing.assert_allclose(got32.cpu().double().numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+def test_histogram_matching_and_median_filter_on_the_card(dev):
+    from gpr_tpu_torch.pipeline import filters
+
+    rng = np.random.default_rng(62)
+    a, b = rng.uniform(0, 255, (16, 20, 12)), rng.uniform(-10, 90, (16, 20, 12))
+    for dtype in (torch.float64, torch.float32):
+        ta, tb = (torch.tensor(x, dtype=dtype) for x in (a, b))
+        med = filters.median_filter(ta.to(dev), 1)
+        assert med.device.type == "cuda"
+        # a selection: the same value either way
+        torch.testing.assert_close(med.cpu(), filters.median_filter(ta, 1), rtol=0, atol=0)
+        got, want = filters.histogram_matching(ta.to(dev), tb.to(dev)).cpu(), filters.histogram_matching(ta, tb)
+        tol = 1e-12 if dtype == torch.float64 else 2e-6
+        torch.testing.assert_close(got, want, rtol=0, atol=tol * float(want.abs().max()))

@@ -20,7 +20,10 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 def test_import_loads_no_jax():
     code = ("import sys, gpr_tpu_torch, gpr_tpu_torch.convert, gpr_tpu_torch.pipeline, "
-            "gpr_tpu_torch.apps.learn, gpr_tpu_torch.apps.predict, gpr_tpu_torch.utils.native; "
+            "gpr_tpu_torch.apps.learn, gpr_tpu_torch.apps.predict, gpr_tpu_torch.utils.native, "
+            "gpr_tpu_torch.apps.serve, gpr_tpu_torch.apps.drift, gpr_tpu_torch.apps.experiments, "
+            "gpr_tpu_torch.apps.validate, gpr_tpu_torch.apps.tikz, gpr_tpu_torch.apps.analysis, "
+            "gpr_tpu_torch.data, gpr_tpu_torch.data.dicom, gpr_tpu_torch.utils.profiling; "
             "print('jax' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True)
@@ -40,7 +43,14 @@ def test_sources_import_neither_jax_nor_gpr_tpu():
             "gpr_tpu_torch/pipeline/pca.py", "gpr_tpu_torch/pipeline/autoregression.py",
             "gpr_tpu_torch/pipeline/dataparser.py", "gpr_tpu_torch/pipeline/imageio.py",
             "gpr_tpu_torch/utils/logutils.py", "gpr_tpu_torch/utils/native.py",
-            "gpr_tpu_torch/apps/learn.py", "gpr_tpu_torch/apps/predict.py"} <= names
+            "gpr_tpu_torch/apps/learn.py", "gpr_tpu_torch/apps/predict.py",
+            "gpr_tpu_torch/pipeline/bspline.py", "gpr_tpu_torch/pipeline/warp.py",
+            "gpr_tpu_torch/pipeline/filters.py", "gpr_tpu_torch/utils/profiling.py",
+            "gpr_tpu_torch/apps/serve.py", "gpr_tpu_torch/apps/drift.py",
+            "gpr_tpu_torch/apps/experiments.py", "gpr_tpu_torch/apps/validate.py",
+            "gpr_tpu_torch/apps/tikz.py", "gpr_tpu_torch/apps/analysis.py",
+            "gpr_tpu_torch/data/__init__.py", "gpr_tpu_torch/data/dicom.py",
+            "gpr_tpu_torch/data/prep.py"} <= names
     for f in files:
         assert not pat.search(f.read_text()), f
 
