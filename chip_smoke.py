@@ -228,7 +228,31 @@ process per source, in parallel), then:
      float32 and on the CPU in float64, each window's and the study's DVFs
      held to the CPU's within 3x the plain float32 chain's error on the same
      training frames (plain_app, or 2 eps), the percentiles printed beside,
-     with each stage's wall time.
+     with each stage's wall time;
+ 30. runs the multi-rank layer (``phase_30``, sizes in ``P30``;
+     chip_tools/phase30.py runs it alone): (a) on a world of one NCCL rank
+     (parallel.sharded_gram.default_mesh) fit_sharded of the bench model at
+     n=16384 (K5 in each diagonal block's cholesky_blocked, its launches
+     counted and its wrapper's calls timed by CUDA events in a warm fit, its
+     peak device memory beside its block row), alpha and logdet against
+     float64 within 3x the plain float32 route's error (or 2 eps);
+     fit_batched_sharded at B=128, n=512 (K6, K7) and
+     predictive_sharded with 32 draws at n=512 and 1024 points (K6, K7), each
+     bit for bit its one-process call (or within 3x); 16 chains of
+     sample_hmc_sharded_chunked on bench_hmc's posterior (K7) draw for draw
+     sample_hmc_chunked's; dryrun_multichip(1); (b) two gloo ranks on the one
+     card (gloo takes CUDA tensors for the collectives the port uses; NCCL
+     refuses two ranks on one card), this script started twice with
+     --phase30-rank: fit_sharded at n=8192 (block rows of 4096, K5) within 3x
+     the plain float32 error, with each rank's peak device memory, the fleet
+     of (a) at 64 members a rank against (a)'s one-process fleet, and (a)'s
+     16 chains of sample_hmc_sharded_chunked at 8 a rank draw for draw (a)'s
+     sample_hmc_chunked whose log posterior takes 8 chains a call (cuBLAS's
+     batched products round with the batch's size, which (a) prints); (c)
+     fit_sharded's time beside fit and torch Gram + linalg.cholesky +
+     cholesky_solve at n=16384; (d) ops.blocked.cho_solve_blocked against two
+     torch.linalg.solve_triangular on a row-major factor at n=16384, q = 8,
+     128 and 16384 (the data of linalg.cho_solve's dispatch).
 
 Phase 4's fit and phase 6's training steps are the standing check at the
 breathing-fixture shape: their gates go to chip_smoke_out/breathing_check.json
@@ -245,7 +269,8 @@ plain torch MLL (torch.linalg.cholesky
 + autograd) with the same 3x gate against the plain float32 MLL.  The launch
 counters are reset before each path (phases 2-5, 6, 7, 8-9, each of
 phase 12's four, 15's two, 16, 19's four, 22's seven, 23's two, 25's
-dispatcher, 27's seven, 28's seven and 29's one) and read after it: each kernel of the path must have been
+dispatcher, 27's seven, 28's seven, 29's one, 30's five and two in each
+rank of 30 (b)) and read after it: each kernel of the path must have been
 launched there.  Any failure raises.  The last lines are the kernels' JSON, the card's name and power
 limit, then one JSON object with the device.  Exits non-zero, printing no result, where there is no CUDA device.
 """
@@ -300,6 +325,27 @@ def gaussian64(A, B, sigma, scale):
     """Gaussian Gram matrix k(A, B) in the dtype of A."""
     d2 = (A * A).sum(1)[:, None] + (B * B).sum(1)[None, :] - 2.0 * (A @ B.T)
     return scale * scale * (-0.5 * d2.clamp(min=0.0) / (sigma * sigma)).exp()
+
+
+def plain_mixture(X, Y, Xs, theta, sigma):
+    """The mixture predictive's mean and variance by the straightforward
+    GP per draw in the dtype of X (predictive.py:67-90's formulas)."""
+    import torch
+
+    means, vars_ = [], []
+    for l_, s_ in theta.to(X.dtype):
+        K = gaussian64(X, X, l_, s_) + sigma * sigma * torch.eye(X.shape[0], dtype=X.dtype,
+                                                                  device=X.device)
+        L = torch.linalg.cholesky(K)
+        Ks = gaussian64(Xs, X, l_, s_)
+        means.append(Ks @ torch.cholesky_solve(Y, L))
+        v = s_ * s_ - (Ks * torch.cholesky_solve(Ks.T, L).T).sum(1) + sigma * sigma
+        vars_.append(v.clamp(min=0.0))
+    means, vars_ = torch.stack(means), torch.stack(vars_)
+    mix = means.mean(0)
+    q_ = means.shape[-1]
+    spread = ((means ** 2).sum(-1) / q_).mean(0) - (mix ** 2).sum(-1) / q_
+    return mix, vars_.mean(0) + spread.clamp(min=0.0)
 
 
 def plain_gp(X, Y, Xs, kfun, kss, sigma):
@@ -1329,6 +1375,420 @@ def phase_29(dev, smi, t32):
     check(g_["ok"], "experiments: DVFs above 3x the plain f32 route's error")
     print(f"  phase 29 wall time {time.perf_counter() - t29:.1f} s")
     return path_counts
+
+
+# ---------------------------------------------------------------------------
+# phase 30: the multi-rank layer (gpr_tpu_torch.parallel), the sharded fleet
+# and predictive, and ops/blocked.py's solves
+# ---------------------------------------------------------------------------
+
+P30 = {"n": 16384, "d": 128, "q": 8, "n2": 8192, "B": 128, "nf": 512, "draws": 32, "points": 1024,
+       "chains": 16, "warmup": 20, "samples": 10, "leapfrog": 8, "reps": 3, "solve_q": (8, 128, 16384)}
+
+
+def bench_data(n, d, q, device):
+    """bench.py:121-125's X (n, d) and Y (n, q), float32, seed 0."""
+    import torch
+
+    rng = np.random.default_rng(0)
+    X = torch.tensor(rng.standard_normal((n, d)), dtype=torch.float32, device=device)
+    return X, torch.tensor(rng.standard_normal((n, q)), dtype=torch.float32, device=device)
+
+
+def fleet_data(B, n, device):
+    """benchmarks/bench_batched.py:31-34's fleet (d=8, q=4), float32, seed 0."""
+    import torch
+
+    rf = np.random.default_rng(0)
+    X = torch.tensor(rf.standard_normal((B, n, 8)), dtype=torch.float32, device=device)
+    return X, torch.tensor(rf.standard_normal((B, n, 4)), dtype=torch.float32, device=device)
+
+
+def hmc_data(device):
+    """bench_hmc's posterior data at n = P30["nf"] (also the predictive's),
+    float32, and the 16 chains' config and z0 of phase 30's samplers."""
+    import torch
+
+    from gpr_tpu_torch.inference import hmc as thmc
+
+    def f32(a):
+        return torch.tensor(np.ascontiguousarray(a), dtype=torch.float32, device=device)
+
+    nh = P30["nf"]
+    rh = np.random.default_rng(0)
+    xh = np.linspace(0, 10, nh)
+    Xh, Yh = f32(xh[:, None]), f32((np.sin(xh) + 0.1 * rh.standard_normal(nh))[:, None])
+    cfg = thmc.HMCConfig(num_warmup=P30["warmup"], num_samples=P30["samples"], num_leapfrog=P30["leapfrog"])
+    return Xh, Yh, cfg, f32(np.random.default_rng(31).normal(0.0, 0.3, (P30["chains"], 2)))
+
+
+def peak_bytes(fn):
+    """(fn's result, the device bytes it held at its peak above what was
+    allocated when it started)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def phase_30_rank(rank, world, run_dir):
+    """One rank of phase 30 (b): a gloo group on card 0 through a FileStore
+    in ``run_dir``; the sharded fit at n = P30["n2"], the fleet and the
+    chunked sampler's chains split over the ranks; writes its results and
+    launch counts to ``run_dir``."""
+    import torch
+    import torch.distributed as dist
+
+    import gpr_tpu_torch as tg
+    from gpr_tpu_torch.gp import batched as fleet
+    from gpr_tpu_torch.inference import hmc as thmc
+    from gpr_tpu_torch.ops import _cuda
+    from gpr_tpu_torch.parallel import sharded_gram as sg, sharded_hmc as sh
+
+    torch.cuda.set_device(0)
+    _cuda.library()
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(run_dir, "store"), world), rank=rank,
+                            world_size=world)
+    try:
+        dev = torch.device("cuda", 0)
+        X, Y = bench_data(P30["n2"], P30["d"], P30["q"], dev)
+        Xf, Yf = fleet_data(P30["B"], P30["nf"], dev)
+        mesh = sg.default_mesh(world, device="cuda")
+        fmesh = sg.default_mesh(world, "fleet", device="cuda")
+        k = tg.Gaussian(8.0, 1.0)
+        sg.fit_sharded(k, X, Y, 0.1, mesh)  # warm-up
+        torch.cuda.synchronize()
+        dist.barrier()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        (alpha, logdet, _), peak = peak_bytes(lambda: sg.fit_sharded(k, X, Y, 0.1, mesh))
+        fit_s = time.perf_counter() - t0
+        counts = dict(_cuda.launch_counts())
+        _cuda.reset_launch_counts()
+        gp = fleet.fit_batched_sharded(tg.Gaussian(2.0, 1.0), Xf, Yf, 0.1, mesh=fmesh)
+        Xh, Yh, cfg, z0 = hmc_data(dev)
+        lp = thmc.make_gp_log_posterior(tg.Gaussian(1.0, 1.0), Xh, Yh, 0.1)
+        rs = sh.sample_hmc_sharded_chunked(lp, z0, torch.Generator(dev).manual_seed(5), cfg, chunk_size=4,
+                                           mesh=sh.default_mesh(world, device="cuda"))
+        torch.cuda.synchronize()
+        for name, v in _cuda.launch_counts().items():
+            counts[name] = counts.get(name, 0) + v
+        np.savez(os.path.join(run_dir, f"rank{rank}.npz"), alpha=alpha.cpu().numpy(),
+                 logdet=logdet.cpu().numpy(), fleet_alpha=gp.alpha.cpu().numpy(), route=np.array(gp.route),
+                 fit_s=np.array(fit_s), peak=np.array(peak),
+                 **{f"hmc_{f}": getattr(rs, f).cpu().numpy() for f in rs._fields})
+        with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(counts, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_30(dev, smi, t32):
+    """Phase 30 at the sizes of ``P30``: (a) the sharded paths on a world of
+    one NCCL rank, (b) two gloo ranks on the one card, (c) fit_sharded's time
+    beside fit and the library's, (d) the blocked solve against two
+    triangular solves.  Returns the launch counts of its paths."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    import gpr_tpu_torch as tg
+    from gpr_tpu_torch.gp import batched as fleet
+    from gpr_tpu_torch.inference import hmc as thmc
+    from gpr_tpu_torch.inference import predictive as tpred
+    from gpr_tpu_torch.ops import _cuda, blocked
+    from gpr_tpu_torch.parallel import dryrun, sharded_gram as sg, sharded_hmc as sh
+
+    t30 = time.perf_counter()
+    counts_out = []
+    n, d, q = P30["n"], P30["d"], P30["q"]
+    print(f"phase 30 the multi-rank layer: torch {torch.__version__}, {smi}")
+
+    # (a) a world of one NCCL rank, the bench model at full width
+    mesh = sg.default_mesh()
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, "phase 30 (a): not a world of one NCCL rank")
+    X, Y = bench_data(n, d, q, dev)
+    k = tg.Gaussian(8.0, 1.0)
+    k5_ms = []
+    orig_syrk = blocked.syrk_update
+
+    def timed_syrk(*a, **kw):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = orig_syrk(*a, **kw)
+        e1.record()
+        k5_ms.append((e0, e1))
+        return out
+
+    _cuda.reset_launch_counts()
+    (alpha, logdet, L), peak = peak_bytes(lambda: sg.fit_sharded(k, X, Y, 0.1, mesh))
+    c = _cuda.launch_counts()
+    counts_out.append(c)
+    blocked.syrk_update = timed_syrk  # K5's wrapper calls in a second, warm fit
+    try:
+        sg.fit_sharded(k, X, Y, 0.1, mesh)
+        torch.cuda.synchronize()
+    finally:
+        blocked.syrk_update = orig_syrk
+    k5_total = sum(a.elapsed_time(b) for a, b in k5_ms)
+    check(c["syrk_update"] == len(k5_ms) and c["syrk_update"] > 0, f"fit_sharded: K5 launches {c}")
+    K64 = gaussian64(X.double(), X.double(), 8.0, 1.0)
+    K64.diagonal().add_(0.01)
+    L64 = torch.linalg.cholesky(K64)
+    a64 = torch.cholesky_solve(Y.double(), L64)
+    ld64 = 2.0 * torch.log(L64.diagonal()).sum()
+    del K64, L64
+    K32 = gaussian64(X, X, 8.0, 1.0)
+    K32.diagonal().add_(float(np.float32(0.1) ** 2))
+    L32 = torch.linalg.cholesky(K32)
+    a32 = torch.cholesky_solve(Y, L32)
+    ld32 = 2.0 * torch.log(L32.diagonal()).sum()
+    del K32, L32
+    g_a = gate32(alpha, a32, a64)
+    g_l = gate32(logdet.reshape(1), ld32.reshape(1), ld64.reshape(1))
+    print(f"  (a) fit_sharded n={n} d={d} q={q}, 1 NCCL rank: alpha rel err {g_a['err']:.3g} (plain f32 "
+          f"{g_a['plain_f32_err']:.3g}), logdet {g_l['err']:.3g} (plain f32 {g_l['plain_f32_err']:.3g}); "
+          f"K5 {c['syrk_update']} launches, {k5_total:.3f} ms by CUDA events around its wrapper's calls in a warm "
+          f"fit (its operand copies included); peak device memory {peak / 2**30:.3f} GiB = "
+          f"{peak / (n * n * 4):.3f} block rows of {n * n * 4 / 2**30:.3f} GiB; launches {c}")
+    check(g_a["ok"] and g_l["ok"], "fit_sharded: alpha or logdet above 3x the plain f32 route's error")
+    check(L.shape == (n, n) and bool(torch.isfinite(alpha).all()), "fit_sharded: shapes or non-finite")
+    del L
+    torch.cuda.empty_cache()
+
+    # the fleet split over the world of one, held to the one-process fleet
+    Xf, Yf = fleet_data(P30["B"], P30["nf"], dev)
+    kf = tg.Gaussian(2.0, 1.0)
+    gp1 = fleet.fit_batched(kf, Xf, Yf, 0.1)
+    _cuda.reset_launch_counts()
+    gps = fleet.fit_batched_sharded(kf, Xf, Yf, 0.1, mesh=sg.default_mesh(axis="fleet"))
+    torch.cuda.synchronize()
+    c = _cuda.launch_counts()
+    counts_out.append(c)
+    check(gps.route == "fleet-crout" and c["gram_batched"] == 1 and c["crout_chol"] == P30["nf"] // 128,
+          f"fit_batched_sharded: route {gps.route}, launches {c}")
+    same = torch.equal(gps.alpha, gp1.alpha) and torch.equal(gps.L, gp1.L)
+    print(f"  (a) fit_batched_sharded B={P30['B']} n={P30['nf']}, route {gps.route}: "
+          f"{'bit for bit' if same else 'NOT bit for bit'} the one-process fit_batched; launches {c}")
+    check(same, "fit_batched_sharded on one rank differs from fit_batched")
+
+    # the predictive's draws split over the world of one
+    nh = P30["nf"]
+    Xh, Yh, cfg, z0 = hmc_data(dev)
+    Xs = t32(np.linspace(-0.5, 10.5, P30["points"])[:, None])
+    theta = t32(np.exp(np.random.default_rng(30).normal(0.0, 0.2, (P30["draws"], 2))))
+    p1 = tpred.predictive(tg.Gaussian(1.0, 1.0), theta, Xh, Yh, Xs, 0.1)
+    _cuda.reset_launch_counts()
+    ps = tpred.predictive_sharded(tg.Gaussian(1.0, 1.0), theta, Xh, Yh, Xs, 0.1, mesh=sg.default_mesh(axis="draws"))
+    torch.cuda.synchronize()
+    c = _cuda.launch_counts()
+    counts_out.append(c)
+    check(c["gram_batched"] == 1 and c["crout_chol"] == nh // 128, f"predictive_sharded launches {c}")
+    diffs = {f: float((getattr(ps, f) - getattr(p1, f)).abs().max()) for f in ps._fields}
+    same_p = all(v == 0.0 for v in diffs.values())
+    m64, v64 = plain_mixture(Xh.double(), Yh.double(), Xs.double(), theta, 0.1)
+    m32, v32 = plain_mixture(Xh, Yh, Xs, theta, 0.1)
+    g_m, g_v = gate(ps.mean, m32, m64), gate(ps.variance, v32, v64)
+    print(f"  (a) predictive_sharded {P30['draws']} draws n={nh} at {P30['points']} points: "
+          f"{'bit for bit' if same_p else 'within 3x'} the one-process predictive (max diffs {diffs}); "
+          f"mean rel err {g_m['err']:.3g} (plain f32 {g_m['plain_f32_err']:.3g}), variance {g_v['err']:.3g} "
+          f"(plain f32 {g_v['plain_f32_err']:.3g}); launches {c}")
+    check(same_p or (g_m["ok"] and g_v["ok"]), "predictive_sharded: neither bit for bit nor within 3x")
+
+    # the sharded chunked sampler, 16 chains of bench_hmc's posterior, draw for draw
+    lp = thmc.make_gp_log_posterior(tg.Gaussian(1.0, 1.0), Xh, Yh, 0.1)
+    check(lp.route == "fleet-crout", f"the log posterior took route {lp.route}")
+    t0 = time.perf_counter()
+    r1 = thmc.sample_hmc_chunked(lp, z0, torch.Generator(dev).manual_seed(5), cfg, chunk_size=4)
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t0
+    half = P30["chains"] // 2
+
+    def lp_halves(z):  # the log posterior of half the chains at a time, as each of (b)'s two ranks takes it
+        return torch.cat([lp(z[:half]), lp(z[half:])])
+
+    r1h = thmc.sample_hmc_chunked(lp_halves, z0, torch.Generator(dev).manual_seed(5), cfg, chunk_size=4)
+    vg = thmc._value_and_grad(lp)
+    (v_all, g_all), (v_a, g_a), (v_b, g_b) = vg(z0), vg(z0[:half]), vg(z0[half:])
+    bdiff = max(float((torch.cat([v_a, v_b]) - v_all).abs().max()), float((torch.cat([g_a, g_b]) - g_all).abs().max()))
+    print(f"  (a) the log posterior and its gradient of {half} chains against the same chains among "
+          f"{P30['chains']} (one fleet call each): largest difference {bdiff:.3g}")
+    t1 = time.perf_counter()
+    _cuda.reset_launch_counts()
+    rs = sh.sample_hmc_sharded_chunked(lp, z0, torch.Generator(dev).manual_seed(5), cfg, chunk_size=4)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    c = _cuda.launch_counts()
+    counts_out.append(c)
+    ident = all(torch.equal(getattr(rs, f), getattr(r1, f)) for f in rs._fields)
+    print(f"  (a) sample_hmc_sharded_chunked {P30['chains']} chains, warmup {P30['warmup']}, {P30['samples']} draws, "
+          f"L={P30['leapfrog']}: identical to sample_hmc_chunked: {ident}; {t2 - t1:.2f} s against {t_one:.2f} s; "
+          f"launches {c}")
+    check(ident, "sample_hmc_sharded_chunked on one rank differs from sample_hmc_chunked")
+    check(c["crout_chol"] > 0, f"the sharded sampler launched no K7: {c}")
+    _cuda.reset_launch_counts()
+    dr = dryrun.dryrun_multichip(1)
+    torch.cuda.synchronize()
+    counts_out.append(_cuda.launch_counts())
+    print(f"  (a) dryrun_multichip(1): {dr}")
+
+    # (b) two gloo ranks on the one card (gloo takes CUDA tensors for broadcast, all_reduce and
+    # all_gather; NCCL refuses two ranks a card)
+    n2 = P30["n2"]
+    X2, Y2 = bench_data(n2, d, q, dev)
+    alpha1, logdet1, _ = sg.fit_sharded(k, X2, Y2, 0.1, mesh)
+    K64 = gaussian64(X2.double(), X2.double(), 8.0, 1.0)
+    K64.diagonal().add_(0.01)
+    L64 = torch.linalg.cholesky(K64)
+    a64_2, ld64_2 = torch.cholesky_solve(Y2.double(), L64), 2.0 * torch.log(L64.diagonal()).sum()
+    del K64, L64
+    K32 = gaussian64(X2, X2, 8.0, 1.0)
+    K32.diagonal().add_(float(np.float32(0.1) ** 2))
+    L32 = torch.linalg.cholesky(K32)
+    a32_2, ld32_2 = torch.cholesky_solve(Y2, L32), 2.0 * torch.log(L32.diagonal()).sum()
+    del K32, L32
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as run_dir:
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase30-rank", str(r), "2", run_dir],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, o) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"phase 30 (b) rank {r} exited {p.returncode}:\n{o[-3000:]}")
+        res2 = [dict(np.load(os.path.join(run_dir, f"rank{r}.npz"))) for r in range(2)]
+        c2 = [json.load(open(os.path.join(run_dir, f"rank{r}.json"))) for r in range(2)]
+    for cr in c2:
+        counts_out.append(cr)
+    alpha2 = torch.tensor(res2[0]["alpha"], device=dev)
+    logdet2 = torch.tensor(res2[0]["logdet"], device=dev)
+    check(all(np.array_equal(res2[1][kk], res2[0][kk]) for kk in ("alpha", "logdet")),
+          "phase 30 (b): the ranks' replicated alpha or logdet differ")
+    g_a2 = gate32(alpha2, a32_2, a64_2)
+    g_l2 = gate32(logdet2.reshape(1), ld32_2.reshape(1), ld64_2.reshape(1))
+    g_a1 = gate32(alpha1, a32_2, a64_2)
+    print(f"  (b) fit_sharded n={n2} on 2 gloo ranks of one card (block rows of {n2 // 2}): alpha rel err "
+          f"{g_a2['err']:.3g}, one rank {g_a1['err']:.3g} (plain f32 {g_a2['plain_f32_err']:.3g}); logdet "
+          f"{g_l2['err']:.3g} (plain f32 {g_l2['plain_f32_err']:.3g}); 2 ranks vs 1: alpha max diff "
+          f"{float((alpha2 - alpha1).abs().max()):.3g}, logdet {float(logdet2 - logdet1):.3g}; one fit "
+          f"{float(res2[0]['fit_s']) * 1e3:.1f} / {float(res2[1]['fit_s']) * 1e3:.1f} ms (host clock, each rank); "
+          f"peak device memory a rank {float(res2[0]['peak']) / 2**30:.3f} / {float(res2[1]['peak']) / 2**30:.3f} GiB "
+          f"= {float(res2[0]['peak']) / (n2 * n2 * 2):.3f} / {float(res2[1]['peak']) / (n2 * n2 * 2):.3f} block rows "
+          f"of {n2 * n2 * 2 / 2**30:.3f} GiB; launches {c2}")
+    check(g_a2["ok"] and g_l2["ok"], "phase 30 (b): the 2-rank fit above 3x the plain f32 route's error")
+    check(all(cr["syrk_update"] > 0 for cr in c2), "phase 30 (b): a rank launched no K5")
+    fa2 = torch.tensor(np.concatenate([r_["fleet_alpha"] for r_ in res2]), device=dev)
+    same_f = torch.equal(fa2, gp1.alpha)
+    if not same_f:
+        Kf64 = torch.func.vmap(lambda x: gaussian64(x, x, 2.0, 1.0))(Xf.double())
+        Kf64.diagonal(dim1=1, dim2=2).add_(0.01)
+        af64 = torch.cholesky_solve(Yf.double(), torch.linalg.cholesky(Kf64))
+        Kf32 = torch.func.vmap(lambda x: gaussian64(x, x, 2.0, 1.0))(Xf)
+        Kf32.diagonal(dim1=1, dim2=2).add_(float(np.float32(0.1) ** 2))
+        g_f = gate(fa2, torch.cholesky_solve(Yf, torch.linalg.cholesky(Kf32)), af64)
+        check(g_f["ok"], "phase 30 (b): the 2-rank fleet above 3x the plain f32 route's error")
+    print(f"  (b) fit_batched_sharded B={P30['B']} over 2 ranks ({P30['B'] // 2} members each, route "
+          f"{res2[0]['route']}): {'bit for bit' if same_f else 'within 3x the plain f32 route of'} the "
+          f"one-process fit_batched")
+    check(all(cr["gram_batched"] > 0 and cr["crout_chol"] > 0 for cr in c2), "phase 30 (b): a rank's fleet missed K6 or K7")
+    def same_as(r):
+        return all(np.array_equal(r_[f"hmc_{f}"], getattr(r, f).cpu().numpy()) for r_ in res2 for f in r._fields)
+
+    hdiff = {f: max(float(np.abs(r_[f"hmc_{f}"] - getattr(r1, f).cpu().numpy()).max()) for r_ in res2)
+             for f in r1._fields}
+    ident_h, ident2 = same_as(r1h), same_as(r1)
+    print(f"  (b) sample_hmc_sharded_chunked {P30['chains']} chains over 2 ranks ({half} a rank): identical on both "
+          f"ranks to (a)'s sample_hmc_chunked with the log posterior taken {half} chains at a time: {ident_h}; "
+          f"to (a)'s with all {P30['chains']} at once: {ident2} (largest differences {hdiff})")
+    check(ident_h, "phase 30 (b): the 2-rank chunked sampler differs from one process taking the same fleets")
+    check(ident2 or bdiff > 0, "phase 30 (b): the 2-rank chunked sampler differs from one process, whose "
+          "log posterior does not depend on the fleet's size")
+
+    # (c) fit_sharded's time beside fit and the library's factor + solve, n=16384
+    def ev(fn):
+        a_, b_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a_.record()
+        fn()
+        b_.record()
+        b_.synchronize()
+        return a_.elapsed_time(b_)
+
+    def lib_fit():
+        K_ = gaussian64(X, X, 8.0, 1.0)
+        K_.diagonal().add_(float(np.float32(0.1) ** 2))
+        return torch.cholesky_solve(Y, torch.linalg.cholesky(K_))
+
+    def in_turns(runs):
+        times = {name: [] for name in runs}
+        for fn in runs.values():
+            fn()
+        order = list(runs) + list(runs)[::-1]
+        for _ in range(P30["reps"]):
+            for name in order:
+                times[name].append(ev(runs[name]))
+        return {name: float(np.median(v)) for name, v in times.items()}
+
+    med = in_turns({"fit_sharded": lambda: sg.fit_sharded(k, X, Y, 0.1, mesh),
+                    "fit": lambda: tg.fit(k, X, Y, sigma=0.1), "library": lib_fit})
+    print(f"  (c) n={n}, CUDA events, median of {2 * P30['reps']} in turns: fit_sharded (1 rank) "
+          f"{med['fit_sharded']:.2f} ms, fit (route {tg.fit(k, X, Y, sigma=0.1).route}) {med['fit']:.2f} ms, "
+          f"torch Gram + linalg.cholesky + cholesky_solve {med['library']:.2f} ms ({smi})")
+    fmesh, pmesh = sg.default_mesh(axis="fleet"), sg.default_mesh(axis="draws")
+    med = in_turns({"fit_batched_sharded": lambda: fleet.fit_batched_sharded(kf, Xf, Yf, 0.1, mesh=fmesh),
+                    "fit_batched": lambda: fleet.fit_batched(kf, Xf, Yf, 0.1),
+                    "predictive_sharded": lambda: tpred.predictive_sharded(tg.Gaussian(1.0, 1.0), theta, Xh, Yh, Xs,
+                                                                           0.1, mesh=pmesh),
+                    "predictive": lambda: tpred.predictive(tg.Gaussian(1.0, 1.0), theta, Xh, Yh, Xs, 0.1)})
+    print(f"  (c) 1 rank, CUDA events, median of {2 * P30['reps']} in turns: fit_batched_sharded "
+          f"{med['fit_batched_sharded']:.3f} ms against fit_batched {med['fit_batched']:.3f} ms (B={P30['B']}, "
+          f"n={P30['nf']}); predictive_sharded {med['predictive_sharded']:.3f} ms against predictive "
+          f"{med['predictive']:.3f} ms ({P30['draws']} draws, {P30['points']} points; {smi})")
+    torch.cuda.empty_cache()
+
+    # (d) cho_solve_blocked against two triangular solves on a row-major factor
+    Kd = gaussian64(X, X, 8.0, 1.0)
+    Kd.diagonal().add_(float(np.float32(0.1) ** 2))
+    Ld = torch.linalg.cholesky(Kd).contiguous()
+    del Kd
+    for qq in P30["solve_q"]:
+        B_ = t32(np.random.default_rng(qq).standard_normal((n, qq)))
+
+        def two_tri():
+            return torch.linalg.solve_triangular(Ld.mT, torch.linalg.solve_triangular(Ld, B_, upper=False),
+                                                 upper=True)
+
+        def blk():
+            return blocked.cho_solve_blocked(Ld, B_)
+
+        reps = 2 if qq > 1024 else 5
+        tt = {"blocked": [], "triangular": []}
+        blk(), two_tri()
+        for _ in range(reps):
+            tt["blocked"].append(ev(blk))
+            tt["triangular"].append(ev(two_tri))
+            tt["triangular"].append(ev(two_tri))
+            tt["blocked"].append(ev(blk))
+        Xb_, Xt_ = blk(), two_tri()
+        diff = float((Xb_ - Xt_).abs().max() / Xt_.abs().max())
+        print(f"  (d) n={n} q={qq}: cho_solve_blocked {float(np.median(tt['blocked'])):.3f} ms, two "
+              f"solve_triangular {float(np.median(tt['triangular'])):.3f} ms (medians of {2 * reps}, in turns; "
+              f"{smi}); rel diff {diff:.3g}")
+        del B_, Xb_, Xt_
+    del Ld
+    torch.cuda.empty_cache()
+    sg.shutdown()
+    print(f"  phase 30 wall time {time.perf_counter() - t30:.1f} s")
+    return counts_out
 
 
 def main() -> int:
@@ -3775,24 +4235,6 @@ def main() -> int:
             grads.append(g)
         return torch.stack(vals), torch.stack(grads)
 
-    def plain_mixture(X, Y, Xs, theta, sigma):
-        """The mixture predictive's mean and variance by the straightforward
-        GP per draw in the dtype of X (predictive.py:67-90's formulas)."""
-        means, vars_ = [], []
-        for l_, s_ in theta.to(X.dtype):
-            K = gaussian64(X, X, l_, s_) + sigma * sigma * torch.eye(X.shape[0], dtype=X.dtype,
-                                                                      device=X.device)
-            L = torch.linalg.cholesky(K)
-            Ks = gaussian64(Xs, X, l_, s_)
-            means.append(Ks @ torch.cholesky_solve(Y, L))
-            v = s_ * s_ - (Ks * torch.cholesky_solve(Ks.T, L).T).sum(1) + sigma * sigma
-            vars_.append(v.clamp(min=0.0))
-        means, vars_ = torch.stack(means), torch.stack(vars_)
-        mix = means.mean(0)
-        q_ = means.shape[-1]
-        spread = ((means ** 2).sum(-1) / q_).mean(0) - (mix ** 2).sum(-1) / q_
-        return mix, vars_.mean(0) + spread.clamp(min=0.0)
-
     def trace_idle(fn):
         """fn under torch.profiler: (host wall ms, device kernel ms, idle share)."""
         torch.cuda.synchronize()
@@ -4072,6 +4514,11 @@ def main() -> int:
         for name, v in c.items():
             counts[name] += v
 
+    # --------------------------------------------------------------- 30 ----
+    for c in phase_30(dev, smi, t32):
+        for name, v in c.items():
+            counts[name] += v
+
     print(f"wall time: {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -4088,4 +4535,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase30-rank"]:
+        sys.exit(phase_30_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -1,9 +1,9 @@
 """Fleets of GPs: train, predict and score B small GPs of one shape at once.
 
-Mirrors gpr_tpu/gp/batched.py:26-236 and 308-372 (``BatchedGP``,
+Mirrors gpr_tpu/gp/batched.py:26-372 (``BatchedGP``,
 ``fit_batched``, ``_fleet_gram``, ``_factor_and_solve``,
 ``predict_batched``, ``variance_batched``, ``mll_batched``,
-``fit_mle_batched``).  Fleets serve per-window drift models, per-patient
+``fit_batched_sharded``, ``fit_mle_batched``).  Fleets serve per-window drift models, per-patient
 models, hyperparameter grids and bootstrap ensembles.  A kernel's leaves may
 carry a leading batch axis (``batched_kernel=True``), e.g.
 ``Gaussian(torch.full((B,), 1.2), torch.ones(B))``; every per-member
@@ -36,7 +36,8 @@ otherwise; ``mll_batched`` always takes the vmapped torch Gram, which
 carries the hyperparameters' gradient, as JAX takes its vmapped XLA Gram
 there (batched.py:229-232).  The entry points run on the card unless given
 ``device="cpu"`` or CPU tensors (utils/config.py).  ``fit_batched_sharded``
-waits for the multi-device port.
+(batched.py:239-305) splits the members over the ranks of a device mesh,
+each rank fitting its B / D on ``fit_batched``'s route with no collective.
 """
 
 from __future__ import annotations
@@ -154,6 +155,30 @@ def fit_batched(kernel, X, Y, sigma, jitter: float = 0.0, batched_kernel: bool =
         L, alpha, route = _factor_and_solve(K, Y, use_crout, safe)
     return BatchedGP(kernel=kernel, X=X, Y=Y, sigma=sigma, alpha=alpha, L=L,
                      batched_kernel=batched_kernel, route=route)
+
+
+def fit_batched_sharded(kernel, X, Y, sigma, mesh=None, axis: str = "fleet", jitter: float = 0.0,
+                        batched_kernel: bool = False, use_crout: Optional[bool] = None,
+                        device=None) -> BatchedGP:
+    """:func:`fit_batched` with the B members split over dimension ``axis``
+    of ``mesh`` (default: a 1-D mesh over every rank), as
+    batched.py:239-305: every rank passes the whole fleet (X (B, n, d), Y,
+    sigma, and with ``batched_kernel`` the kernel's (B,) leaves), B divisible
+    by the mesh size, and gets the ``BatchedGP`` of its B / D members, whose
+    route is :func:`fit_batched`'s."""
+    from ..parallel import sharded_gram
+
+    if mesh is None:
+        mesh = sharded_gram.default_mesh(axis=axis, device=device)
+    ax = sharded_gram._Axis(mesh, axis)
+    X, Y, sigma = _fleet_inputs(X, Y, sigma, sharded_gram.mesh_device(mesh))
+    B = X.shape[0]
+    if B % ax.size:
+        raise ValueError(f"fleet size ({B}) must be divisible by mesh ({ax.size})")
+    lo, hi = ax.rank * B // ax.size, (ax.rank + 1) * B // ax.size
+    if batched_kernel:
+        kernel = kernel.with_params([torch.as_tensor(p)[lo:hi] for p in kernel.params])
+    return fit_batched(kernel, X[lo:hi], Y[lo:hi], sigma[lo:hi], jitter, batched_kernel, use_crout)
 
 
 def predict_batched(gp: BatchedGP, Xs) -> torch.Tensor:

@@ -2,8 +2,8 @@
 
 Mirrors gpr_tpu/inference/hmc.py:44-83 (``_shrunk_mass``, ``_tree_mean``),
 111-152 (``make_gp_log_posterior``, ``make_sparse_gp_log_posterior``),
-159-250 (the configuration, the chain state, ``_leapfrog``,
-``_hmc_transition``, ``HMCResult``), 285-584 (the dual-averaging warmup,
+159-283 (the configuration, the chain state, ``_leapfrog``,
+``_hmc_transition``, ``HMCResult``, ``ShardCtx``), 285-584 (the dual-averaging warmup,
 ``_window_schedule``, ``init_chains``, ``_adapt_phase``, ``sample_hmc``),
 585-706 (``sample_hmc_chunked``) and
 713-841 (diagnostics, chain checkpoints, ``resume_hmc``).  Instead of the
@@ -38,13 +38,29 @@ stream is one generator consumed in a fixed order, the same in
 
 The host reads one bool per log-posterior evaluation (the safe factor's
 success check) and the largest step count once per transition.
-``ShardCtx`` and the sharded hooks of JAX wait for the multi-device port;
-``cross_chain_mean`` / ``cross_chain_moments`` stay as plain callables.
+
+Chains split over ranks come in two forms, as in JAX.
+``cross_chain_mean`` / ``cross_chain_moments`` are plain callables that
+combine the warmup's statistics with other ranks' chains
+(``parallel.sharded_hmc.sample_hmc_sharded``).  With a :class:`ShardCtx`
+(``parallel.sharded_hmc.sample_hmc_sharded_chunked``) a rank runs its block
+of the chains and every result equals the single-process run's bit for bit:
+each transition draws the randomness of all ``n_global`` chains from the
+generator, seeded alike on every rank, in the single-process order, and
+keeps the rank's rows (JAX slices its global key set, hmc.py:274-283); the
+warmup's accept statistic is the tree mean of the all-gathered accept
+vector (hmc.py:317-326); the mass is estimated from every chain's gathered
+warmup draws; the draws come back gathered in chain order.  Bit for bit
+holds where a chain's log posterior does not depend on how many chains
+share its call, as on the CPU.  On the card the fleet's batched products
+round with the fleet's size, so D ranks equal one process whose log
+posterior takes the same fleets of n_global / D chains a call.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, NamedTuple, Optional, Sequence
 
@@ -288,6 +304,29 @@ class HMCResult(NamedTuple):
     inv_mass: torch.Tensor     # final diagonal inverse mass (dim,)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """The chains split over dimension ``axis`` of ``mesh`` (a torch
+    ``DeviceMesh``), ``n_global`` of them in all (hmc.py:252-271): the
+    rank r of D runs chains r n_local .. (r + 1) n_local, n_local =
+    n_global / D."""
+
+    mesh: object
+    axis: str
+    n_global: int
+
+    @functools.cached_property
+    def ax(self):
+        from ..parallel.sharded_gram import _Axis
+
+        return _Axis(self.mesh, self.axis)
+
+    def local(self, t: torch.Tensor) -> torch.Tensor:
+        """The rank's rows of a tensor over all chains."""
+        nl = self.n_global // self.ax.size
+        return t[self.ax.rank * nl:(self.ax.rank + 1) * nl]
+
+
 def _leapfrog(logp_grad_fn, z, p, grad, eps, inv_mass, n_steps):
     """Leapfrog steps of every chain; returns (z', p', grad', logp')
     (hmc.py:188-210).  ``n_steps`` is an int or one count a chain: the batch
@@ -309,17 +348,22 @@ def _leapfrog(logp_grad_fn, z, p, grad, eps, inv_mass, n_steps):
     return z, p, grad, logp
 
 
-def _hmc_draws(generator: torch.Generator, state: ChainState, cfg: HMCConfig) -> HMCDraws:
+def _hmc_draws(generator: torch.Generator, state: ChainState, cfg: HMCConfig,
+               shard_ctx: Optional[ShardCtx] = None) -> HMCDraws:
     """The randomness of one HMC transition (hmc.py:215-234), in this order:
-    momentum noise, step counts (with ``cfg.jitter_steps``), uniforms."""
+    momentum noise, step counts (with ``cfg.jitter_steps``), uniforms.  With
+    ``shard_ctx``, those of all chains, of which the rank's rows are kept."""
     z = state.z
-    normal = torch.randn(z.shape, generator=generator, dtype=z.dtype, device=z.device)
+    C = z.shape[0] if shard_ctx is None else shard_ctx.n_global
+    normal = torch.randn((C, z.shape[1]), generator=generator, dtype=z.dtype, device=z.device)
     n_steps = None
     if cfg.jitter_steps:
-        n_steps = torch.randint(1, cfg.num_leapfrog + 1, z.shape[:1], generator=generator,
-                                device=z.device)
-    u = torch.rand(z.shape[:1], generator=generator, dtype=z.dtype, device=z.device)
-    return HMCDraws(normal, n_steps, u)
+        n_steps = torch.randint(1, cfg.num_leapfrog + 1, (C,), generator=generator, device=z.device)
+    u = torch.rand((C,), generator=generator, dtype=z.dtype, device=z.device)
+    draws = HMCDraws(normal, n_steps, u)
+    if shard_ctx is None:
+        return draws
+    return HMCDraws(*(None if d is None else shard_ctx.local(d) for d in draws))
 
 
 def _hmc_step(logp_grad_fn, state: ChainState, draws: HMCDraws, eps, inv_mass,
@@ -346,22 +390,26 @@ def _hmc_step(logp_grad_fn, state: ChainState, draws: HMCDraws, eps, inv_mass,
     return new_state, accept_prob
 
 
-def _hmc_transition(logp_grad_fn, state: ChainState, generator, eps, inv_mass, cfg: HMCConfig):
-    """One HMC proposal + Metropolis accept of every chain."""
-    return _hmc_step(logp_grad_fn, state, _hmc_draws(generator, state, cfg), eps, inv_mass, cfg)
+def _hmc_transition(logp_grad_fn, state: ChainState, generator, eps, inv_mass, cfg: HMCConfig,
+                    shard_ctx: Optional[ShardCtx] = None):
+    """One HMC proposal + Metropolis accept of every chain (of the rank's)."""
+    return _hmc_step(logp_grad_fn, state, _hmc_draws(generator, state, cfg, shard_ctx), eps,
+                     inv_mass, cfg)
 
 
 def _warmup_scan(logp_grad_fn, states: ChainState, generator, eps0, inv_mass, cfg, n_steps: int,
                  target: float, cross_chain_mean: Optional[Callable] = None,
-                 transition: Optional[Callable] = None):
+                 transition: Optional[Callable] = None, shard_ctx: Optional[ShardCtx] = None):
     """``n_steps`` transitions under a step size shared by all chains and
     dual-averaged on their mean accept statistic (hmc.py:285-428).
     ``transition(states, generator, eps, inv_mass) -> (states', accept
     (chains,))`` defaults to HMC's; NUTS passes its own.  Returns (states,
-    exp(log_eps_bar), zs (n_steps, chains, dim), mean accepts (n_steps,))."""
+    exp(log_eps_bar), zs (n_steps, chains, dim), mean accepts (n_steps,));
+    with ``shard_ctx`` the states and zs are the rank's chains, the mean
+    over all chains."""
     if transition is None:
         def transition(s, g, eps, im):
-            return _hmc_transition(logp_grad_fn, s, g, eps, im, cfg)
+            return _hmc_transition(logp_grad_fn, s, g, eps, im, cfg, shard_ctx)
 
     mu, log_eps = _da_init(eps0)
     log_eps_bar = log_eps
@@ -371,9 +419,14 @@ def _warmup_scan(logp_grad_fn, states: ChainState, generator, eps0, inv_mass, cf
     zs, accepts = [], []
     for _ in range(n_steps):
         states, accept_probs = transition(states, generator, torch.exp(log_eps), inv_mass)
-        mean_accept = _tree_mean(accept_probs)
-        if cross_chain_mean is not None:
-            mean_accept = cross_chain_mean(mean_accept)
+        if shard_ctx is not None:
+            # the single-process reduction over every chain, so the step
+            # size is bit for bit the single-process one
+            mean_accept = _tree_mean(shard_ctx.ax.gather(accept_probs))
+        else:
+            mean_accept = _tree_mean(accept_probs)
+            if cross_chain_mean is not None:
+                mean_accept = cross_chain_mean(mean_accept)
         t = t + 1.0
         eta_h = 1.0 / (t + t0)
         h_bar = (1 - eta_h) * h_bar + eta_h * (target - mean_accept)
@@ -413,16 +466,19 @@ def init_chains(logp_fn: Callable, z0: torch.Tensor) -> ChainState:
 
 def _adapt_phase(logp_grad_fn, states: ChainState, generator, cfg, dim: int, dtype,
                  cross_chain_mean: Optional[Callable], cross_chain_moments: Optional[Callable],
-                 transition: Optional[Callable] = None):
+                 transition: Optional[Callable] = None, shard_ctx: Optional[ShardCtx] = None):
     """The warmup every sampler shares (hmc.py:457-539): the dual-averaged
     step size and the diagonal mass, two stages by default, Stan-style
     expanding windows with ``cfg.windowed_warmup``.  Returns (states,
-    step_size, inv_mass)."""
+    step_size, inv_mass).  With ``shard_ctx`` the mass sees every rank's
+    warmup draws."""
     device = states.z.device
     inv_mass = torch.ones((dim,), dtype=dtype, device=device)
     eps_init = torch.tensor(cfg.initial_step_size, dtype=dtype, device=device)
 
     def estimate_mass(zs, drop: int = 0):
+        if shard_ctx is not None:
+            zs = shard_ctx.ax.gather(zs, 1)
         if cross_chain_moments is None:
             return _shrunk_mass(zs, drop=drop)
         flat = zs[drop:].reshape(-1, dim)
@@ -434,7 +490,7 @@ def _adapt_phase(logp_grad_fn, states: ChainState, generator, cfg, dim: int, dty
 
     def scan(states, eps, inv_mass, n):
         return _warmup_scan(logp_grad_fn, states, generator, eps, inv_mass, cfg, n,
-                            cfg.target_accept, cross_chain_mean, transition)
+                            cfg.target_accept, cross_chain_mean, transition, shard_ctx)
 
     if cfg.windowed_warmup:
         head, wins, tail_n = _window_schedule(cfg.num_warmup)
@@ -511,10 +567,26 @@ def _chunk_size(chunk_size, num_samples: int) -> int:
     return max(1, min(int(chunk_size), num_samples))
 
 
+def _sharded_chains(z0, shard_ctx: Optional[ShardCtx]) -> torch.Tensor:
+    """The rank's rows of all chains' z0, checked against ``shard_ctx``."""
+    if shard_ctx is None:
+        return z0
+    if z0.shape[0] != shard_ctx.n_global or shard_ctx.n_global % shard_ctx.ax.size:
+        raise ValueError(f"{z0.shape[0]} chains for a ShardCtx of {shard_ctx.n_global} over "
+                         f"{shard_ctx.ax.size} ranks")
+    return shard_ctx.local(z0)
+
+
+def _gathered(zs, accepts, shard_ctx: Optional[ShardCtx]):
+    if shard_ctx is None:
+        return zs, accepts
+    return shard_ctx.ax.gather(zs, 1), shard_ctx.ax.gather(accepts, 1)
+
+
 def sample_hmc_chunked(logp_fn: Callable, z0, generator, cfg: HMCConfig = HMCConfig(),
                        chunk_size: int = 64, cross_chain_mean: Optional[Callable] = None,
                        cross_chain_moments: Optional[Callable] = None,
-                       device=None) -> HMCResult:
+                       shard_ctx: Optional[ShardCtx] = None, device=None) -> HMCResult:
     """:func:`sample_hmc` with the sampling stage in chunks of ``chunk_size``
     transitions (hmc.py:585-706), ``chunk_size`` clamped to [1,
     num_samples].  The same transitions and the same generator stream, so
@@ -522,20 +594,27 @@ def sample_hmc_chunked(logp_fn: Callable, z0, generator, cfg: HMCConfig = HMCCon
     (python-unrolled transitions under jit) work around the remote TPU
     backend's compile time for a scan over a transition; the port has no
     compiled programs, and the chunks only bound how many draws a stage
-    holds before concatenation."""
+    holds before concatenation.
+
+    With ``shard_ctx`` every rank passes all chains' z0 and the same
+    generator seed, runs its block of the chains and returns all chains'
+    result, equal to the single-process run's bit for bit (see the module
+    docstring)."""
     z0 = _chains(z0, device)
     chunk_size = _chunk_size(chunk_size, cfg.num_samples)
     gen = _generator(generator, z0.device)
     logp_grad_fn = _value_and_grad(logp_fn)
-    states = init_chains(logp_fn, z0)
+    z_local = _sharded_chains(z0, shard_ctx)
+    states = init_chains(logp_fn, z_local)
     states, eps2, inv_mass = _adapt_phase(logp_grad_fn, states, gen, cfg, z0.shape[1], z0.dtype,
-                                          cross_chain_mean, cross_chain_moments)
+                                          cross_chain_mean, cross_chain_moments,
+                                          shard_ctx=shard_ctx)
 
     def transition(s, g, eps, im):
-        return _hmc_transition(logp_grad_fn, s, g, eps, im, cfg)
+        return _hmc_transition(logp_grad_fn, s, g, eps, im, cfg, shard_ctx)
 
     zs, accepts = _chunked(transition, states, gen, eps2, inv_mass, cfg.num_samples, chunk_size)
-    return _result(HMCResult, zs, accepts, eps2, inv_mass)
+    return _result(HMCResult, *_gathered(zs, accepts, shard_ctx), eps2, inv_mass)
 
 
 # ---------------------------------------------------------------------------

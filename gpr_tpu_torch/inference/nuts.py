@@ -24,6 +24,12 @@ A transition splits into its draws (:func:`_nuts_draws`: the momentum, a
 direction per depth, a uniform per leaf and a swap uniform per depth, all
 drawn up front, so the stream does not depend on where the trees stop) and
 a deterministic step (:func:`_nuts_step`).
+
+With ``shard_ctx`` (an ``hmc.ShardCtx``) ``sample_nuts_chunked`` runs the
+rank's block of the chains as ``hmc.sample_hmc_chunked`` does, equal to the
+single-process run bit for bit (nuts.py:309-411): each transition draws for
+all chains and keeps the rank's rows.  A rank's trees stop where its own
+chains stop, which changes no chain's result.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from . import hmc
-from .hmc import ChainState
+from .hmc import ChainState, ShardCtx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,16 +146,21 @@ def _build_subtree(logp_grad_fn, z0, p0, g0, direction, depth: int, eps, inv_mas
     return z, p, g, lp, lsw, prop, turning, diverged, acc, nl
 
 
-def _nuts_draws(generator: torch.Generator, state: ChainState, cfg: NUTSConfig) -> NUTSDraws:
+def _nuts_draws(generator: torch.Generator, state: ChainState, cfg: NUTSConfig,
+                shard_ctx: Optional[ShardCtx] = None) -> NUTSDraws:
+    """One transition's randomness; with ``shard_ctx``, all chains' drawn
+    and the rank's rows kept."""
     z = state.z
-    C, D = z.shape[0], cfg.max_depth
+    C = z.shape[0] if shard_ctx is None else shard_ctx.n_global
+    D = cfg.max_depth
 
     def rand(*shape):
         return torch.rand(shape, generator=generator, dtype=z.dtype, device=z.device)
 
-    normal = torch.randn(z.shape, generator=generator, dtype=z.dtype, device=z.device)
+    normal = torch.randn((C, z.shape[1]), generator=generator, dtype=z.dtype, device=z.device)
     direction = torch.where(rand(C, D) < 0.5, 1.0, -1.0).to(z.dtype)
-    return NUTSDraws(normal, direction, rand(C, 2**D - 1), rand(C, D))
+    draws = NUTSDraws(normal, direction, rand(C, 2**D - 1), rand(C, D))
+    return draws if shard_ctx is None else NUTSDraws(*(shard_ctx.local(d) for d in draws))
 
 
 def _nuts_step(logp_grad_fn, state: ChainState, draws: NUTSDraws, eps, inv_mass, cfg: NUTSConfig,
@@ -216,24 +227,28 @@ def _nuts_step(logp_grad_fn, state: ChainState, draws: NUTSDraws, eps, inv_mass,
     return ChainState(z=z_prop, logp=lp_prop, grad=g_prop), accept_stat
 
 
-def _nuts_transition(logp_grad_fn, state: ChainState, generator, eps, inv_mass, cfg: NUTSConfig):
-    """One NUTS update of every chain; returns (state', accept_stat)."""
-    return _nuts_step(logp_grad_fn, state, _nuts_draws(generator, state, cfg), eps, inv_mass, cfg)
+def _nuts_transition(logp_grad_fn, state: ChainState, generator, eps, inv_mass, cfg: NUTSConfig,
+                     shard_ctx: Optional[ShardCtx] = None):
+    """One NUTS update of every chain (of the rank's); returns (state',
+    accept_stat)."""
+    return _nuts_step(logp_grad_fn, state, _nuts_draws(generator, state, cfg, shard_ctx), eps,
+                      inv_mass, cfg)
 
 
-def _setup(logp_fn, z0, generator, cfg, cross_chain_mean, cross_chain_moments, device):
+def _setup(logp_fn, z0, generator, cfg, cross_chain_mean, cross_chain_moments, device,
+           shard_ctx: Optional[ShardCtx] = None):
     z0 = hmc._chains(z0, device)
     gen = hmc._generator(generator, z0.device)
     logp_grad_fn = hmc._value_and_grad(logp_fn)
-    states = hmc.init_chains(logp_fn, z0)
+    states = hmc.init_chains(logp_fn, hmc._sharded_chains(z0, shard_ctx))
 
     def transition(s, g, e, im):
-        return _nuts_transition(logp_grad_fn, s, g, e, im, cfg)
+        return _nuts_transition(logp_grad_fn, s, g, e, im, cfg, shard_ctx)
 
     # the warmup is hmc's single implementation, with this transition
     states, eps2, inv_mass = hmc._adapt_phase(logp_grad_fn, states, gen, cfg, z0.shape[1],
                                               z0.dtype, cross_chain_mean, cross_chain_moments,
-                                              transition=transition)
+                                              transition=transition, shard_ctx=shard_ctx)
     return transition, states, gen, eps2, inv_mass
 
 
@@ -252,14 +267,16 @@ def sample_nuts(logp_fn: Callable, z0, generator, cfg: NUTSConfig = NUTSConfig()
 def sample_nuts_chunked(logp_fn: Callable, z0, generator, cfg: NUTSConfig = NUTSConfig(),
                         chunk_size: int = 16, cross_chain_mean: Optional[Callable] = None,
                         cross_chain_moments: Optional[Callable] = None,
-                        device=None) -> NUTSResult:
+                        shard_ctx: Optional[ShardCtx] = None, device=None) -> NUTSResult:
     """:func:`sample_nuts` with the sampling stage in chunks of ``chunk_size``
     transitions (nuts.py:309-411): the same draws bit for bit, as
     ``hmc.sample_hmc_chunked`` is to ``sample_hmc`` (JAX's chunk programs
-    are its remote-backend compile-time workaround)."""
+    are its remote-backend compile-time workaround).  ``shard_ctx`` as in
+    ``hmc.sample_hmc_chunked``: all chains in, all chains out."""
     chunk_size = hmc._chunk_size(chunk_size, cfg.num_samples)
     transition, states, gen, eps2, inv_mass = _setup(logp_fn, z0, generator, cfg,
-                                                     cross_chain_mean, cross_chain_moments, device)
+                                                     cross_chain_mean, cross_chain_moments, device,
+                                                     shard_ctx)
     zs, accepts = hmc._chunked(transition, states, gen, eps2, inv_mass, cfg.num_samples,
                                chunk_size)
-    return hmc._result(NUTSResult, zs, accepts, eps2, inv_mass)
+    return hmc._result(NUTSResult, *hmc._gathered(zs, accepts, shard_ctx), eps2, inv_mass)

@@ -1,7 +1,8 @@
 """Posterior-predictive GP: predictions mixed over hyperparameter draws.
 
-Mirrors gpr_tpu/inference/predictive.py:26-105 (``PredictiveResult``,
-``subsample_draws``, ``predictive``, ``predictive_from_hmc``).  The
+Mirrors gpr_tpu/inference/predictive.py:26-163 (``PredictiveResult``,
+``subsample_draws``, ``predictive``, ``predictive_from_hmc``,
+``predictive_sharded``).  The
 predictive distribution is a mixture over posterior draws: mean = E[mean_s],
 variance = E[var_s + mean_s^2] - mean^2.
 
@@ -11,8 +12,9 @@ escalates jitter per draw, predictive.py:73-75), so on the card in float32
 the Gram is K6 gram_batched and the factor K7 crout_chol on every diagonal
 block (``fleet-crout``; ``fleet-fused`` under ``GPR_FLEET_FUSED_MAX_N``).
 The means are ``predict_batched``'s, the variances ``variance_batched``'s
-form, plus sigma^2 with ``include_noise``.  ``predictive_sharded`` waits for
-the multi-device port.
+form, plus sigma^2 with ``include_noise``.  ``predictive_sharded``
+(predictive.py:108-163) splits the draws over the ranks of a device mesh and
+combines the mixture's moments by all-reduce means.
 """
 
 from __future__ import annotations
@@ -101,3 +103,36 @@ def predictive_from_hmc(kernel, result, X, Y, Xs, sigma, num_draws: int = 32,
     (predictive.py:99-105)."""
     theta = subsample_draws(result.samples, num_draws)
     return predictive(kernel, theta, X, Y, Xs, sigma, include_noise, use_crout, device)
+
+
+def predictive_sharded(kernel, theta_draws, X, Y, Xs, sigma, mesh=None, axis: str = "draws",
+                       include_noise: bool = True, use_crout: Optional[bool] = None,
+                       device=None) -> PredictiveResult:
+    """:func:`predictive` with the S draws split over dimension ``axis`` of
+    ``mesh`` (default: a 1-D mesh over every rank), as predictive.py:108-163:
+    each rank mixes its S / D draws, and the mixture's moments combine by
+    all-reduce means in JAX's order.  Every rank passes all draws (S
+    divisible by the mesh size) and ``sigma`` a scalar or (S,); ``mean`` and
+    ``variance`` come back the same on every rank, the per-draw arrays are
+    the rank's."""
+    from ..parallel import sharded_gram
+
+    if mesh is None:
+        mesh = sharded_gram.default_mesh(axis=axis, device=device)
+    ax = sharded_gram._Axis(mesh, axis)
+    theta = config.as_input(theta_draws, sharded_gram.mesh_device(mesh))
+    S = theta.shape[0]
+    if S % ax.size:
+        raise ValueError(f"num draws ({S}) must be divisible by mesh size ({ax.size})")
+    lo, hi = ax.rank * S // ax.size, (ax.rank + 1) * S // ax.size
+    X = config.as_input(X, theta.device)
+    sigmas = torch.as_tensor(sigma, dtype=X.dtype, device=theta.device).expand(S)
+    res = predictive(kernel, theta[lo:hi], X, Y, Xs, sigmas[lo:hi], include_noise, use_crout)
+    means = res.mean_per_draw
+    q = means.shape[-1]
+    mean = ax.mean(means.mean(0))
+    e_var = ax.mean(res.variance_per_draw.mean(0))
+    e_msq = ax.mean(((means**2).sum(-1) / q).mean(0))
+    var = e_var + torch.clamp(e_msq - (mean**2).sum(-1) / q, min=0.0)
+    return PredictiveResult(mean=mean, variance=var, mean_per_draw=means,
+                            variance_per_draw=res.variance_per_draw)

@@ -217,7 +217,9 @@ class White(Kernel):
     row is reduced to two independent 32-bit polynomial hashes of its bit
     pattern (-0.0 canonicalized to +0.0), and rows are equal iff both hashes
     match.  No proximity aliasing; a NaN row equals itself.  torch has no
-    full uint32 arithmetic, so the hashes are computed mod 2^32 in int64."""
+    full uint32 arithmetic, so the hashes are computed mod 2^32 in int64.
+    A fleet member under ``torch.func.vmap`` compares its rows element by
+    element instead (a fleet's n is small)."""
 
     _names = ("scale",)
 
@@ -242,6 +244,14 @@ class White(Kernel):
         return hashes
 
     def _gram(self, X, Y, symmetric):
+        if torch._C._functorch.is_batchedtensor(X) or torch._C._functorch.is_batchedtensor(Y):
+            # a fleet member under torch.func.vmap, where torch 2.11 has no
+            # batching rule for the bit view the hashes take: compare the
+            # rows element by element (-0.0 == +0.0, a NaN equal to a NaN)
+            e = (X[:, None, :] == Y[None, :, :]) | (torch.isnan(X)[:, None, :] & torch.isnan(Y)[None, :, :])
+            eq = e.all(-1)
+            s2 = (self.scale**2).to(dtype=X.dtype, device=X.device)
+            return torch.where(eq, s2, torch.zeros((), dtype=X.dtype, device=X.device))
         h1x, h2x = self._row_hashes(X)
         h1y, h2y = (h1x, h2x) if symmetric else self._row_hashes(Y)
         eq = (h1x[:, None] == h1y[None, :]) & (h2x[:, None] == h2y[None, :])

@@ -1,7 +1,8 @@
 """PSD-safe linear algebra: jitter-guarded Cholesky and the solves around it.
 
-Mirrors gpr_tpu/ops/linalg.py:50-63 and 101-386.  Every result is expressed
-through a Cholesky factor; no explicit inverse is formed on the hot path.
+Mirrors gpr_tpu/ops/linalg.py:50-63 and 101-386 (``chol_lower`` at
+101-118).  Every result is expressed through a Cholesky factor; no explicit
+inverse is formed on the hot path.
 
 The factorization route follows the tensor:
 
@@ -55,7 +56,11 @@ returned (jittered) factor, exactly 0 where that factor is NaN
 under ``GPR_SOLVE_SCHEDULE=narrow`` for a 2-D float32 factor with n >= 1024,
 n % 512 == 0 and at most 128 right-hand sides (linalg.py:322-348); its route
 is :func:`solve_route`.  Every other case, a wider right-hand side included,
-takes two triangular solves, as JAX falls back to its blocked solves.
+takes two ``torch.linalg.solve_triangular``.  JAX takes its blocked solves
+there for a 2-D factor with n >= 1024 (linalg.py:125-134, 334-346); the port
+keeps cuBLAS's triangular solves, since on an H100 at n=16384
+``ops.blocked.cho_solve_blocked`` was slower at q=128 and q=16384 and faster
+only at q=8 (chip_smoke.py phase 30 (d); PERF.md).
 """
 
 from __future__ import annotations
@@ -128,6 +133,12 @@ _FACTOR = {
     "inplace": cholesky_inplace,
     "torch-cholesky": _torch_cholesky,
 }
+
+
+def chol_lower(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of ``A`` on its route (:func:`cholesky_route`),
+    without jitter: NaN where it fails (linalg.py:101-118)."""
+    return _FACTOR[cholesky_route(A)](A)
 
 
 def _diag_ok(L: torch.Tensor) -> torch.Tensor:
@@ -242,7 +253,8 @@ def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _tri_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """L X = B for lower-triangular L (linalg.py:125-134 with trans=False,
-    the only form ``extend`` and ``loo_cv`` use)."""
+    the only form ``extend`` and ``loo_cv`` use), by cuBLAS's triangular
+    solve at every n (see the module docstring)."""
     return torch.linalg.solve_triangular(L, B, upper=False)
 
 

@@ -148,3 +148,22 @@ def test_general_kernel_matches_jax(rng):
     assert kt.num_params == 13
     with pytest.raises(ValueError, match="Wrong number"):
         tg.get_general_kernel(params[:12])
+
+
+def test_white_gram_under_vmap_matches_its_hashes():
+    """A fleet member under torch.func.vmap compares rows element by element
+    (the card's torch has no batching rule for the hashes' bit view); the
+    result equals the hashed Gram, repeated rows, a NaN row and -0.0 included."""
+    from gpr_tpu_torch.kernels import kernels as km
+
+    X = torch.tensor(np.random.default_rng(0).standard_normal((4, 16, 3)))
+    X[:, 5] = X[:, 2]
+    X[2, 3, 0] = float("nan")
+    X[2, 4] = X[2, 3]
+    X[3, 0, 1] = -0.0
+    X[3, 1] = X[3, 0]
+    X[3, 1, 1] = 0.0
+    k = tg.Sum(tg.Gaussian(1.5, 1.0), tg.White(0.3))
+    batched = km.fleet_map(km.gram, k, False, X)
+    one_by_one = torch.stack([km.gram(k, x) for x in X])
+    assert torch.equal(torch.nan_to_num(batched, nan=-1.0), torch.nan_to_num(one_by_one, nan=-1.0))

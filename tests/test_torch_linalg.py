@@ -195,3 +195,35 @@ def test_tri_solve_matches_jax():
     B = np.random.default_rng(8).standard_normal((1100, 3))
     np.testing.assert_allclose(tl._tri_solve(torch.tensor(L), torch.tensor(B)).numpy(),
                                np.asarray(jl._tri_solve(L, B, trans=False)), rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("n", [300, 1100])
+def test_chol_lower_matches_jax(n):
+    """The factor on the route (torch-cholesky, blocked), no jitter: a
+    matrix that does not factor comes back NaN at its last entry in both."""
+    A = _spd(n, 11)
+    np.testing.assert_allclose(tl.chol_lower(torch.tensor(A)).numpy(), np.asarray(jl.chol_lower(A)),
+                               rtol=0, atol=1e-10 * np.sqrt(np.abs(A).max()))
+    A[3, 3] = -1.0
+    assert np.isnan(float(tl.chol_lower(torch.tensor(A))[-1, -1]))
+    assert np.isnan(float(np.asarray(jl.chol_lower(A))[-1, -1]))
+
+
+def test_cho_solve_takes_two_triangular_solves_at_large_n(monkeypatch):
+    """The dispatch settled on the H100 (phase 30 (d)): above JAX's blocked
+    threshold, and for a narrow right-hand side, cho_solve stays two
+    torch.linalg.solve_triangular, bit for bit, and never the blocked solve."""
+    from gpr_tpu_torch.ops import blocked
+
+    def refuse(*a, **k):
+        raise AssertionError("cho_solve took the blocked solve")
+
+    monkeypatch.setattr(blocked, "cho_solve_blocked", refuse)
+    monkeypatch.setattr(blocked, "solve_triangular_blocked", refuse)
+    L = torch.linalg.cholesky(torch.tensor(_spd(1100, 12)))
+    for q in (1, 8, 128):
+        B = torch.tensor(np.random.default_rng(q).standard_normal((1100, q)))
+        assert tl.solve_route(L, B) == "triangular"
+        y = torch.linalg.solve_triangular(L, B, upper=False)
+        assert torch.equal(tl.cho_solve(L, B), torch.linalg.solve_triangular(L.mT, y, upper=True))
+    assert torch.equal(tl._tri_solve(L, B), torch.linalg.solve_triangular(L, B, upper=False))

@@ -23,7 +23,8 @@ def test_import_loads_no_jax():
             "gpr_tpu_torch.apps.learn, gpr_tpu_torch.apps.predict, gpr_tpu_torch.utils.native, "
             "gpr_tpu_torch.apps.serve, gpr_tpu_torch.apps.drift, gpr_tpu_torch.apps.experiments, "
             "gpr_tpu_torch.apps.validate, gpr_tpu_torch.apps.tikz, gpr_tpu_torch.apps.analysis, "
-            "gpr_tpu_torch.data, gpr_tpu_torch.data.dicom, gpr_tpu_torch.utils.profiling; "
+            "gpr_tpu_torch.data, gpr_tpu_torch.data.dicom, gpr_tpu_torch.utils.profiling, "
+            "gpr_tpu_torch.parallel; "
             "print('jax' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True)
@@ -50,9 +51,82 @@ def test_sources_import_neither_jax_nor_gpr_tpu():
             "gpr_tpu_torch/apps/experiments.py", "gpr_tpu_torch/apps/validate.py",
             "gpr_tpu_torch/apps/tikz.py", "gpr_tpu_torch/apps/analysis.py",
             "gpr_tpu_torch/data/__init__.py", "gpr_tpu_torch/data/dicom.py",
-            "gpr_tpu_torch/data/prep.py"} <= names
+            "gpr_tpu_torch/data/prep.py", "gpr_tpu_torch/parallel/__init__.py",
+            "gpr_tpu_torch/parallel/sharded_gram.py", "gpr_tpu_torch/parallel/sharded_hmc.py",
+            "gpr_tpu_torch/parallel/dryrun.py"} <= names
     for f in files:
         assert not pat.search(f.read_text()), f
+
+
+# gpr_tpu's Pallas modules and the port's modules that hold their kernels
+_KERNEL_MODULES = {
+    "ops/pallas_gram.py": ["ops/gram.py"],
+    "ops/pallas_fullchol.py": ["ops/fullchol.py"],
+    "ops/pallas_syrk.py": ["ops/syrk.py"],
+    "ops/pallas_batched.py": ["ops/batched.py", "ops/crout.py"],
+    "ops/pallas_solve.py": ["ops/solve.py"],
+    "ops/pallas_leaf.py": ["ops/leaf.py"],
+    "ops/pallas_panel.py": ["ops/panel.py"],
+    "ops/pallas_chol.py": ["ops/chol.py"],
+}
+
+# public names of gpr_tpu with no counterpart of the same name, each with its
+# reason: a Pallas entry, and the port's wrapper of its kernel as
+# (module, name); or a JAX-only knob (None)
+_NO_COUNTERPART = {
+    ("ops/__init__.py", "pallas_gram"): ("ops/__init__.py", "gram"),  # the Gram kernels' module
+    ("ops/pallas_gram.py", "gram_pallas"): ("ops/gram.py", "gram"),  # K1
+    ("ops/pallas_gram.py", "gaussian_gram"): ("ops/gram.py", "gram"),  # K1, form="gaussian"
+    ("ops/pallas_gram.py", "gram_pallas_batched"): ("ops/gram.py", "gram_batched"),  # K6
+    ("ops/pallas_chol.py", "cholesky_pallas"): ("ops/chol.py", "cholesky_tile"),  # K19
+    ("ops/pallas_chol.py", "cholesky_pallas_v2"): ("ops/chol.py", "cholesky_tile_v2"),  # K20
+    # the fused kernel's TPU gate; the port's is its route, "fused-matrix"
+    ("ops/pallas_fullchol.py", "fused_usable"): ("ops/linalg.py", "route_for"),
+    ("utils/config.py", "enable_x64"): None,  # JAX's 64-bit switch: torch takes the dtype
+    ("utils/config.py", "matmul_precision"): None,  # XLA's matmul tier: the port states its own
+    ("utils/config.py", "set_matmul_precision"): None,  # (config.MATMUL_TIER, TF32 off)
+}
+
+
+def _top_level_names(path: pathlib.Path, public_only: bool) -> set:
+    """Names a module defines or imports at its top level, read with ast
+    (neither package is imported); re-exports count in ``__init__.py``."""
+    import ast
+
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)) and (
+                not public_only or path.name == "__init__.py"):
+            names.update((a.asname or a.name).split(".")[0] for a in node.names)
+    return {n for n in names if not n.startswith("_")} if public_only else names
+
+
+def test_every_public_name_of_gpr_tpu_has_a_counterpart():
+    """Every module of gpr_tpu has its mirror in the port (a Pallas module
+    the port's modules of its kernels), and every public name there a name
+    in the mirror, but for the justified exclusions above, each of which
+    must still be needed and name a wrapper that exists."""
+    missing, used = [], set()
+    for f in sorted((ROOT / "gpr_tpu").rglob("*.py")):
+        rel = f.relative_to(ROOT / "gpr_tpu").as_posix()
+        mirrors = [ROOT / "gpr_tpu_torch" / m for m in _KERNEL_MODULES.get(rel, [rel])]
+        assert all(m.exists() for m in mirrors), f"no mirror of gpr_tpu/{rel}"
+        port = set().union(*(_top_level_names(m, public_only=False) for m in mirrors))
+        for name in sorted(_top_level_names(f, public_only=True) - port):
+            if (rel, name) in _NO_COUNTERPART:
+                used.add((rel, name))
+            else:
+                missing.append(f"gpr_tpu/{rel}::{name}")
+    assert not missing, missing
+    assert used == set(_NO_COUNTERPART), set(_NO_COUNTERPART) - used  # an exclusion no longer needed
+    for module, name in filter(None, _NO_COUNTERPART.values()):
+        assert name in _top_level_names(ROOT / "gpr_tpu_torch" / module, public_only=False), (module, name)
 
 
 def test_top_level_names_include_the_sparse_gp():
