@@ -66,6 +66,7 @@ from ..kernels.dsl import kernel_to_string, parse_kernel
 from ..ops import fullchol, linalg
 from ..ops import gram as gram_op
 from ..utils import config, matrixio
+from ..utils.profiling import host_wait, span
 
 
 class GP(nn.Module):
@@ -88,6 +89,8 @@ class GP(nn.Module):
         self.kernel = kernel
         self.register_buffer("X", X)
         self.register_buffer("Y", Y)
+        if not (isinstance(sigma, torch.Tensor) and sigma.device == X.device):
+            host_wait("exact.sigma", X)  # a blocking copy to the card
         self.register_buffer("sigma", torch.as_tensor(sigma, dtype=X.dtype, device=X.device))
         self.register_buffer("alpha", alpha)
         self.register_buffer("L", L)
@@ -326,43 +329,54 @@ def fit(kernel: kermod.Kernel, X, Y, sigma: float = 0.0, efficient_storage: bool
     kernels through the hand-written Gram and fused-factorization kernels,
     False never, None (the default) where the fused Gram route applies; see
     the module docstring for the routes.  X and Y run on ``device``
-    (see utils/config.py: the card unless told otherwise)."""
-    X = config.as_input(X, device)
-    Y = config.as_input(Y, X.device)
-    if X.ndim == 1:
-        X = X[:, None]
-    if Y.ndim == 1:
-        Y = Y[:, None]
-    if X.shape[0] == 0:
-        raise ValueError("GaussianProcess::Initialize: no input samples defined during initialization")
-    X = X.contiguous()
-    n = X.shape[0]
-    sigma = float(sigma)
-    route = fit_route(kernel, n, X.dtype, X.device, use_pallas_gram)
-    if route in ("fused-gram", "gram-kernel"):
-        form, *vals = kermod.kernel_form(kernel)
-        sg, sc, third = (float(v) for v in vals)
-        noise = float(np.float32(sigma) ** 2)  # sigma^2 in float32, as exact.py:351
+    (see utils/config.py: the card unless told otherwise).
+
+    Spans (utils/profiling.py): ``gpr.fit`` around the call, inside it
+    ``gpr.fit.factor`` (the Gram, the factor, its jitter loop and check) and
+    ``gpr.fit.solve`` (the solve for alpha)."""
+    with span("gpr.fit"):
+        X = config.as_input(X, device)
+        Y = config.as_input(Y, X.device)
+        if X.ndim == 1:
+            X = X[:, None]
+        if Y.ndim == 1:
+            Y = Y[:, None]
+        if X.shape[0] == 0:
+            raise ValueError("GaussianProcess::Initialize: no input samples defined during initialization")
+        X = X.contiguous()
+        n = X.shape[0]
+        sigma = float(sigma)
+        route = fit_route(kernel, n, X.dtype, X.device, use_pallas_gram)
+        if route in ("fused-gram", "gram-kernel"):
+            form, *vals = kermod.kernel_form(kernel)
+            sg, sc, third = (float(v) for v in vals)
+            noise = float(np.float32(sigma) ** 2)  # sigma^2 in float32, as exact.py:351
         if route == "fused-gram":
-            L, W, _ = fullchol.safe_gram_cholesky_fused(
-                X, sg, sc, third, noise, form=form, initial_jitter=jitter, return_winv=True,
-            )
-            n_pad = L.shape[0]
-            Yp = torch.zeros((n_pad, Y.shape[1]), dtype=Y.dtype, device=Y.device)
-            Yp[:n] = Y
-            # the padded system is block diagonal: its leading factor is
-            # chol(K + sigma^2 I) and the pad rows of alpha are exact 0
-            alpha = fullchol.cho_solve_panels(L, W, Yp)[:n]
+            with span("gpr.fit.factor"):
+                L, W, _ = fullchol.safe_gram_cholesky_fused(
+                    X, sg, sc, third, noise, form=form, initial_jitter=jitter, return_winv=True,
+                )
+            with span("gpr.fit.solve"):
+                n_pad = L.shape[0]
+                Yp = torch.zeros((n_pad, Y.shape[1]), dtype=Y.dtype, device=Y.device)
+                Yp[:n] = Y
+                # the padded system is block diagonal: its leading factor is
+                # chol(K + sigma^2 I) and the pad rows of alpha are exact 0
+                alpha = fullchol.cho_solve_panels(L, W, Yp)[:n]
             return GP(kernel, X, Y, sigma, alpha, None if efficient_storage else L[:n, :n],
                       route="fused-gram")
-        Xf = X.to(torch.float32)
-        K = gram_op.gram(Xf, Xf, sg, sc, third, diag=noise, form=form,
-                         tril=n >= linalg.BLOCKED_MIN_N).to(X.dtype)
-    else:
-        K = linalg.add_diagonal(kermod.gram(kernel, X), torch.as_tensor(sigma, dtype=X.dtype) ** 2)
-    L, _ = linalg.safe_cholesky(K, initial_jitter=jitter)
-    alpha = linalg.cho_solve(L, Y)
-    return GP(kernel, X, Y, sigma, alpha, None if efficient_storage else L, route=route)
+        with span("gpr.fit.factor"):
+            if route == "gram-kernel":
+                Xf = X.to(torch.float32)
+                K = gram_op.gram(Xf, Xf, sg, sc, third, diag=noise, form=form,
+                                 tril=n >= linalg.BLOCKED_MIN_N).to(X.dtype)
+            else:
+                K = linalg.add_diagonal(kermod.gram(kernel, X),
+                                        torch.as_tensor(sigma, dtype=X.dtype) ** 2)
+            L, _ = linalg.safe_cholesky(K, initial_jitter=jitter)
+        with span("gpr.fit.solve"):
+            alpha = linalg.cho_solve(L, Y)
+        return GP(kernel, X, Y, sigma, alpha, None if efficient_storage else L, route=route)
 
 
 def load(prefix: str, dtype=None, device=None) -> GP:

@@ -35,6 +35,7 @@ import torch
 from ..gp import likelihood as lk
 from ..kernels.kernels import params_vector
 from ..ops import linalg
+from ..utils.profiling import count, device_crossings, host_wait, span
 
 # ---------------------------------------------------------------------------
 # objectives
@@ -93,20 +94,38 @@ class OptResult:
 
 def _run_adam(objective: Callable, x0: torch.Tensor, learning_rate: float,
               iterations: int):
+    """Adam from x0 on the host.  Each step is the spans ``gpr.mll.forward``
+    (the objective; the final value's too), ``gpr.mll.backward`` (its
+    gradient) and ``gpr.adam.update`` (the step and the trace's entry), and
+    counts ``adam.steps``.  Where the objective runs on the card, the host
+    waits for it at each gradient copy back to x (one per device crossing
+    of the graph, the same graph every step), at each trace entry and at the
+    final value (utils/profiling.py)."""
     x = x0.detach().clone().requires_grad_()
     opt = torch.optim.Adam([x], lr=learning_rate)
     trace = torch.empty(iterations, dtype=x0.dtype)
+    crossings = None
     for i in range(iterations):
         with torch.enable_grad():
-            value = objective(x)
-            (g,) = torch.autograd.grad(value, x)
-        # minimise -objective; a non-finite entry steps by 0
-        x.grad = torch.where(torch.isfinite(g), -g, 0.0)
-        opt.step()
-        trace[i] = value.detach()
+            with span("gpr.mll.forward"):
+                value = objective(x)
+            with span("gpr.mll.backward"):
+                if crossings is None:
+                    crossings = device_crossings(value.grad_fn)
+                count("host_wait.adam.grad", crossings)
+                (g,) = torch.autograd.grad(value, x)
+        with span("gpr.adam.update"):
+            # minimise -objective; a non-finite entry steps by 0
+            x.grad = torch.where(torch.isfinite(g), -g, 0.0)
+            opt.step()
+            host_wait("adam.trace", value)
+            trace[i] = value.detach()
+        count("adam.steps")
     x = x.detach()
-    with torch.no_grad():
-        final = float(objective(x))
+    with torch.no_grad(), span("gpr.mll.forward"):
+        value = objective(x)
+        host_wait("adam.final", value)
+        final = float(value)
     return x, final, trace
 
 
@@ -130,8 +149,10 @@ def _fit(kernel, X, Y, sigma, iterations, learning_rate, log_space, device, prio
 
 def fit_mle(kernel, X, Y, sigma, iterations: int = 200, learning_rate: float = 0.05,
             log_space: bool = True, device=None):
-    """Maximize the log marginal likelihood; returns (kernel*, OptResult)."""
-    return _fit(kernel, X, Y, sigma, iterations, learning_rate, log_space, device)
+    """Maximize the log marginal likelihood; returns (kernel*, OptResult).
+    The span ``gpr.fit_mle`` covers the call."""
+    with span("gpr.fit_mle"):
+        return _fit(kernel, X, Y, sigma, iterations, learning_rate, log_space, device)
 
 
 def fit_map(kernel, X, Y, sigma, priors: Sequence, weight: float = 1.0, iterations: int = 200,

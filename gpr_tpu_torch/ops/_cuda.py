@@ -9,8 +9,9 @@ there is no fallback: a missing ``nvcc`` or a failed build raises.
 
 Every C entry point launches on the stream it is given (PyTorch's current
 stream), allocates nothing and returns ``cudaGetLastError()``; :class:`Kernel`
-raises if that is not 0 and counts the launches that went through, so that a
-run can show that its path reached the kernel.
+raises if that is not 0 and counts the launches that went through, as the
+counter ``launch.<kernel>`` of utils/profiling.py, so that a run can show that
+its path reached the kernel.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import tempfile
 from pathlib import Path
 
 import torch
+
+from ..utils.profiling import count, counters, reset_counters
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -143,11 +146,11 @@ class Kernel:
         self.source = f"gpr_tpu_torch/csrc/{source}"
         self.replaces = f"gpr_tpu/ops/{replaces}"
         self.argtypes = list(argtypes) + [_P]  # the stream comes last
-        self.launches = 0
+        self.counter = f"launch.{name}"
 
     def launch(self, device: torch.device, *args) -> None:
         _call(self.name, self.symbol, self.argtypes, device, args)
-        self.launches += 1
+        count(self.counter)
 
 
 class Schedule:
@@ -163,8 +166,8 @@ class Schedule:
 
     def launch(self, device: torch.device, launches: dict, *args) -> None:
         _call(self.name, self.symbol, self.argtypes, device, args)
-        for kernel, count in launches.items():
-            kernel.launches += count
+        for kernel, k in launches.items():
+            count(kernel.counter, k)
 
 
 # (X, Y, K, n, m, d, form, sigma, scale, third, diag, tril)
@@ -246,9 +249,9 @@ KERNELS = (GRAM, PANEL_UPDATE, DIAG_FACTOR_INV, PANEL_SOLVE, SYRK_UPDATE, GRAM_B
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    reset_counters("launch.")
 
 
 def launch_counts() -> dict:
-    return {k.name: k.launches for k in KERNELS}
+    c = counters()
+    return {k.name: c.get(k.counter, 0) for k in KERNELS}

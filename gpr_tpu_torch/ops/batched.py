@@ -49,6 +49,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.profiling import count, host_wait
 from . import _cuda, linalg
 from .crout import crout_chol, crout_chol_wi, crout_chol_wi_reference
 
@@ -317,11 +318,14 @@ def _escalate(route, K, Y, panel, initial_jitter, max_tries):
     diagonal entry is not finite, with JAX's schedule (linalg.py:197-263):
     ``initial_jitter`` or eps * max(mean |diag(K)[:1024]|, 1) on the first
     retry, 10x on every later one.  The retries factor the failed members
-    alone, on the same route; each member's jitter stays once it factors."""
+    alone, on the same route; each member's jitter stays once it factors.
+    Counted by member: ``factor.fleet`` the members factored (the fleet, then
+    each retry's), ``retry.fleet`` the members retried."""
     L, alpha, W = _attempt(route, K, Y, panel)
+    count("factor.fleet", K.shape[0])
     ok = torch.isfinite(L[:, -1, -1])
     jitter = torch.zeros(K.shape[0], dtype=K.dtype, device=K.device)
-    if bool(ok.all()):  # the success path: one factorization, one read
+    if _all_ok(ok):  # the success path: one factorization, one read
         return L, alpha, W, jitter, ok, True
     h = min(K.shape[-1], 1024)
     diag_mean = torch.diagonal(K[:, :h, :h], dim1=-2, dim2=-1).abs().mean(-1)
@@ -330,16 +334,24 @@ def _escalate(route, K, Y, panel, initial_jitter, max_tries):
     else:
         base = torch.finfo(K.dtype).eps * torch.clamp(diag_mean, min=1.0)
     for tries in range(max_tries):
+        host_wait("fleet.nonzero", ok)  # the failed members' count is read
         idx = torch.nonzero(~ok).squeeze(1)
+        count("factor.fleet", idx.shape[0])
+        count("retry.fleet", idx.shape[0])
         jitter[idx] = base[idx] if tries == 0 else jitter[idx] * 10.0
         Ln, an, Wn = _attempt(route, linalg.add_diagonal(K[idx], jitter[idx]), Y[idx], panel)
         L[idx], alpha[idx] = Ln, an
         if W is not None:
             W[idx] = Wn
         ok[idx] = torch.isfinite(Ln[:, -1, -1])
-        if bool(ok.all()):
+        if _all_ok(ok):
             return L, alpha, W, jitter, ok, True
     return L, alpha, W, jitter, ok, False
+
+
+def _all_ok(ok: torch.Tensor) -> bool:
+    host_wait("fleet.ok", ok)
+    return bool(ok.all())
 
 
 def _route_solve(route, L, B, panel, W):

@@ -44,6 +44,7 @@ import functools
 
 import torch
 
+from ..utils.profiling import count, host_wait
 from . import _cuda
 from .gram import FORMS, form_value
 
@@ -335,17 +336,26 @@ def safe_gram_cholesky_fused(X, sigma, scale, third, noise, *, form: str = "gaus
     read, L[-1, -1]."""
     eps = float(torch.finfo(torch.float32).eps)
     L, W = gram_cholesky_fused(X, sigma, scale, third, noise, form=form, return_winv=True)
+    count("factor.fullchol")
     jitter = 0.0
-    if not torch.isfinite(L[-1, -1]):
+    if not _last_pivot_ok(L):
         base = initial_jitter if initial_jitter > 0 else eps * max(scale * scale + noise, 1.0)
         for tries in range(max_tries):
             jitter = base if tries == 0 else jitter * 10.0
             L, W = gram_cholesky_fused(X, sigma, scale, third, noise + jitter, form=form,
                                        return_winv=True)
-            if torch.isfinite(L[-1, -1]):
+            count("factor.fullchol")
+            count("retry.fullchol")
+            if _last_pivot_ok(L):
                 break
+    host_wait("fullchol.jitter", X)  # a blocking copy to the card
     jit = torch.tensor(jitter, dtype=torch.float32, device=X.device)
     return (L, W, jit) if return_winv else (L, jit)
+
+
+def _last_pivot_ok(L) -> bool:
+    host_wait("fullchol.ok", L)
+    return bool(torch.isfinite(L[-1, -1]))
 
 
 def cho_solve_panels(L, W, B) -> torch.Tensor:

@@ -71,6 +71,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.profiling import count, host_wait
 from .blocked import _leaf_inverse_default, cholesky_blocked
 from .fullchol import PANEL, cholesky_fused
 from .inplace_chol import cholesky_inplace
@@ -87,6 +88,8 @@ BLOCKED_MIN_N = 1024
 def add_diagonal(A: torch.Tensor, value) -> torch.Tensor:
     """A + value * I; ``value`` is a scalar or one value per batch element."""
     n = A.shape[-1]
+    if not (isinstance(value, torch.Tensor) and value.device == A.device):
+        host_wait("linalg.add_diagonal", A)  # a blocking copy to the card
     value = torch.as_tensor(value, dtype=A.dtype, device=A.device)
     if value.ndim:
         value = value[..., None, None]
@@ -147,12 +150,18 @@ def _diag_ok(L: torch.Tensor) -> torch.Tensor:
     return torch.isfinite(L[..., -1, -1])
 
 
+def _all_ok(ok: torch.Tensor) -> bool:
+    host_wait("linalg.ok", ok)
+    return bool(ok.all())
+
+
 def _safe_cholesky_forward(A, initial_jitter, max_tries):
     factor = _FACTOR[cholesky_route(A)]
     L = factor(A)
+    count("factor.linalg")
     ok = _diag_ok(L)
     jitter = torch.zeros(A.shape[:-2], dtype=A.dtype, device=A.device)
-    if bool(ok.all()):
+    if _all_ok(ok):
         return L, jitter
     h = min(A.shape[-1], 1024)
     diag_mean = torch.diagonal(A[..., :h, :h], dim1=-2, dim2=-1).abs().mean(-1)
@@ -165,9 +174,11 @@ def _safe_cholesky_forward(A, initial_jitter, max_tries):
         jesc = base if tries == 0 else jitter * 10.0
         jitter = torch.where(ok, jitter, jesc)
         Lnew = factor(add_diagonal(A, jitter))
+        count("factor.linalg")
+        count("retry.linalg")
         L = torch.where(ok[..., None, None], L, Lnew)
         ok = ok | _diag_ok(Lnew)
-        if bool(ok.all()):
+        if _all_ok(ok):
             break
     return L, jitter
 

@@ -43,7 +43,8 @@ row-sharded array (K, L) is the rank's (nb, n) block; a function that takes
 one also accepts the whole (n, n) matrix and keeps the rank's rows.
 ``safe_cholesky_sharded``'s jitter loop runs on the host, as the port's
 ``linalg.safe_cholesky`` does: the last rank holds L[-1, -1], whose
-finiteness it broadcasts, one host read a try.
+finiteness it broadcasts, one host read a try.  Each collective is the span
+``gpr.sharded.collective`` (utils/profiling.py).
 
 The mesh's backend follows its device, NCCL for CUDA and gloo for the CPU.
 Where no process group exists, :func:`default_mesh` joins the world that
@@ -66,6 +67,7 @@ import torch.distributed as dist
 from ..kernels import kernels as kermod
 from ..ops.blocked import cholesky_blocked, solve_triangular_blocked
 from ..utils import config
+from ..utils.profiling import count, host_wait, span
 
 _MESHES: dict = {}  # (world, device type, shape, names) -> DeviceMesh
 
@@ -147,11 +149,13 @@ class _Axis:
         self.size = dist.get_world_size(self.group)
 
     def broadcast(self, t: torch.Tensor, owner: int) -> torch.Tensor:
-        dist.broadcast(t, src=dist.get_global_rank(self.group, owner), group=self.group)
+        with span("gpr.sharded.collective"):
+            dist.broadcast(t, src=dist.get_global_rank(self.group, owner), group=self.group)
         return t
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        dist.all_reduce(t, group=self.group)
+        with span("gpr.sharded.collective"):
+            dist.all_reduce(t, group=self.group)
         return t
 
     def mean(self, t: torch.Tensor) -> torch.Tensor:
@@ -162,7 +166,8 @@ class _Axis:
         """Every rank's ``t`` concatenated along ``dim`` in rank order."""
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(self.size)]
-        dist.all_gather(parts, t, group=self.group)
+        with span("gpr.sharded.collective"):
+            dist.all_gather(parts, t, group=self.group)
         return torch.cat(parts, dim)
 
     def rows(self, K: torch.Tensor) -> Tuple[torch.Tensor, int]:
@@ -269,6 +274,7 @@ def _last_pivot_ok(L_local: torch.Tensor, ax: _Axis) -> bool:
     through every later panel, across ranks (sharded_gram.py:160-162).  The
     last rank holds it and broadcasts one flag."""
     flag = torch.isfinite(L_local[-1:, -1]).to(L_local.dtype)
+    host_wait("sharded.ok", flag)
     return bool(ax.broadcast(flag, ax.size - 1)[0] > 0)
 
 
@@ -283,6 +289,7 @@ def _safe_chol(fresh, ax: _Axis, nb: int, mesh, axis: str, initial_jitter: float
     else:  # read before the factor overwrites A; one all-reduce of a scalar
         base = torch.finfo(dtype).eps * torch.clamp(_diag_mean_sharded(A, mesh, axis), min=1.0)
     L = _chol_panels(A, ax, nb)
+    count("factor.sharded")
     del A
     jitter = torch.zeros((), dtype=dtype, device=device)
     if _last_pivot_ok(L, ax):
@@ -291,6 +298,8 @@ def _safe_chol(fresh, ax: _Axis, nb: int, mesh, axis: str, initial_jitter: float
         jitter = base if tries == 0 else jitter * 10.0
         L = None  # the failed factor goes before the next copy is made
         L = _chol_panels(fresh(jitter), ax, nb)
+        count("factor.sharded")
+        count("retry.sharded")
         if _last_pivot_ok(L, ax):
             break
     return L, jitter

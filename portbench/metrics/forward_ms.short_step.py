@@ -1,0 +1,7 @@
+"""``forward_ms.short_step``: ``forward_ms.train``'s reading
+(metrics/forward_ms.train.py) in a cell whose training step is short and
+paced by the host, reported apart because it moves ``short_step_ms``."""
+
+from portbench.core import manifest
+
+read = manifest.load_module("metrics", "forward_ms.train").read

@@ -1804,3 +1804,76 @@ def test_histogram_matching_and_median_filter_on_the_card(dev):
         got, want = filters.histogram_matching(ta.to(dev), tb.to(dev)).cpu(), filters.histogram_matching(ta, tb)
         tol = 1e-12 if dtype == torch.float64 else 2e-6
         torch.testing.assert_close(got, want, rtol=0, atol=tol * float(want.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# utils/profiling.py on the card: spans and host waits
+# ---------------------------------------------------------------------------
+
+def _gauss_data(dev, n, d, q, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return (torch.randn(n, d, generator=g, device=dev), torch.randn(n, q, generator=g, device=dev))
+
+
+def test_fit_spans_stay_off_the_device_timeline_and_add_up(dev):
+    """A profiled fit shows no device event named ``gpr.*`` (the spans are
+    host ``cpu_op`` events, not annotations that the profiler mirrors onto
+    the device), and the device time of ``gpr.fit.factor`` and
+    ``gpr.fit.solve`` adds up to within 5 % of ``gpr.fit``'s."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpr_tpu_torch.utils import profiling as prof
+
+    X, Y = _gauss_data(dev, 4096, 32, 4, 71)
+    k = tg.Gaussian(4.0, 1.0)
+    tg.fit(k, X, Y, sigma=0.1)
+    torch.cuda.synchronize()
+    prof.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        for _ in range(3):
+            gp = tg.fit(k, X, Y, sigma=0.1)
+        torch.cuda.synchronize()
+    assert gp.route == "fused-gram"
+    events = [e for e in p.profiler.kineto_results.events() if e.name().startswith("gpr.")]
+    assert len(events) == 9 and all(str(e.device_type()).endswith("CPU") for e in events)
+    recs = prof.spans()
+    for call in {r["call"] for r in recs}:
+        ms = {r["name"]: r["device_ms"] for r in recs if r["call"] == call}
+        assert ms["gpr.fit.factor"] > 0 and ms["gpr.fit.solve"] > 0
+        assert abs(ms["gpr.fit.factor"] + ms["gpr.fit.solve"] - ms["gpr.fit"]) <= 0.05 * ms["gpr.fit"], ms
+
+
+@pytest.mark.parametrize("what,n", [("fit_mle", 1100), ("fit_mle", 1024), ("fit", 1024), ("fit", 700)])
+def test_host_wait_counters_match_sync_debug_mode(dev, what, n):
+    """Over one request the port's ``host_wait.*`` counters rise by as many as
+    the points where ``torch.cuda.set_sync_debug_mode("warn")`` flags the
+    host waiting for the card: training on ``blocked-syrk`` (n=1100) and
+    ``fused-matrix`` (n=1024), fits on ``fused-gram`` and (n=700,
+    ``use_pallas_gram=False``) the matrix route."""
+    import warnings
+
+    from gpr_tpu_torch.utils import profiling as prof
+
+    X, Y = _gauss_data(dev, n, 5, 3, 72)
+    k = tg.Gaussian(2.0, 1.0)
+    if what == "fit_mle":
+        def run():
+            tg.fit_mle(k, X, Y, 0.1, iterations=3)
+    else:
+        def run():
+            tg.fit(k, X, Y, sigma=0.1, use_pallas_gram=None if n % 128 == 0 else False)
+    run()
+    torch.cuda.synchronize()
+    before = prof.counters()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    flagged = sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+    waits = {kk: v - before.get(kk, 0) for kk, v in prof.counters().items()
+             if kk.startswith("host_wait.") and v != before.get(kk, 0)}
+    assert flagged > 0 and sum(waits.values()) == flagged, (flagged, waits)
